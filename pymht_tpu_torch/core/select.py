@@ -1,0 +1,580 @@
+"""Global hypothesis selection, the tiered hybrid (counterpart of the
+``'lagrangian'`` and ``'greedy'`` paths of pymht_tpu/core/select.py).
+
+Pick one leaf per target minimising total score subject to single-use
+(window column, measurement) slots:
+
+* tier 0 — if the per-target independent optima are conflict-free they
+  are the global optimum; no solver runs;
+* tier 1 — singleton clusters take their argmin leaf;
+* tier 2 — clusters of 2..4 targets are solved exactly by batched
+  enumeration over each member's top-C leaves;
+* tier 3 — larger clusters run the compact contested-slot Lagrangian,
+  warm-started from the duals carried across scans.
+
+Only the dense formulations are ported; above their size limits (and
+for ``'ipm'``/``'lagrangian_pure'``) the functions raise
+NotImplementedError.  Where JAX branches or exits a loop on a device
+value, the port reads it on the host (``sync.flag``); loop bodies are
+functions from carry to carry.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import sync
+from .config import TrackerShapes, TrackerParams
+from .grow import smallest_k
+from .state import TrackerState
+
+BIG = 1e4
+K_ENUM = 4
+C_ENUM = 16
+
+# Dense-formulation limits of the JAX package (select.py:109,263,979);
+# the scatter formulations above them are not ported yet.
+_USAGE_DENSE_LIMIT = 1 << 29
+_INT32_WALL = 1 << 31
+CLUSTER_COMPACT_CAP = 2048
+
+INF = float("inf")
+
+
+class SelectionResult(NamedTuple):
+    sel: torch.Tensor        # [T] selected leaf per target
+    feasible: torch.Tensor   # [] bool
+    obj: torch.Tensor        # [] selected total score
+    bound: torch.Tensor      # [] lower bound (gap certificate)
+    labels: torch.Tensor     # [T] cluster label per target
+    n_clusters: torch.Tensor  # [] number of clusters
+    lam: torch.Tensor        # [S] final dual prices
+
+
+def _dense_only(what, n, limit):
+    if n > limit:
+        raise NotImplementedError(
+            f"{what}: {n} elements exceed the dense limit {limit}; the "
+            f"scatter formulation is not ported yet")
+
+
+# ----------------------------------------------------------------------
+# Usage encoding
+# ----------------------------------------------------------------------
+
+def _slot_index(state: TrackerState, shapes: TrackerShapes):
+    """Global single-use slot id of each (leaf, window column): radar
+    measurement m at column w -> w*(M+A) + m, AIS message a ->
+    w*(M+A) + M + a, none -> n_slots.  Returns ([T,L,W,2], n_slots)."""
+    T, L, W = state.hist_meas.shape
+    M, A = shapes.max_meas, shapes.max_ais
+    per_col = M + A
+    n_slots = W * per_col
+    w_ids = torch.arange(W, device=state.hist_meas.device)[None, None, :]
+    radar = torch.where(state.hist_meas >= 1,
+                        w_ids * per_col + (state.hist_meas - 1), n_slots)
+    ais = torch.where(state.hist_ais >= 1,
+                      w_ids * per_col + M + (state.hist_ais - 1), n_slots)
+    return torch.stack([radar, ais], dim=-1), n_slots
+
+
+def _hist_usage(state: TrackerState, shapes: TrackerShapes):
+    """[T, W, M+A] bool: does any live leaf of target t use radar
+    measurement m (block [0, M)) or AIS message a (block [M, M+A)) at
+    window column w?  Dense form only."""
+    T, L, W = state.hist_meas.shape
+    M, A = shapes.max_meas, shapes.max_ais
+    _dense_only("_hist_usage", T * L * W * (M + A), _USAGE_DENSE_LIMIT)
+    dev = state.hist_meas.device
+    live = state.leaf_mask[:, :, None, None]
+    um = ((state.hist_meas[..., None]
+           == torch.arange(1, M + 1, device=dev)) & live).any(dim=1)
+    ua = ((state.hist_ais[..., None]
+           == torch.arange(1, A + 1, device=dev)) & live).any(dim=1)
+    return torch.cat([um, ua], dim=2)
+
+
+# ----------------------------------------------------------------------
+# Clustering
+# ----------------------------------------------------------------------
+
+def _propagate_labels(adj, carry):
+    """One round of min-label propagation with pointer jumping."""
+    labels, _ = carry
+    T = labels.shape[0]
+    neigh = torch.where(adj, labels[None, :], T)
+    new = torch.minimum(labels, neigh.amin(dim=1))
+    lab_pad = torch.cat([new, new.new_full((1,), T)])
+    new = torch.minimum(new, lab_pad[new.clamp(0, T)])
+    return new, (new != labels).any()
+
+
+def cluster(state: TrackerState, shapes: TrackerShapes, usage=None):
+    """Connected components of the target-measurement sharing graph.
+    Returns (labels [T], n_clusters []).  The adjacency is built over the
+    contested slots only (at most CLUSTER_COMPACT_CAP of them, else the
+    full usage matrix)."""
+    T, L, W = state.hist_meas.shape
+    M, A = shapes.max_meas, shapes.max_ais
+    S = W * (M + A)
+    _dense_only("cluster", T * S, _INT32_WALL)
+    dev = state.hist_meas.device
+    CAPc = min(CLUSTER_COMPACT_CAP, S)
+    use = _hist_usage(state, shapes) if usage is None else usage
+    useb = use.reshape(T, -1)                                 # [T, S]
+    contested = useb.sum(dim=0) >= 2
+    n_cont = contested.sum()
+    slot_ids = torch.where(contested, torch.arange(S, device=dev), S)
+    idx = torch.sort(slot_ids).values[:CAPc]
+    uc = (useb[:, idx.clamp(0, S - 1)] & (idx < S)[None, :]).float()
+    if sync.flag(n_cont <= CAPc):
+        adj = (uc @ uc.T) > 0
+    else:
+        usef = useb.float()
+        adj = (usef @ usef.T) > 0
+    tm = state.tgt_mask
+    adj = adj & tm[:, None] & tm[None, :]
+    adj = adj | (torch.eye(T, dtype=torch.bool, device=dev) & tm[:, None])
+
+    tids = torch.arange(T, device=dev)
+    carry = (torch.where(tm, tids, T), None)
+    while True:      # the JAX loop's first test is always true
+        carry = _propagate_labels(adj, carry)
+        if not sync.flag(carry[1]):
+            break
+    labels = carry[0]
+    is_root = tm & (labels == tids)
+    return labels.int(), is_root.sum().int()
+
+
+def cluster_sizes(labels, tgt_mask):
+    """[T] member count of each target's cluster (0 for inactive)."""
+    same = (labels[:, None] == labels[None, :]) & tgt_mask[None, :]
+    return torch.where(tgt_mask, same.sum(dim=1).int(), 0)
+
+
+def leaf_scores(state: TrackerState, params: TrackerParams):
+    f = (state.leaf_cnllr - state.tgt_root_cnllr[:, None]) / params.N
+    return torch.where(state.leaf_mask, f, BIG)
+
+
+# ----------------------------------------------------------------------
+# Tier 2: batched exact enumeration of small clusters
+# ----------------------------------------------------------------------
+
+def _candidate_sets(state: TrackerState, f, C: int):
+    """Top-C leaves per target by score (JAX top_k tie order), with the
+    spine leaf forced into the set, and ``excl_lb`` [T]: a lower bound on
+    the score of every leaf outside the set (+inf without truncation)."""
+    T, L = f.shape
+    topv, topi = smallest_k(f, C)
+    spine = state.spine_leaf.long().clamp(0, L - 1)
+    in_set = (topi == spine[:, None]).any(dim=1)
+    topi = topi.clone()
+    topi[:, C - 1] = torch.where(in_set, topi[:, C - 1], spine)
+    n_live = state.leaf_mask.sum(dim=1)
+    excl_lb = torch.where(n_live > C, topv[:, C - 1], INF)
+    return topi, excl_lb
+
+
+def _enum_buckets(bf, bs, n_slots):
+    """Exhaustive C^K enumeration for a block of buckets (K = 4).
+    bf [b,K,C], bs [b,K,C,W2] -> (best combo index [b], value [b])."""
+    C = bf.shape[2]
+    K = K_ENUM
+    conf = {}
+    for i in range(K):
+        for j in range(i + 1, K):
+            a, b = bs[:, i], bs[:, j]                          # [b,C,W2]
+            eq = a[:, :, None, :, None] == b[:, None, :, None, :]
+            valid = a[:, :, None, :, None] < n_slots
+            conf[(i, j)] = (eq & valid).flatten(3).any(dim=3)  # [b,C,C]
+    score = (bf[:, 0][:, :, None, None, None]
+             + bf[:, 1][:, None, :, None, None]
+             + bf[:, 2][:, None, None, :, None]
+             + bf[:, 3][:, None, None, None, :])
+    ok = (~conf[(0, 1)][:, :, :, None, None]
+          & ~conf[(0, 2)][:, :, None, :, None]
+          & ~conf[(0, 3)][:, :, None, None, :]
+          & ~conf[(1, 2)][:, None, :, :, None]
+          & ~conf[(1, 3)][:, None, :, None, :]
+          & ~conf[(2, 3)][:, None, None, :, :])
+    total = torch.where(ok, score, INF).reshape(-1, C ** K)
+    return total.argmin(dim=1), total.amin(dim=1)
+
+
+def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
+                         labels, small, C: int = C_ENUM):
+    """Exact batched solve of all clusters with 2..K_ENUM members over
+    each member's top-C leaves.  Returns (sel_enum [T], obj_small [],
+    bound_small []), the bound sound under candidate truncation."""
+    T, L, W2 = slots_flat.shape
+    C = min(C, L)
+    K = K_ENUM
+    B = max(T // 2, 1)
+    dev = f.device
+    tidx = torch.arange(T, device=dev)
+
+    same = small[None, :] & (labels[:, None] == labels[None, :])
+    rank = (same & (tidx[None, :] < tidx[:, None])).sum(dim=1)      # [T]
+    is_root = small & (labels == tidx)
+    bid_of_root = torch.cumsum(is_root.int(), 0) - 1
+    bucket_of = torch.where(small, bid_of_root[labels.long().clamp(0, T - 1)],
+                            B)
+    hit = (small[None, None, :]
+           & (bucket_of[None, None, :]
+              == torch.arange(B, device=dev)[:, None, None])
+           & (rank[None, None, :]
+              == torch.arange(K, device=dev)[None, :, None]))
+    members = torch.where(hit.any(dim=2), hit.int().argmax(dim=2), T)  # [B,K]
+
+    cand_idx, excl_lb = _candidate_sets(state, f, C)
+    cand_f = torch.gather(f, 1, cand_idx)                             # [T,C]
+    cand_slots = torch.gather(
+        slots_flat, 1, cand_idx[:, :, None].expand(T, C, W2))      # [T,C,W2]
+    cand_f = torch.cat([cand_f, cand_f.new_zeros((1, C))], 0)
+    cand_slots = torch.cat(
+        [cand_slots, cand_slots.new_full((1, C, W2), n_slots)], 0)
+    bf = cand_f[members]                                              # [B,K,C]
+    bs = cand_slots[members]                                       # [B,K,C,W2]
+
+    # Chunk buckets so the [b, C^K] tensor stays <= B_CHUNK * C^K floats.
+    B_CHUNK = 256
+    parts = [_enum_buckets(bf[i:i + B_CHUNK], bs[i:i + B_CHUNK], n_slots)
+             for i in range(0, B, B_CHUNK)]
+    best = torch.cat([p[0] for p in parts])
+    best_val = torch.cat([p[1] for p in parts])
+    c_of = torch.stack([best // C ** 3, (best // C ** 2) % C,
+                        (best // C) % C, best % C], dim=1)            # [B,K]
+    chosen = c_of[bucket_of.clamp(0, B - 1), rank.clamp(0, K - 1)]
+    sel_enum = cand_idx[tidx, chosen]
+    finite = torch.isfinite(best_val)
+    obj_small = torch.where(finite, best_val, 0.0).sum()
+
+    min_incl = torch.cat([cand_f[:T].amin(dim=1), f.new_zeros((1,))])
+    excl_pad = torch.cat([excl_lb, excl_lb.new_full((1,), INF)])
+    b_min, b_excl = min_incl[members], excl_pad[members]
+    indep = b_min.sum(dim=1)
+    swap_pen = (b_excl - b_min).amin(dim=1)
+    lb_outside = torch.where(torch.isfinite(swap_pen), indep + swap_pen, INF)
+    lb_bucket = torch.minimum(torch.where(finite, best_val, INF), lb_outside)
+    bound_small = torch.where(torch.isfinite(lb_bucket), lb_bucket, 0.0).sum()
+    return sel_enum, obj_small, bound_small
+
+
+# ----------------------------------------------------------------------
+# Tier 3: Lagrangian over the contested slots
+# ----------------------------------------------------------------------
+
+class _Compact(NamedTuple):
+    """Loop-invariant data of the compact Lagrangian."""
+    f: torch.Tensor          # [T, L] leaf scores
+    Uc: torch.Tensor         # [T, L, CAP] contested-slot usage (0/1)
+    spine: torch.Tensor      # [T]
+    eff_tgt: torch.Tensor    # [T] bool — participating targets
+    unavoid: torch.Tensor    # [T, CAP] bool — every live leaf uses slot
+
+
+def _rc_of(cp: _Compact, lam):
+    return cp.f + torch.einsum('tlc,c->tl', cp.Uc, lam)
+
+
+def _usel_of(cp: _Compact, sel):
+    T = sel.shape[0]
+    return cp.Uc[torch.arange(T, device=sel.device), sel]             # [T,CAP]
+
+
+def _decode(cp: _Compact, lam):
+    rc = _rc_of(cp, lam)
+    lb = torch.where(cp.eff_tgt, rc.amin(dim=1), 0.0).sum() - lam.sum()
+    return rc.argmin(dim=1), lb
+
+
+def _obj_of(cp: _Compact, sel):
+    T = sel.shape[0]
+    return torch.where(cp.eff_tgt,
+                       cp.f[torch.arange(T, device=sel.device), sel],
+                       0.0).sum()
+
+
+def _repair_round(cp: _Compact, rc, carry):
+    """Keep-best-per-slot conflict resolution: each over-used slot keeps
+    its best claimant (unavoidable claimants first, then spine holders,
+    then score; lowest index within tolerance); the others ban their
+    current leaf and repick by reduced cost plus a contested penalty."""
+    sel, banned, _ = carry
+    T, L = cp.f.shape
+    dev = sel.device
+    tb = torch.arange(T, device=dev)
+    usel = _usel_of(cp, sel)
+    over = usel.sum(dim=0) > 1.5                                      # [CAP]
+    on_spine = (sel == cp.spine).float()
+    keyc = (cp.f[tb, sel][:, None] - 5e7 * on_spine[:, None]
+            - 1e8 * cp.unavoid.float())
+    claiming = (usel > 0.5) & over[None, :]
+    slot_min = torch.where(claiming, keyc, INF).amin(dim=0)
+    in_conf = claiming.any(dim=1) & cp.eff_tgt
+    tol = 1e-5 * (1.0 + slot_min.abs())
+    is_min = claiming & (keyc <= (slot_min + tol)[None, :])
+    owner = torch.where(is_min, tb[:, None], T).amin(dim=0)
+    keeper = (~claiming | (owner[None, :] == tb[:, None])).all(dim=1)
+    loser = in_conf & ~keeper
+    banned = banned | (loser[:, None]
+                       & (torch.arange(L, device=dev)[None, :]
+                          == sel[:, None]))
+    pen = torch.einsum('tlc,c->tl', cp.Uc, over.float())
+    rcb = torch.where(banned, INF, rc + 1e3 * pen)
+    sel = torch.where(loser, rcb.argmin(dim=1), sel)
+    return sel, banned, in_conf.any()
+
+
+def _repair(cp: _Compact, sel, lam, repair_rounds):
+    rc = _rc_of(cp, lam)
+    carry = (sel, torch.zeros_like(cp.f, dtype=torch.bool), None)
+    for it in range(repair_rounds):
+        # the JAX loop starts with had_conf = True: no read on round 0
+        if it > 0 and not sync.flag(carry[2]):
+            break
+        carry = _repair_round(cp, rc, carry)
+    sel = carry[0]
+    return sel, ~(_usel_of(cp, sel).sum(dim=0) > 1.5).any()
+
+
+class _LagCarry(NamedTuple):
+    it: int
+    lam: torch.Tensor
+    best_sel: torch.Tensor
+    best_obj: torch.Tensor
+    best_feas: torch.Tensor
+    best_lb: torch.Tensor
+    stale: torch.Tensor
+    th: torch.Tensor
+    lb_stale: torch.Tensor
+
+
+def _lagrangian_step(cp: _Compact, repair_rounds, repair_cadence,
+                     c: _LagCarry) -> _LagCarry:
+    """One subgradient iteration: decode, (on cadence) repair into a
+    feasible incumbent, Held-Karp step-size halving, dual update."""
+    sel, lb = _decode(cp, c.lam)
+    lb_up = lb > c.best_lb + 1e-6 * (1.0 + c.best_lb.abs())
+    best_lb = torch.maximum(c.best_lb, lb)
+    cnt = _usel_of(cp, sel).sum(dim=0)
+    g = torch.where((cnt > 0) | (c.lam > 0), cnt - 1.0, 0.0)
+    feas = ~(cnt > 1.5).any()
+    if c.it % repair_cadence == 0 and sync.flag(~feas):
+        sel_c, feas_c = _repair(cp, sel, c.lam, repair_rounds)
+    else:
+        sel_c, feas_c = sel, feas
+    obj = torch.where(feas_c, _obj_of(cp, sel_c), INF)
+    better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
+    material = feas_c & ((obj < c.best_obj
+                          - 1e-4 * (1.0 + c.best_obj.abs()))
+                         | ~c.best_feas)
+    best_sel = torch.where(better, sel_c, c.best_sel)
+    best_obj = torch.where(better, obj, c.best_obj)
+    best_feas = c.best_feas | feas_c
+    stale = torch.where(material, 0, c.stale + 1)
+    lb_stale = torch.where(lb_up, 0, c.lb_stale + 1)
+    halve = lb_stale >= 3
+    th = torch.where(halve, torch.clamp(c.th * 0.5, min=0.05), c.th)
+    lb_stale = torch.where(halve, 0, lb_stale)
+    gnorm2 = torch.clamp(torch.dot(g, g), min=1e-6)
+    gap_est = torch.where(
+        best_feas,
+        torch.minimum(torch.clamp(best_obj - lb, min=1e-3),
+                      1.0 + 0.25 * best_obj.abs()),
+        1.0)
+    lam = torch.clamp(c.lam + th * gap_est / gnorm2 * g, min=0.0)
+    return _LagCarry(c.it + 1, lam, best_sel, best_obj, best_feas, best_lb,
+                     stale, th, lb_stale)
+
+
+def _lagrangian_continue(c: _LagCarry, obj_offset, patience):
+    gap = c.best_obj - c.best_lb
+    scale = 1.0 + (obj_offset + c.best_obj).abs()
+    converged = c.best_feas & (gap <= 2e-4 * scale)
+    patience_out = c.best_feas & (c.stale >= patience) & (gap <= 1e-3 * scale)
+    return ~converged & ~patience_out
+
+
+def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
+                        iters=60, theta=1.5, patience=4, repair_rounds=8,
+                        repair_cadence=4):
+    """Subgradient ascent over the CAP contested slots only (single
+    device).  ``Uc [T, L, CAP]`` is the 0/1 usage of contested slot c by
+    leaf (t, l), masked to live leaves of participating targets.
+    Returns (sel, feasible, obj, lower bound, lam)."""
+    dev = f.device
+    n_live = eff_leaf.sum(dim=1).float()
+    unavoid = ((Uc.sum(dim=1) >= n_live[:, None] - 0.5)
+               & (n_live[:, None] > 0.5))
+    cp = _Compact(f, Uc, spine.long(), eff_tgt, unavoid)
+
+    sel_seed, lb_seed = _decode(cp, lam0)
+    sel_seed, feas_seed = _repair(cp, sel_seed, lam0, repair_rounds)
+    obj_seed = torch.where(feas_seed, _obj_of(cp, sel_seed), INF)
+    zero_i = torch.zeros((), dtype=torch.int64, device=dev)
+    c = _LagCarry(0, lam0, sel_seed, obj_seed, feas_seed, lb_seed, zero_i,
+                  torch.full((), theta, dtype=torch.float32, device=dev),
+                  zero_i)
+    while c.it < iters and sync.flag(
+            _lagrangian_continue(c, obj_offset, patience)):
+        c = _lagrangian_step(cp, repair_rounds, repair_cadence, c)
+    return c.best_sel, c.best_feas, c.best_obj, c.best_lb, c.lam
+
+
+# ----------------------------------------------------------------------
+# The tiered hybrid (production path)
+# ----------------------------------------------------------------------
+
+def select_hybrid(state: TrackerState, shapes: TrackerShapes,
+                  params: TrackerParams, iters: int = 60,
+                  theta: float = 1.5, enum_cands: int = C_ENUM,
+                  patience: int = 4, contested_cap: int = 256,
+                  labels_in=None) -> SelectionResult:
+    """Cluster-decomposed selection: exact tiers 1-2 for clusters of up
+    to K_ENUM targets, compact contested-slot Lagrangian for the rest."""
+    T, L, W = state.hist_meas.shape
+    M, A = shapes.max_meas, shapes.max_ais
+    P = M + A
+    S = W * P
+    _dense_only("select_hybrid", T * S, _INT32_WALL)
+    dev = state.hist_meas.device
+    slots, n_slots = _slot_index(state, shapes)
+    slots_flat = slots.reshape(T, L, W * 2)
+    f = leaf_scores(state, params)
+    tb = torch.arange(T, device=dev)
+
+    usage = _hist_usage(state, shapes)
+    labels, n_clusters = (cluster(state, shapes, usage=usage)
+                          if labels_in is None else labels_in)
+    csize = cluster_sizes(labels, state.tgt_mask)
+    tm = state.tgt_mask
+    singleton = tm & (csize == 1)
+    small = tm & (csize >= 2) & (csize <= K_ENUM)
+    big = tm & (csize > K_ENUM)
+
+    sel0 = f.argmin(dim=1)
+    obj_single = torch.where(singleton, f.amin(dim=1), 0.0).sum()
+    sel_enum, obj_small, bound_small = _enum_small_clusters(
+        state, f, slots_flat, n_slots, labels, small, C=enum_cands)
+    exact_obj = obj_single + obj_small
+    exact_bound = obj_single + bound_small
+
+    # Tier 3 over the slots used by >= 2 distinct big-cluster targets.
+    CAP = min(contested_cap, S)
+    contested = ((usage & big[:, None, None]).sum(dim=0) >= 2).reshape(S)
+    n_cont = contested.sum()
+    s_ids = torch.where(contested, torch.arange(S, device=dev), S)
+    col_slot = torch.sort(s_ids).values[:CAP]
+    col_ok = col_slot < S
+    cs = torch.where(col_ok, col_slot, 0)
+    cw = torch.where(col_ok, cs // P, 0)
+    off = cs % P
+    cais = col_ok & (off >= M)
+    # cval > 0 guards empty columns: hist_meas == 0 is the
+    # zero-hypothesis code, not a slot.
+    cval = torch.where(col_ok, torch.where(off >= M, off - M + 1, off + 1), 0)
+    eff_leaf = state.leaf_mask & big[:, None]
+    wids = torch.arange(W, device=dev)[None, None, :, None]
+    m_match = (state.hist_meas[..., None] == cval) & ~cais & (cval > 0)
+    a_match = (state.hist_ais[..., None] == cval) & cais
+    use_c = ((m_match | a_match) & (wids == cw)).any(dim=2)
+    Uc = (use_c & eff_leaf[..., None]).float()                      # [T,L,CAP]
+    lam_pad0 = torch.cat([state.lam, state.lam.new_zeros((1,))])
+    lam_c0 = torch.where(col_ok, lam_pad0[col_slot.clamp(0, S)], 0.0)
+
+    if sync.flag(big.any()):
+        sel_big, feas_big, obj_big, bound_big, lam_out = _compact_lagrangian(
+            f, Uc, lam_c0, state.spine_leaf, big, eff_leaf, exact_obj,
+            iters=iters, theta=theta, patience=patience)
+        lam = torch.zeros((S + 1,), dtype=torch.float32, device=dev)
+        lam.index_add_(0, torch.where(col_ok, col_slot, S),
+                       torch.where(col_ok, lam_out, 0.0))
+        lam = lam[:S]
+    else:
+        sel_big = sel0
+        feas_big = torch.ones((), dtype=torch.bool, device=dev)
+        obj_big = bound_big = torch.zeros((), dtype=torch.float32,
+                                          device=dev)
+        lam = torch.zeros_like(state.lam)
+
+    sel = torch.where(singleton, sel0, torch.where(small, sel_enum, sel_big))
+
+    # Overflow guard: with more than CAP contested slots the compact
+    # solver cannot see every conflict — verify in the full slot space
+    # and retreat big-cluster targets to their spines if needed.
+    ok = _selection_feasible(state, shapes, sel)
+    need_fb = (n_cont > CAP) & ~ok
+    spine = state.spine_leaf.long().clamp(0, L - 1)
+    sel = torch.where(need_fb & big, spine, sel)
+    obj_fb = torch.where(big, f[tb, spine], 0.0).sum()
+    obj_big = torch.where(need_fb, obj_fb, obj_big)
+    feas = torch.where(need_fb, _selection_feasible(state, shapes, sel),
+                       feas_big & ok)
+    return SelectionResult(sel=sel.int(), feasible=feas,
+                           obj=exact_obj + obj_big,
+                           bound=exact_bound + bound_big,
+                           labels=labels, n_clusters=n_clusters, lam=lam)
+
+
+def _independent_best(state: TrackerState, shapes: TrackerShapes,
+                      params: TrackerParams):
+    """Per-target best leaf, its objective, and whether that joint
+    choice is conflict-free (then it is the global optimum)."""
+    f = leaf_scores(state, params)
+    sel = f.argmin(dim=1)
+    obj = torch.where(state.tgt_mask, f.amin(dim=1), 0.0).sum()
+    return sel, obj, _selection_feasible(state, shapes, sel)
+
+
+def _selection_feasible(state: TrackerState, shapes: TrackerShapes, sel):
+    """True iff ``sel`` uses every (window column, measurement/AIS) slot
+    at most once.  Dense form only."""
+    T, L, W = state.hist_meas.shape
+    M, A = shapes.max_meas, shapes.max_ais
+    _dense_only("_selection_feasible", T * W * (M + A), _USAGE_DENSE_LIMIT)
+    dev = state.hist_meas.device
+    tb = torch.arange(T, device=dev)
+    act = state.tgt_mask[:, None]
+    sm = torch.where(act, state.hist_meas[tb, sel.long()], -1)       # [T,W]
+    sa = torch.where(act, state.hist_ais[tb, sel.long()], 0)
+    cm = (sm[:, :, None] == torch.arange(1, M + 1, device=dev)).sum(dim=0)
+    ca = (sa[:, :, None] == torch.arange(1, A + 1, device=dev)).sum(dim=0)
+    return ~((cm > 1).any() | (ca > 1).any())
+
+
+def select(state: TrackerState, shapes: TrackerShapes,
+           params: TrackerParams, method: str = 'lagrangian',
+           fast_path: bool = True, compute_clusters: bool = True,
+           **kw) -> SelectionResult:
+    """Global hypothesis selection.  ``'lagrangian'`` is the tiered
+    hybrid; ``'greedy'`` is the per-target independent best with its
+    feasibility reported honestly."""
+    if method in ('ipm', 'lagrangian_pure'):
+        raise NotImplementedError(f"select: method {method!r} is not "
+                                  f"ported yet")
+    if method not in ('lagrangian', 'greedy'):
+        raise ValueError(f"unknown selection method {method!r}")
+    if not fast_path and method == 'lagrangian':
+        return select_hybrid(state, shapes, params, **kw)
+
+    sel0, obj0, feas0 = _independent_best(state, shapes, params)
+    T = state.tgt_mask.shape[0]
+    dev = state.tgt_mask.device
+    if compute_clusters:
+        labels, n_clusters = cluster(state, shapes)
+        kw = dict(kw, labels_in=(labels, n_clusters))
+    else:
+        labels = torch.zeros((T,), dtype=torch.int32, device=dev)
+        n_clusters = torch.full((), -1, dtype=torch.int32, device=dev)
+    fast = SelectionResult(sel=sel0.int(), feasible=feas0, obj=obj0,
+                           bound=obj0, labels=labels, n_clusters=n_clusters,
+                           lam=state.lam)
+    if method == 'greedy':
+        return fast
+    if sync.flag(feas0):
+        return fast._replace(feasible=torch.ones_like(feas0))
+    return select_hybrid(state, shapes, params, **kw)

@@ -1,0 +1,48 @@
+"""The port imports torch and never jax: a fresh interpreter in which
+importing jax raises runs the port's Tracker for a few scans."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROGRAM = r"""
+import sys
+sys.modules['jax'] = None          # any 'import jax' now raises ImportError
+import numpy as np
+from pymht_tpu_torch import Tracker, TrackerShapes, TrackerParams
+from pymht_tpu_torch.ops import gate_kernel
+from pymht_tpu_torch.kernels import build
+from pymht_tpu_torch.utils import simulator as sim, metrics
+shapes = TrackerShapes(max_targets=8, max_leaves=8, max_meas=16, max_ais=2,
+                       window=5, max_prelim=8, max_initiators=16)
+params = TrackerParams(radar_period=2.5, P_d=0.9, lambda_phi=1e-5,
+                       lambda_nu=1e-5, N=3, radar_range=500.0)
+rng = np.random.default_rng(0)
+targets = sim.generate_initial_targets(rng, 3, (0.0, 0.0), 200.0, 0.9, 0.1)
+sim_list = sim.simulate_targets(rng, targets, sim_time=10.0, dt=2.5)
+scans = sim.simulate_scans(rng, sim_list, 2.5, sigma_R=2.5, lambda_phi=1e-5,
+                           radar_range=500.0, p0=(0.0, 0.0))
+tr = Tracker(shapes, params)
+for s in scans:
+    tr.add_measurement_list(s.time, s.measurements)
+assert len(tr.get_tracks()) >= 1
+loaded = sorted(m for m in sys.modules
+                if (m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax')))
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print('ok')
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    res = subprocess.run([sys.executable, "-c", PROGRAM], cwd=REPO_ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
