@@ -7,10 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
 2. build: K1 (csrc/gate_score.cu) compiled by nvcc for sm_90a;
-3. kernel: K1 against its plain torch twin on the card, at the bench
-   shape (4096 leaves x 512 measurements) and at ragged and edge shapes,
-   with identical gating and scores within the stated tolerance; the
-   median device time of each (CUDA events);
+3. kernel: K1's seven outputs against its plain torch twin on the card,
+   at the bench shape (4096 leaves x 512 measurements) and at ragged and
+   edge shapes: identical gating, counts and used mask, the rest within
+   the stated tolerance.  Then its times at the bench shape (CUDA
+   events behind a device spin): the kernel alone (back-to-back
+   launches into the same buffers, and into rotating buffers that
+   exceed the L2), one wrapper call, the twin, and the kernel's bound
+   (its input and output bytes over the card's published 3.35 TB/s);
 4. slice: bench.py's seeded 100-target scene (T=128, L=32, M=512, W=7)
    stepped through ``Tracker(method='lagrangian', use_ais=False)`` on the
    card, with K1's launch count read around that run, then the same
@@ -38,10 +42,14 @@ import numpy as np
 MIN_COVERAGE = 0.99
 MAX_RMS = 4.5
 
-# K1 against its twin: gating decisions identical; scores, x_bar and
-# P_bar within these (f32; the kernel's closed-form predict rounds
-# differently from the twin's einsum).
+# K1 against its twin: gating decisions, per-leaf counts and the used
+# mask identical; scores, x_bar, P_bar, K and P_hat within these (f32;
+# the kernel's closed-form predict and update round differently from the
+# twin's einsums).
 K1_RTOL, K1_ATOL = 1e-5, 1e-4
+# Published peaks of one H100 SXM, for the kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 # Card run against CPU run of the whole slice: labels identical; track
 # states within these (13 scans of f32 filtering on ~1 km positions).
 STATE_RTOL, STATE_ATOL = 1e-4, 1e-2
@@ -111,43 +119,107 @@ def median_ms(fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
+def kernel_alone_ms(gk, inp, dt, scalars, n_sets, launches=200, reps=7):
+    """Device time of one K1 launch: ``launches`` back-to-back launches
+    between two events, queued behind the device spin, over their count
+    (a single 3-7 us launch between events measures the events).  The
+    launches rotate over ``n_sets`` sets of output buffers: one set keeps
+    the 8.4 MB plane hot in the 50 MB L2, eight sets (76 MB) make every
+    launch write lines that the L2 does not hold."""
+    import torch
+    N, M = inp[0].shape[0], inp[5].shape[0]
+    outs = [gk.empty_outputs(N, M, "cuda") for _ in range(n_sets)]
+
+    def burst():
+        for i in range(launches):
+            gk.launch(outs[i % n_sets], *inp, dt, *scalars)
+
+    burst()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        burst()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def k1_bound(N, M):
+    """The least time the card could take for K1 at this shape: every
+    input byte read once and every output byte written once at the HBM
+    rate, against ~15 flops per pair and ~150 per leaf at the f32 rate."""
+    bytes_in = N * (16 + 64 + 4 + 4 + 1) + M * (8 + 1) + 4
+    bytes_out = N * (4 * (M + 1) + 16 + 64 + 32 + 64 + 4) + M
+    t_bytes = 1e3 * (bytes_in + bytes_out) / HBM_BYTES_PER_S
+    t_flops = 1e3 * (15.0 * N * M + 150.0 * N) / F32_FLOP_PER_S
+    return dict(bytes=bytes_in + bytes_out, bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+
+
 def kernel_phase():
     import torch
     from pymht_tpu_torch.ops import gate_kernel as gk
     BIG = gk.BIG
     args = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
     cases = [("bench", 4096, 512, {}), ("ragged", 4095, 512, {}),
+             ("ragged, N % 4 = 2", 4094, 512, {}),
              ("one measurement", 4096, 1, {}),
              ("measurements masked", 4096, 512, {"zmask_all": False}),
              ("leaves masked", 4096, 512, {"mask_all": False})]
-    max_err = 0.0
+    res = {}
     for i, (name, N, M, kw) in enumerate(cases):
         inp = k1_inputs(i, N, M, "cuda", **kw)
         dt = torch.full((), 2.5, device="cuda")
-        s, xb, pb = gk.gate_and_score(*inp, dt, **args)
-        s_r, xb_r, pb_r = gk.gate_and_score_reference(*inp, dt, **args)
+        out = gk.radar_candidates(*inp, dt, **args)
+        ref = gk.radar_candidates_reference(*inp, dt, **args)
         torch.cuda.synchronize()
+        s, s_r = out.scores, ref.scores
         g, g_r = s < BIG * 0.5, s_r < BIG * 0.5
         n_diff = int((g != g_r).sum())
         check(n_diff == 0, f"K1 {name}: {n_diff} gating decisions differ")
         check(torch.equal(s[~g_r], s_r[~g_r]),
               f"K1 {name}: ungated scores are not exactly {BIG}")
-        err = max(float((s - s_r)[g_r].abs().max()) if g_r.any() else 0.0,
-                  float((xb - xb_r).abs().max()),
-                  float((pb - pb_r).abs().max()))
-        for a, b, what in ((s[g_r], s_r[g_r], "scores"), (xb, xb_r, "x_bar"),
-                           (pb, pb_r, "P_bar")):
+        check(torch.equal(out.gated_counts, ref.gated_counts)
+              and out.gated_counts.dtype == torch.int32,
+              f"K1 {name}: per-leaf gated counts differ")
+        check(torch.equal(out.used_meas, ref.used_meas),
+              f"K1 {name}: used-measurement masks differ")
+        check(int(out.gated_counts.sum()) == int(g_r[:, 1:].sum()),
+              f"K1 {name}: counts are not the gate's row sums")
+        pairs = [(s[g_r], s_r[g_r], "scores")] + [
+            (getattr(out, f), getattr(ref, f), f)
+            for f in ("x_bar", "P_bar", "K", "P_hat")]
+        err = 0.0
+        for a, b, what in pairs:
             check(torch.allclose(a, b, rtol=K1_RTOL, atol=K1_ATOL),
                   f"K1 {name}: {what} differ beyond rtol {K1_RTOL} "
                   f"atol {K1_ATOL}")
-        print(f"K1 {name}: N={N} M={M} gated={int(g_r.sum())} "
-              f"gating identical, max |err| {err:.3g}")
+            if a.numel():
+                err = max(err, float((a - b).abs().max()))
+        s3 = gk.gate_and_score(*inp, dt, **args)
+        check(len(s3) == 3 and all(torch.equal(a, b)
+                                   for a, b in zip(s3, out[:3])),
+              f"K1 {name}: gate_and_score is not the same pass")
+        print(f"K1 {name}: N={N} M={M} gated={int(g_r[:, 1:].sum())} "
+              f"used={int(ref.used_meas.sum())}: gating, counts and used "
+              f"identical, max |err| {err:.3g}")
         if name == "bench":
-            max_err = err
-            ms = median_ms(lambda: gk.gate_and_score(*inp, dt, **args))
-            plain_ms = median_ms(
-                lambda: gk.gate_and_score_reference(*inp, dt, **args))
-    return max_err, ms, plain_ms
+            scalars = (args["q_scale"], args["r_var"], args["eta2"],
+                       args["lambda_ex"])
+            res = dict(
+                max_err=err, gated_share=float(g_r[:, 1:].float().mean()),
+                ms=median_ms(lambda: gk.radar_candidates(*inp, dt, **args)),
+                plain_ms=median_ms(
+                    lambda: gk.radar_candidates_reference(*inp, dt, **args)),
+                kernel_ms=kernel_alone_ms(gk, inp, dt, scalars, n_sets=1),
+                kernel_flushed_ms=kernel_alone_ms(gk, inp, dt, scalars,
+                                                  n_sets=8),
+                **k1_bound(N, M))
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -239,10 +311,24 @@ def main():
           f"(0 if already built) -> {so.name}")
     print(so.with_suffix(".log").read_text().strip())
 
-    max_err, ms, plain_ms = kernel_phase()
-    print(f"K1 at bench shape (N=4096, M=512): kernel {ms:.4f} ms, plain "
-          f"twin {plain_ms:.4f} ms (wrapper calls, device time between "
-          f"CUDA events, median of 30; {card})")
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    sms, per_sm = gk.occupancy()
+    print(f"K1 occupancy: {per_sm} blocks of 256 threads per SM on {sms} "
+          f"SMs ({per_sm * 256} of 2048 thread slots); one block "
+          f"per 16 leaves, so {sms * per_sm} blocks run at once")
+    k1 = kernel_phase()
+    print(f"K1 at bench shape (N=4096, M=512, gated share "
+          f"{k1['gated_share']:.5f}), device time, {card}: kernel alone "
+          f"{1e3 * k1['kernel_ms']:.3f} us with the plane hot in L2 "
+          f"(200 back-to-back launches into one set of buffers, median of "
+          f"7), {1e3 * k1['kernel_flushed_ms']:.3f} us flushed (rotating "
+          f"over 8 sets, 76 MB); one wrapper call "
+          f"{1e3 * k1['ms']:.3f} us, plain twin "
+          f"{1e3 * k1['plain_ms']:.3f} us (median of 30); bound "
+          f"{1e3 * k1['bound_ms']:.3f} us ({k1['bytes']} bytes at 3.35 "
+          f"TB/s, bound by {k1['bound_by']}): the kernel reaches "
+          f"{k1['bound_ms'] / k1['kernel_ms']:.3f} of it hot, "
+          f"{k1['bound_ms'] / k1['kernel_flushed_ms']:.3f} flushed")
 
     res = slice_phase()
     syncs = res["syncs"]
@@ -252,6 +338,9 @@ def main():
           f"max {max(syncs)}); K1 launches {res['launches']} ({card})")
 
     check("jax" not in sys.modules, "the port imported jax")
+    check(not [m for m in sys.modules
+               if m == "pymht_tpu" or m.startswith("pymht_tpu.")],
+          "the port imported the JAX package (pymht_tpu)")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "gate_score",
@@ -259,9 +348,15 @@ def main():
         "source": "pymht_tpu_torch/csrc/gate_score.cu",
         "replaces": "pymht_tpu/ops/gate_kernel.py:34",
         "launches": res["launches"],
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms}]}))
+        "launches_per_scan": res["launches"] / res["n_scans"],
+        "max_abs_err": k1["max_err"],
+        "ms": k1["ms"],
+        "kernel_ms": k1["kernel_ms"],
+        "kernel_flushed_ms": k1["kernel_flushed_ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 pymht_tpu/core/grow.py:grow with ``ais=None``).
 
 Predict every leaf of every target, gate and score it against every
-measurement (K1, ops/gate_kernel.py), keep the best L candidates per
-target, force the feasibility spine into the beam, gather the parents
-and roll the label history by one scan.
+measurement (K1, ops/gate_kernel.py, which also returns the radar
+update's gain and covariance per leaf and the gate's reductions), keep
+the best L candidates per target, force the feasibility spine into the
+beam, gather the parents and roll the label history by one scan.
 
 Candidate layout per leaf: slot 0 is the zero hypothesis (missed
 detection), slot 1 + m is radar measurement m.
@@ -15,10 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..models import pv
 from ..models.constants import sigmaQ_tracker, sigmaR_RADAR_tracker
-from ..ops import kalman as k
-from ..ops.gate_kernel import BIG, gate_and_score
+from ..ops.gate_kernel import BIG, radar_candidates
 from .config import TrackerShapes, TrackerParams
 from .state import TrackerState
 
@@ -58,7 +57,7 @@ def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
 
     # --- K1: predict + gate + score every (leaf, measurement) pair ----
     pd_leaf = state.tgt_pd[:, None].expand(T, L)
-    scores_f, x_bar_f, P_bar_f = gate_and_score(
+    cand = radar_candidates(
         state.leaf_x.reshape(T * L, 4),
         state.leaf_P.reshape(T * L, 4, 4),
         state.leaf_cnllr.reshape(T * L),
@@ -69,12 +68,11 @@ def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
         float(sigmaR_RADAR_tracker) ** 2,
         params.eta2, params.lambda_ex)
     Cn = 1 + M
-    cand_scores = scores_f.reshape(T, L, Cn)
-    x_bar = x_bar_f.reshape(T, L, 4)
-    P_bar = P_bar_f.reshape(T, L, 4, 4)
-    _, _, _, K, P_hat = k.precalc(pv.C_RADAR(dev), pv.R_RADAR(dev),
-                                  x_bar, P_bar)
-    gate = cand_scores[:, :, 1:] < BIG * 0.5                       # [T,L,M]
+    cand_scores = cand.scores.reshape(T, L, Cn)
+    x_bar = cand.x_bar.reshape(T, L, 4)
+    P_bar = cand.P_bar.reshape(T, L, 4, 4)
+    K = cand.K.reshape(T, L, 4, 2)
+    P_hat = cand.P_hat.reshape(T, L, 4, 4)
     zero_score = cand_scores[:, :, 0]                              # [T,L]
 
     # --- beam: the best L candidates per target -----------------------
@@ -149,7 +147,7 @@ def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
         scan_idx=state.scan_idx + 1,
         time=scan.time,
     )
-    used = gate.flatten(0, 1).any(dim=0)                           # [M]
-    gated_counts = gate.flatten(1, 2).sum(dim=1).int()             # [T]
-    return GrowOutputs(state=new_state, used_meas=used,
+    gated_counts = cand.gated_counts.view(T, L).sum(
+        dim=1, dtype=torch.int32)                                  # [T]
+    return GrowOutputs(state=new_state, used_meas=cand.used_meas,
                        gated_counts=gated_counts)

@@ -22,7 +22,6 @@ import torch
 
 from .. import sync
 from ..models import pv
-from ..models.constants import merge_threshold
 from .config import TrackerShapes, TrackerParams
 from .state import TrackerState, empty_state, insert_targets
 from .grow import Scan, grow
@@ -110,12 +109,14 @@ def scan_step(state: TrackerState, init_state, scan: Scan, ais,
                                   scan.time, None, shapes, params)
     init_state = init_out.state
     new_x, new_mask, new_mmsi = _merge_new_targets(
-        init_out.new_x, init_out.new_mask, init_out.new_mmsi, merge_threshold)
+        init_out.new_x, init_out.new_mask, init_out.new_mmsi,
+        params.merge_threshold)
     # reject new targets neighbouring an existing track's leaf
     leaf_pos = state.leaf_x[..., :2].reshape(-1, 2)
     d = torch.linalg.vector_norm(new_x[:, None, :2] - leaf_pos[None, :, :],
                                  dim=2)
-    near = (d < merge_threshold) & state.leaf_mask.reshape(-1)[None, :]
+    near = ((d < params.merge_threshold)
+            & state.leaf_mask.reshape(-1)[None, :])
     new_mask = new_mask & ~near.any(dim=1)
     prev_mask = state.tgt_mask
     state = insert_targets(state, new_x, init_out.new_P, new_mask, new_mmsi,
@@ -210,13 +211,29 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _resolve_device(device) -> torch.device:
+    """``None`` means the GPU.  The CPU (the plain twins of the kernels)
+    is taken only when the caller asks for it: without a CUDA device
+    ``None`` raises instead of carrying on on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "Tracker: no CUDA device is available and none was named; "
+            "pass device='cpu' to run on the CPU (plain torch twins of "
+            "the kernels)")
+    return torch.device('cuda')
+
+
 class Tracker:
     """Host-facing tracker with the JAX Tracker's API, on one torch
-    device.
+    device: the GPU unless the caller names another (``device='cpu'``
+    runs the kernels' plain twins; with no CUDA device and no ``device``
+    the constructor raises).
 
     Usage::
 
-        tracker = Tracker(shapes, params, device='cuda')
+        tracker = Tracker(shapes, params)
         for scan in scans:
             tracker.add_measurement_list(t, z)   # z: [n, 2] numpy
         tracks = tracker.get_tracks()
@@ -235,7 +252,7 @@ class Tracker:
                  prune_similar: bool = False,
                  dynamic_window: bool = False,
                  degrade_on_overload: bool = False,
-                 device='cpu'):
+                 device=None):
         if use_ais:
             _not_ported("AIS fusion (use_ais=True)")
         if prune_similar:
@@ -247,7 +264,7 @@ class Tracker:
         self.shapes = shapes
         self.params = params
         self.method = method
-        self.device = torch.device(device)
+        self.device = _resolve_device(device)
         self.pipeline_outputs = pipeline_outputs
         self._pending = None      # (device outputs, scan count)
         self.state = empty_state(shapes, params, self.device)

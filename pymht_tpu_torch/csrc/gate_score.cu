@@ -1,158 +1,295 @@
 // K1: fused constant-velocity predict + innovation + all-pairs gate and
-// score, hand-written for Hopper (sm_90a).
+// score + the radar update's gain and covariance, hand-written for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_kernel` launched by `gate_and_score_pallas`
-// (pymht_tpu/ops/gate_kernel.py:34-202, the repo's only pl.pallas_call).
-// It computes the same thing, per hypothesis leaf n and measurement m:
+// (pymht_tpu/ops/gate_kernel.py:34-202, the repo's only pl.pallas_call),
+// and returns what the JAX package's fused default path returns beside
+// it (`radar_candidates_planes`, pymht_tpu/ops/ais_fused.py:397-482).
+// Per hypothesis leaf n and measurement m:
 //   x_bar = A x,  P_bar = A P A^T + Q   (closed form, the reference's
 //                                        T^3/3 off-diagonal kept)
 //   S     = P_bar[:2,:2] + r I           (analytic 2x2 inverse and det)
+//   K     = P_bar[:, :2] S^-1,  P_hat = P_bar - K P_bar[:2, :]
 //   nis   = (z_m - x_bar[:2])^T S^-1 (z_m - x_bar[:2])
+//   ok    = nis <= eta2 and zmask[m] and mask[n]
 //   score[n, 1+m] = cnllr + nis/2 + ln lambda_ex + (2 ln 2pi + ln det S)/2
-//                   - ln P_d            if nis <= eta2, zmask, leaf mask
-//                 = 1e9                 otherwise
+//                   - ln P_d            if ok, else 1e9
 //   score[n, 0]   = cnllr - ln(1 - P_d) if the leaf is live, else 1e9
+//   count[n]      = number of m with ok;  used[m] = 1 if any n has ok
+// The count, the used mask and the score come from the same `ok`, so
+// (score < 1e9 / 2) is the gate by construction.
 //
-// What bounds it on an H100: writing the [N, 1+M] f32 score plane
-// (8.4 MB at N=4096, M=512, a few microseconds of HBM time); the
-// arithmetic is ~15 flops per pair.  The design keeps every read small:
-// one block owns a tile of TILE_N leaves, computes their prologue
-// (x_bar, P_bar, S^-1, the log term, the miss score) once into shared
-// memory, then walks the measurement axis with threads on m, so each
-// thread loads its z_m once and every score row is written coalesced.
-// Fusing the per-target beam top-L in here, so the plane never reaches
-// HBM, is later work.
+// What bounds it on an H100: bytes.  At N=4096, M=512 it reads 0.37 MB
+// and writes the 8.4 MB f32 score plane plus 0.74 MB of per-leaf outputs,
+// 9.5 MB in all (2.8 us at HBM's 3.35 TB/s); the arithmetic is ~15 flops
+// per pair (0.5 us at the f32 peak).  On the card the kernel is a launch,
+// one chain of dependent loads and arithmetic (the prologue), and then
+// the plane going out as fast as the memory system takes stores; the
+// first two are not bytes and are most of the gap to the bound.
+//
+// The design, point by point (what was measured on the H100 is in
+// PERF.md, under Findings):
+// 1. Prologue.  One block owns TILE_N leaves; one lane per leaf loads x
+//    and P as five float4 (64 contiguous bytes of P per lane, the lanes
+//    on neighbouring leaves, so every 32-byte sector fetched is used),
+//    runs the predict, S^-1, K, P_hat and the two logs, stores the
+//    per-leaf outputs as float4 and leaves the 32 bytes that the pair
+//    loop needs in shared memory.  The other threads load their z_m
+//    meanwhile, so the barrier waits for one load latency, not two.
+// 2. Stores.  Threads stand on the measurement axis and walk the tile's
+//    rows: a warp writes 128 contiguous bytes of one row per store.  The
+//    rows' odd stride (1+M floats) makes those stores unaligned, and a
+//    flat walk of the tile with aligned 128-bit stores was built to
+//    mend that, in five variants (measurements read through L1 or staged
+//    in shared memory, a box test ahead of the exact gate, the plane
+//    filled first and patched after, a warp kept for the prologue).
+//    Every one was slower on the card than this layout: a warp issues
+//    its stores in order and waits on the memory system for each, so
+//    what counts is how many warps have a store in flight, not how wide
+//    each store is, and the walk here gives every thread two registers
+//    of z and nothing else to wait for.
+// 3. Grid.  One block per tile; at the bench shape all 256 blocks are on
+//    the card at once (gate_score_occupancy reports what it holds).
+//    Larger and smaller tiles and blocks measured the same or slower.
+// 4. Scalars.  dt is read from a device pointer (it is a device value in
+//    grow and is never read back); q, r, eta2 and ln lambda_ex are kernel
+//    arguments.  The launch needs no host-to-device copy.
+// 5. Epilogue.  K and P_hat come from the prologue's S^-1.  A thread
+//    ORs `ok` over the tile's rows in a register and touches used[m]
+//    only then, and only to store a 1; gated pairs are rare, so each adds
+//    to its row's counter in shared memory, and the counters go out once
+//    per tile.  `used` must be zero before the launch (the wrapper
+//    allocates it zeroed: one M-byte fill); the kernel only stores ones
+//    into it, so blocks need no order among them.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE_N = 16;
+constexpr int TILE_N = 16;     // leaves per block
 constexpr int THREADS = 256;
 constexpr float BIG = 1e9f;
 constexpr float LOG2PI = 1.8378770664093453f;
 
+static_assert(TILE_N <= THREADS, "one prologue lane per leaf of the tile");
+
+// What the pair loop needs of one leaf.
+struct __align__(16) Row {
+  float px, py;            // predicted position
+  float i11, ioff, i22;    // S^-1, ioff = i12 + i21
+  float base;              // cnllr + ln lambda_ex + log_norm - ln P_d
+  float zero;              // zero-hypothesis score (BIG for a dead leaf)
+  int live;
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// Predict, innovation, gain and updated covariance of leaf n; writes
+// x_bar, P_bar, K, P_hat and returns the pair loop's row.
+__device__ __forceinline__ Row leaf_prologue(
+    int n, float T, float q, float r_var, float log_lam,
+    const float* __restrict__ x, const float* __restrict__ P,
+    const float* __restrict__ cnllr, const float* __restrict__ pd,
+    const bool* __restrict__ mask, float* __restrict__ xbar,
+    float* __restrict__ pbar, float* __restrict__ kgain,
+    float* __restrict__ phat) {
+  const float4 xv = ld4(x + 4 * n);
+  float g[16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = ld4(P + 16 * n + 4 * i);
+    g[4 * i + 0] = v.x;
+    g[4 * i + 1] = v.y;
+    g[4 * i + 2] = v.z;
+    g[4 * i + 3] = v.w;
+  }
+  const float pdv = pd[n];
+  const float cn = cnllr[n];
+  const bool live = mask[n];
+#define G(i, j) g[4 * (i) + (j)]
+  const float T2 = T * T;
+  const float T3 = T2 * T / 3.0f;
+  const float T4 = T2 * T2 / 4.0f;
+  float pb[16];
+#define PB(i, j) pb[4 * (i) + (j)]
+  // (pos, vel) pairs (0,2) and (1,3)
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int a = k, b = k + 2;
+    PB(a, a) = G(a, a) + T * (G(a, b) + G(b, a)) + T2 * G(b, b) + T4 * q;
+    PB(a, b) = G(a, b) + T * G(b, b) + T3 * q;
+    PB(b, a) = G(b, a) + T * G(b, b) + T3 * q;
+    PB(b, b) = G(b, b) + T2 * q;
+  }
+  PB(0, 1) = G(0, 1) + T * (G(0, 3) + G(2, 1)) + T2 * G(2, 3);
+  PB(1, 0) = G(1, 0) + T * (G(1, 2) + G(3, 0)) + T2 * G(3, 2);
+  PB(0, 3) = G(0, 3) + T * G(2, 3);
+  PB(3, 0) = G(3, 0) + T * G(3, 2);
+  PB(1, 2) = G(1, 2) + T * G(3, 2);
+  PB(2, 1) = G(2, 1) + T * G(2, 3);
+  PB(2, 3) = G(2, 3);
+  PB(3, 2) = G(3, 2);
+#undef G
+  const float xb0 = xv.x + T * xv.z, xb1 = xv.y + T * xv.w;
+  st4(xbar + 4 * n, xb0, xb1, xv.z, xv.w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    st4(pbar + 16 * n + 4 * i, PB(i, 0), PB(i, 1), PB(i, 2), PB(i, 3));
+
+  const float s11 = PB(0, 0) + r_var, s12 = PB(0, 1);
+  const float s21 = PB(1, 0), s22 = PB(1, 1) + r_var;
+  const float det = s11 * s22 - s12 * s21;
+  const float inv_det = 1.0f / det;
+  const float i11 = s22 * inv_det, i12 = -s12 * inv_det;
+  const float i21 = -s21 * inv_det, i22 = s11 * inv_det;
+
+  // K = P_bar[:, :2] S^-1  ([4, 2], row-major)
+  float kg[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    kg[2 * i + 0] = PB(i, 0) * i11 + PB(i, 1) * i21;
+    kg[2 * i + 1] = PB(i, 0) * i12 + PB(i, 1) * i22;
+  }
+  st4(kgain + 8 * n, kg[0], kg[1], kg[2], kg[3]);
+  st4(kgain + 8 * n + 4, kg[4], kg[5], kg[6], kg[7]);
+  // P_hat = P_bar - K P_bar[:2, :]
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float ph[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      ph[j] = PB(i, j) - (kg[2 * i] * PB(0, j) + kg[2 * i + 1] * PB(1, j));
+    st4(phat + 16 * n + 4 * i, ph[0], ph[1], ph[2], ph[3]);
+  }
+#undef PB
+
+  const float log_norm = 0.5f * (2.0f * LOG2PI + logf(fmaxf(det, 1e-20f)));
+  Row row;
+  row.px = xb0;
+  row.py = xb1;
+  row.i11 = i11;
+  row.ioff = i12 + i21;
+  row.i22 = i22;
+  row.base = cn + (log_lam + log_norm - logf(pdv));
+  row.zero = live ? cn - logf(1.0f - pdv) : BIG;
+  row.live = live ? 1 : 0;
+  return row;
+}
+
 __global__ void __launch_bounds__(THREADS)
-gate_score_kernel(const float* __restrict__ params,
-                  const float* __restrict__ x,       // [N, 4]
+gate_score_kernel(const float* __restrict__ x,       // [N, 4]
                   const float* __restrict__ P,       // [N, 16]
                   const float* __restrict__ cnllr,   // [N]
                   const float* __restrict__ pd,      // [N]
                   const bool* __restrict__ mask,     // [N]
                   const float* __restrict__ z,       // [M, 2]
                   const bool* __restrict__ zmask,    // [M]
+                  const float* __restrict__ dt,      // [] time step
+                  float q, float r_var, float eta2, float log_lam,
                   float* __restrict__ scores,        // [N, 1 + M]
                   float* __restrict__ xbar,          // [N, 4]
                   float* __restrict__ pbar,          // [N, 16]
+                  float* __restrict__ kgain,         // [N, 8]
+                  float* __restrict__ phat,          // [N, 16]
+                  int* __restrict__ counts,          // [N]
+                  unsigned char* __restrict__ used,  // [M], zero on entry
                   int N, int M) {
-  __shared__ float s_px[TILE_N], s_py[TILE_N];
-  __shared__ float s_i11[TILE_N], s_ioff[TILE_N], s_i22[TILE_N];
-  __shared__ float s_cn[TILE_N], s_log[TILE_N];
-  __shared__ bool s_live[TILE_N];
+  __shared__ Row s_row[TILE_N];
+  __shared__ int s_cnt[TILE_N];
 
-  // params: (dt, q_scale, r_var, eta2, ln lambda_ex, unused x3)
-  const float T = params[0];
-  const float q = params[1];
-  const float r_var = params[2];
-  const float eta2 = params[3];
-  const float log_lam = params[4];
   const int n0 = blockIdx.x * TILE_N;
   const int rows = min(TILE_N, N - n0);
   const size_t stride = (size_t)M + 1;
+  const float2* __restrict__ z2 = reinterpret_cast<const float2*>(z);
 
-  // ---- per-leaf prologue: one thread per leaf of the tile -------------
+  // this thread's first measurement, asked for before the barrier
+  int m = threadIdx.x;
+  float2 zz = make_float2(0.0f, 0.0f);
+  bool zok = false;
+  if (m < M) {
+    zz = __ldg(z2 + m);
+    zok = zmask[m];
+  }
+
+  // ---- per-leaf prologue: one lane per leaf of the tile ----------------
   if (threadIdx.x < rows) {
     const int r = threadIdx.x;
-    const int n = n0 + r;
-    const float px = x[4 * n + 0], py = x[4 * n + 1];
-    const float vx = x[4 * n + 2], vy = x[4 * n + 3];
-    float g[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) g[i] = P[16 * n + i];
-#define G(i, j) g[4 * (i) + (j)]
-    const float T2 = T * T;
-    const float T3 = T2 * T / 3.0f;
-    const float T4 = T2 * T2 / 4.0f;
-    float pb[16];
-#define PB(i, j) pb[4 * (i) + (j)]
-    // (pos, vel) pairs (0,2) and (1,3)
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int a = k, b = k + 2;
-      PB(a, a) = G(a, a) + T * (G(a, b) + G(b, a)) + T2 * G(b, b) + T4 * q;
-      PB(a, b) = G(a, b) + T * G(b, b) + T3 * q;
-      PB(b, a) = G(b, a) + T * G(b, b) + T3 * q;
-      PB(b, b) = G(b, b) + T2 * q;
-    }
-    PB(0, 1) = G(0, 1) + T * (G(0, 3) + G(2, 1)) + T2 * G(2, 3);
-    PB(1, 0) = G(1, 0) + T * (G(1, 2) + G(3, 0)) + T2 * G(3, 2);
-    PB(0, 3) = G(0, 3) + T * G(2, 3);
-    PB(3, 0) = G(3, 0) + T * G(3, 2);
-    PB(1, 2) = G(1, 2) + T * G(3, 2);
-    PB(2, 1) = G(2, 1) + T * G(2, 3);
-    PB(2, 3) = G(2, 3);
-    PB(3, 2) = G(3, 2);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) pbar[16 * n + i] = pb[i];
-    const float xb0 = px + T * vx, xb1 = py + T * vy;
-    xbar[4 * n + 0] = xb0;
-    xbar[4 * n + 1] = xb1;
-    xbar[4 * n + 2] = vx;
-    xbar[4 * n + 3] = vy;
-
-    const float s11 = PB(0, 0) + r_var, s12 = PB(0, 1);
-    const float s21 = PB(1, 0), s22 = PB(1, 1) + r_var;
-#undef PB
-#undef G
-    const float det = s11 * s22 - s12 * s21;
-    const float inv_det = 1.0f / det;
-    s_px[r] = xb0;
-    s_py[r] = xb1;
-    s_i11[r] = s22 * inv_det;
-    s_ioff[r] = 0.5f * ((-s12 * inv_det) + (-s21 * inv_det));
-    s_i22[r] = s11 * inv_det;
-    const float log_norm = 0.5f * (2.0f * LOG2PI + logf(fmaxf(det, 1e-20f)));
-    const float pdv = pd[n];
-    const float cn = cnllr[n];
-    const bool live = mask[n];
-    s_cn[r] = cn;
-    s_log[r] = log_lam + log_norm - logf(pdv);
-    s_live[r] = live;
-    scores[(size_t)n * stride] = live ? cn - logf(1.0f - pdv) : BIG;
+    const Row row = leaf_prologue(n0 + r, __ldg(dt), q, r_var, log_lam, x, P,
+                                  cnllr, pd, mask, xbar, pbar, kgain, phat);
+    s_row[r] = row;
+    s_cnt[r] = 0;
+    scores[(size_t)(n0 + r) * stride] = row.zero;
   }
   __syncthreads();
 
   // ---- all-pairs NIS, gate and score: threads on the measurement axis --
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const float zx = z[2 * m], zy = z[2 * m + 1];
-    const bool zok = zmask[m];
-    float* out = scores + (size_t)n0 * stride + 1 + m;
+  while (m < M) {
+    float* __restrict__ out = scores + (size_t)n0 * stride + 1 + m;
+    bool any = false;
     for (int r = 0; r < rows; ++r) {
-      const float dx = zx - s_px[r];
-      const float dy = zy - s_py[r];
-      const float nis = s_i11[r] * dx * dx + 2.0f * s_ioff[r] * dx * dy
-                        + s_i22[r] * dy * dy;
-      const bool ok = (nis <= eta2) && zok && s_live[r];
-      out[(size_t)r * stride] = ok ? s_cn[r] + 0.5f * nis + s_log[r] : BIG;
+      const Row rw = s_row[r];
+      const float dx = zz.x - rw.px;
+      const float dy = zz.y - rw.py;
+      const float nis =
+          rw.i11 * dx * dx + rw.ioff * dx * dy + rw.i22 * dy * dy;
+      const bool ok = (nis <= eta2) && zok && rw.live;
+      if (ok) {
+        atomicAdd(&s_cnt[r], 1);
+        any = true;
+      }
+      out[(size_t)r * stride] = ok ? rw.base + 0.5f * nis : BIG;
+    }
+    if (any) used[m] = 1;
+    m += THREADS;
+    if (m < M) {
+      zz = __ldg(z2 + m);
+      zok = zmask[m];
     }
   }
+  __syncthreads();
+
+  if (threadIdx.x < rows) counts[n0 + threadIdx.x] = s_cnt[threadIdx.x];
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).  The caller allocates every output.
-extern "C" int gate_score_launch(const void* params, const void* x,
-                                 const void* P, const void* cnllr,
-                                 const void* pd, const void* mask,
-                                 const void* z, const void* zmask,
-                                 void* scores, void* xbar, void* pbar,
-                                 int N, int M, void* stream) {
+// C interface, loaded with ctypes.
+
+// SMs of the current device and the blocks of K1 each can hold at once;
+// returns 0 on success.
+extern "C" int gate_score_occupancy(int* sms, int* blocks_per_sm) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)
+          != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, gate_score_kernel, THREADS, 0) != cudaSuccess)
+    return 1;
+  return 0;
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// The caller allocates every output and zeroes `used`.
+extern "C" int gate_score_launch(
+    const void* x, const void* P, const void* cnllr, const void* pd,
+    const void* mask, const void* z, const void* zmask, const void* dt,
+    float q, float r_var, float eta2, float log_lam, void* scores,
+    void* xbar, void* pbar, void* kgain, void* phat, void* counts,
+    void* used, int N, int M, void* stream) {
   if (N <= 0) return 0;
   const int blocks = (N + TILE_N - 1) / TILE_N;
   gate_score_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)params, (const float*)x, (const float*)P,
-      (const float*)cnllr, (const float*)pd, (const bool*)mask,
-      (const float*)z, (const bool*)zmask, (float*)scores, (float*)xbar,
-      (float*)pbar, N, M);
+      (const float*)x, (const float*)P, (const float*)cnllr,
+      (const float*)pd, (const bool*)mask, (const float*)z,
+      (const bool*)zmask, (const float*)dt, q, r_var, eta2, log_lam,
+      (float*)scores, (float*)xbar, (float*)pbar, (float*)kgain,
+      (float*)phat, (int*)counts, (unsigned char*)used, N, M);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from pymht_tpu.core.config import TrackerParams, TrackerShapes
-from pymht_tpu.utils import simulator as sim
+from ..core.config import TrackerParams, TrackerShapes
+from . import simulator as sim
 
 
 def bench_scene(n_targets: int = 100, n_scans: int = 12, seed: int = 1234):

@@ -20,6 +20,7 @@ from pymht_tpu.core import initiator as jinit  # noqa: E402
 from pymht_tpu.core.config import TrackerShapes, TrackerParams  # noqa: E402
 from pymht_tpu.core.grow import empty_ais  # noqa: E402
 from pymht_tpu.ops.assignment import auction_assign as j_auction  # noqa: E402
+from pymht_tpu_torch.core import config as tconfig  # noqa: E402
 from pymht_tpu_torch.core import initiator as tinit  # noqa: E402
 from pymht_tpu_torch.core.state import (  # noqa: E402
     initiator_from_numpy, initiator_to_numpy)
@@ -68,10 +69,19 @@ def test_auction_matches_jax(kind, max_iters, seed):
     assert abs(cost_of(r_t) - cost_of(r_j)) <= n * eps + 1e-4
 
 
+def port(cfg):
+    """The port's own TrackerShapes/TrackerParams, built from the numbers
+    of the JAX package's: each side is given its own classes."""
+    cls = getattr(tconfig, type(cfg).__name__)
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
 SHAPES = TrackerShapes(max_targets=8, max_leaves=8, max_meas=16, max_ais=2,
                        window=5, max_prelim=8, max_initiators=16)
 PARAMS = TrackerParams(radar_period=2.5, P_d=0.9, lambda_phi=1e-5,
                        lambda_nu=1e-5, N=3)
+TSHAPES, TPARAMS = port(SHAPES), port(PARAMS)
 
 
 def test_initiator_step_matches_jax():
@@ -84,7 +94,7 @@ def test_initiator_step_matches_jax():
     step_j = jax.jit(lambda st, z, m, t: jinit.step(
         st, z, m, t, empty_ais(SHAPES), SHAPES, PARAMS))
     st_j = jinit.empty_initiator(SHAPES)
-    st_t = tinit.empty_initiator(SHAPES, "cpu")
+    st_t = tinit.empty_initiator(TSHAPES, "cpu")
     n_confirmed = 0
     for k in range(5):
         t = 2.5 * (k + 1)
@@ -98,7 +108,7 @@ def test_initiator_step_matches_jax():
                                       jnp.asarray(t, jnp.float32)))
         out_t = tinit.step(st_t, torch.from_numpy(z), torch.from_numpy(zm),
                            torch.tensor(t, dtype=torch.float32), None,
-                           SHAPES, PARAMS)
+                           TSHAPES, TPARAMS)
         st_j, st_t = out_j.state, out_t.state
         got = initiator_to_numpy(st_t)
         for f in dataclasses.fields(st_j):
@@ -125,7 +135,7 @@ def test_initiator_step_matches_jax():
 
 
 def test_initiator_refuses_ais():
-    st = tinit.empty_initiator(SHAPES, "cpu")
+    st = tinit.empty_initiator(TSHAPES, "cpu")
     with pytest.raises(NotImplementedError):
         tinit.step(st, torch.zeros(16, 2), torch.zeros(16, dtype=torch.bool),
-                   torch.tensor(1.0), object(), SHAPES, PARAMS)
+                   torch.tensor(1.0), object(), TSHAPES, TPARAMS)

@@ -5,7 +5,10 @@ twin.
 
 Tolerances: states and scores are compared at rtol 1e-4 / atol 1e-3 (the
 JAX kernel test's), x_bar at 1e-5 / 1e-4; gating decisions must be
-identical.
+identical.  The seven-output twin (``radar_candidates_reference``) is
+held against the JAX package's fused planes
+(``radar_candidates_planes``) at rtol 1e-5 / atol 1e-4: both are f32,
+one by einsum, one in closed form.
 
 The JAX package is imported inside the tests that use it, so the card
 test also runs where only torch is installed:
@@ -95,21 +98,138 @@ def test_device_time_step_matches_float():
         torch.testing.assert_close(u, v, rtol=0, atol=0)
 
 
+def _planes(inp, T, L, period=2.5, eta2=ARGS["eta2"], lambda_ex=2e-5):
+    """The JAX package's fused radar planes on the same inputs, laid out
+    as a [T, L] forest (pd per target, as in grow)."""
+    import jax.numpy as jnp
+    from types import SimpleNamespace
+    from pymht_tpu.ops.ais_fused import radar_candidates_planes
+    x, P, cnllr, pd, mask, z, zmask = inp
+    state = SimpleNamespace(
+        leaf_x=jnp.asarray(x.reshape(T, L, 4)),
+        leaf_P=jnp.asarray(P.reshape(T, L, 4, 4)),
+        leaf_mask=jnp.asarray(mask.reshape(T, L)),
+        tgt_pd=jnp.asarray(pd.reshape(T, L)[:, 0]),
+        time=jnp.asarray(1.0, jnp.float32))
+    scan = SimpleNamespace(z=jnp.asarray(z), mask=jnp.asarray(zmask),
+                           time=jnp.asarray(1.0 + period, jnp.float32))
+    # lambda_phi + lambda_nu = lambda_ex
+    params = SimpleNamespace(eta2=eta2, lambda_ex=lambda_ex)
+    out = radar_candidates_planes(state, scan, params)
+    gate = out[4]
+    counts = jnp.sum(gate, axis=2, dtype=jnp.int32)         # [T, L]
+    used = jnp.any(gate, axis=(0, 1))                       # [M]
+    return [np.asarray(o) for o in out] + [np.asarray(counts),
+                                           np.asarray(used)]
+
+
+# (seed, T, L, M, all measurements masked)
+CANDIDATE_CASES = [(0, 4, 8, 24, False), (1, 8, 8, 16, False),
+                   (2, 2, 10, 1, False), (3, 4, 8, 24, True),
+                   (4, 5, 4, 7, False)]
+
+
+@pytest.mark.parametrize("seed,T,L,M,masked", CANDIDATE_CASES)
+def test_candidates_twin_matches_jax_planes(jax_gk, seed, T, L, M, masked):
+    """All seven outputs of the twin against radar_candidates_planes and
+    jnp reductions of its gate: gate, counts and used identical; x_bar,
+    P_bar, K, P_hat within rtol 1e-5 / atol 1e-4; scores against
+    cnllr + nllr_m where gated, exactly BIG elsewhere."""
+    tol = dict(rtol=1e-5, atol=1e-4)
+    N = T * L
+    inp = _inputs(seed, N=N, M=M)
+    if M == 1:
+        inp[5][0] = inp[0][0, :2] + inp[0][0, 2:] * 2.5    # z on leaf 0
+        inp[4][0] = inp[6][0] = True
+    if masked:
+        inp[6][:] = False
+    x_bar, P_bar, K, P_hat, gate, nllr_m, counts, used = _planes(inp, T, L)
+    out = tk.radar_candidates(*_torch(inp), **ARGS)
+    assert isinstance(out, tk.RadarCandidates)
+    assert out.scores.shape == (N, M + 1) and out.K.shape == (N, 4, 2)
+    assert out.gated_counts.dtype == torch.int32
+    assert out.used_meas.dtype == torch.bool
+    np.testing.assert_allclose(out.x_bar.numpy(), x_bar.reshape(N, 4), **tol)
+    np.testing.assert_allclose(out.P_bar.numpy(), P_bar.reshape(N, 4, 4),
+                               **tol)
+    np.testing.assert_allclose(out.K.numpy(), K.reshape(N, 4, 2), **tol)
+    np.testing.assert_allclose(out.P_hat.numpy(), P_hat.reshape(N, 4, 4),
+                               **tol)
+    s = out.scores.numpy()
+    g = gate.reshape(N, M)
+    np.testing.assert_array_equal(s[:, 1:] < BIG * 0.5, g)
+    assert (s[:, 1:][~g] == np.float32(BIG)).all()
+    want = (inp[2][:, None] + nllr_m.reshape(N, M))[g]
+    np.testing.assert_allclose(s[:, 1:][g], want, **tol)
+    np.testing.assert_array_equal(out.gated_counts.numpy(),
+                                  counts.reshape(N))
+    np.testing.assert_array_equal(out.used_meas.numpy(), used)
+    if masked:
+        assert not g.any() and not used.any() and not counts.any()
+    else:
+        assert g.any() and used.any()
+    # the three-output entry point is the same pass
+    for a, b in zip(tk.gate_and_score(*_torch(inp), **ARGS), out[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_candidates_gate_is_score_below_big():
+    """Counts and used are reductions of (score < BIG / 2)."""
+    inp = _torch(_inputs(6, N=64, M=24))
+    out = tk.radar_candidates(*inp, **ARGS)
+    gate = out.scores[:, 1:] < BIG * 0.5
+    assert gate.any()
+    assert torch.equal(out.gated_counts, gate.sum(1, dtype=torch.int32))
+    assert torch.equal(out.used_meas, gate.any(0))
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    """launch() checks device, dtype, shape and contiguity before any
+    pointer reaches the kernel (it raises before it needs a card)."""
+    inp = _torch(_inputs(0))
+    out = tk.empty_outputs(32, 24, "cpu")
+    dt = torch.tensor(2.5)
+    scal = (1.0, 6.25, 5.99, 2e-5)
+    bad = list(inp)
+    bad[0] = bad[0].double()
+    with pytest.raises(ValueError, match="x must be"):
+        tk.launch(out, *bad, dt, *scal)
+    bad = list(inp)
+    bad[1] = bad[1].transpose(1, 2)
+    with pytest.raises(ValueError, match="P must be"):
+        tk.launch(out, *bad, dt, *scal)
+    with pytest.raises(ValueError, match="scores must be"):
+        tk.launch(tk.empty_outputs(32, 23, "cpu"), *inp, dt, *scal)
+    with pytest.raises(ValueError, match="dt must be"):
+        tk.launch(out, *inp, torch.tensor([2.5]), *scal)
+    assert not out.used_meas.any()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,M", [(4096, 512), (4095, 1), (20, 8)])
+@pytest.mark.parametrize("N,M", [(4096, 512), (4095, 1), (20, 8),
+                                 (4094, 511)])
 def test_kernel_matches_twin_on_card(N, M):
-    """The CUDA kernel against the plain twin, on the card (identical
-    gating, scores within rtol 1e-5 / atol 1e-4)."""
+    """The CUDA kernel against the plain twin, on the card, all seven
+    outputs (identical gating, counts and used; scores, x_bar, P_bar, K
+    and P_hat within rtol 1e-5 / atol 1e-4).  N = 4094 leaves a last
+    tile whose length is not a multiple of 4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     inp = _torch(_inputs(0, N=N, M=M), "cuda")
     n0 = tk.launches
-    s, xb, pb = tk.gate_and_score(*inp, **ARGS)
+    out = tk.radar_candidates(*inp, **ARGS)
     torch.cuda.synchronize()
     assert tk.launches == n0 + 1
-    s_r, xb_r, pb_r = tk.gate_and_score_reference(*inp, **ARGS)
-    torch.testing.assert_close(xb, xb_r, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(pb, pb_r, rtol=1e-5, atol=1e-4)
-    g, g_r = s < BIG * 0.5, s_r < BIG * 0.5
+    ref = tk.radar_candidates_reference(*inp, **ARGS)
+    for name in ("x_bar", "P_bar", "K", "P_hat"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name),
+                                   rtol=1e-5, atol=1e-4, msg=name)
+    g, g_r = out.scores < BIG * 0.5, ref.scores < BIG * 0.5
     assert torch.equal(g, g_r)
-    torch.testing.assert_close(s[g_r], s_r[g_r], rtol=1e-5, atol=1e-4)
+    assert torch.equal(out.scores[~g_r], ref.scores[~g_r])
+    torch.testing.assert_close(out.scores[g_r], ref.scores[g_r], rtol=1e-5,
+                               atol=1e-4)
+    assert torch.equal(out.gated_counts, ref.gated_counts)
+    assert torch.equal(out.used_meas, ref.used_meas)
+    s3 = tk.gate_and_score(*inp, **ARGS)
+    assert tk.launches == n0 + 2 and torch.equal(s3[0], out.scores)

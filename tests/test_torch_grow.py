@@ -20,10 +20,21 @@ from pymht_tpu.core.state import empty_state, insert_targets  # noqa: E402
 from pymht_tpu.core.tracker import Tracker as JTracker  # noqa: E402
 from pymht_tpu.models import pv  # noqa: E402
 from pymht_tpu.utils import simulator as sim  # noqa: E402
+from pymht_tpu_torch.core import config as tconfig  # noqa: E402
 from pymht_tpu_torch.core import state as tstate  # noqa: E402
+from pymht_tpu_torch.core import grow as tgrow  # noqa: E402
 from pymht_tpu_torch.core.grow import Scan, grow, smallest_k  # noqa: E402
+from pymht_tpu_torch.ops import gate_kernel as tk  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+def port(cfg):
+    """The port's own TrackerShapes/TrackerParams, built from the numbers
+    of the JAX package's: each side is given its own classes."""
+    cls = getattr(tconfig, type(cfg).__name__)
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
 
 
 def to_port(jstate):
@@ -95,7 +106,7 @@ def test_grow_matches_jax(scene, use_gate_kernel):
                                use_gate_kernel=use_gate_kernel))
     scan = Scan(z=torch.from_numpy(z), mask=torch.from_numpy(zmask),
                 time=torch.tensor(t, dtype=torch.float32))
-    g_t = grow(to_port(jstate), scan, None, shapes, params)
+    g_t = grow(to_port(jstate), scan, None, port(shapes), port(params))
     sj, st = g_j.state, tstate.state_to_numpy(g_t.state)
     lm = np.asarray(sj.leaf_mask)
     assert lm.sum() > np.asarray(sj.tgt_mask).sum()      # a real beam
@@ -116,6 +127,42 @@ def test_grow_matches_jax(scene, use_gate_kernel):
                                    err_msg=name, **TOL)
 
 
+@pytest.mark.parametrize("scene", [kernel_path_scene, cluttered_scene])
+def test_grow_takes_gain_counts_and_used_from_k1(scene, monkeypatch):
+    """grow makes one call to K1's wrapper and reads K, P_hat, the
+    per-leaf counts and the used mask from it: used_meas is the wrapper's
+    tensor, gated_counts its per-target sum, and both equal the JAX
+    package's reductions of the gate."""
+    shapes, params, jstate, z, zmask, t = scene()
+    calls = []
+
+    def spy(*args):
+        calls.append(tk.radar_candidates(*args))
+        return calls[-1]
+
+    monkeypatch.setattr(tgrow, "radar_candidates", spy)
+    assert not hasattr(tgrow, "k")          # no Kalman precalc in grow
+    scan = Scan(z=torch.from_numpy(z), mask=torch.from_numpy(zmask),
+                time=torch.tensor(t, dtype=torch.float32))
+    g_t = grow(to_port(jstate), scan, None, port(shapes), port(params))
+    assert len(calls) == 1
+    cand = calls[0]
+    T, L = shapes.max_targets, shapes.max_leaves
+    assert g_t.used_meas is cand.used_meas
+    np.testing.assert_array_equal(
+        g_t.gated_counts.numpy(),
+        cand.gated_counts.numpy().reshape(T, L).sum(1))
+    assert g_t.gated_counts.dtype == torch.int32
+    jscan = JScan(z=jnp.asarray(z), mask=jnp.asarray(zmask),
+                  time=jnp.asarray(t, jnp.float32))
+    g_j = jax.device_get(jgrow(jstate, jscan, None, shapes, params))
+    np.testing.assert_array_equal(g_t.used_meas.numpy(),
+                                  np.asarray(g_j.used_meas))
+    np.testing.assert_array_equal(g_t.gated_counts.numpy(),
+                                  np.asarray(g_j.gated_counts))
+    assert int(g_t.gated_counts.sum()) > 0
+
+
 def test_state_round_trip():
     """JAX state -> numpy -> port -> numpy is the identity, dtypes kept."""
     _, _, jstate, _, _, _ = cluttered_scene()
@@ -133,10 +180,11 @@ def test_grow_refuses_unported_options():
     scan = Scan(z=torch.from_numpy(z), mask=torch.from_numpy(zmask),
                 time=torch.tensor(t))
     with pytest.raises(NotImplementedError):
-        grow(to_port(jstate), scan, object(), shapes, params)
+        grow(to_port(jstate), scan, object(), port(shapes), port(params))
     with pytest.raises(NotImplementedError):
         grow(to_port(jstate), scan, None,
-             dataclasses.replace(shapes, radar_cand_width=4), params)
+             dataclasses.replace(port(shapes), radar_cand_width=4),
+             port(params))
 
 
 @pytest.mark.parametrize("seed", range(3))

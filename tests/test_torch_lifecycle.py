@@ -15,8 +15,17 @@ from pymht_tpu.core.config import TrackerShapes, TrackerParams  # noqa: E402
 from pymht_tpu.core.grow import Scan as JScan, grow as jgrow  # noqa: E402
 from pymht_tpu.core.tracker import Tracker as JTracker  # noqa: E402
 from pymht_tpu.utils import simulator as sim  # noqa: E402
+from pymht_tpu_torch.core import config as tconfig  # noqa: E402
 from pymht_tpu_torch.core import lifecycle as tlife  # noqa: E402
 from pymht_tpu_torch.core.state import state_from_numpy  # noqa: E402
+
+def port(cfg):
+    """The port's own TrackerShapes/TrackerParams, built from the numbers
+    of the JAX package's: each side is given its own classes."""
+    cls = getattr(tconfig, type(cfg).__name__)
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
 
 SHAPES = TrackerShapes(max_targets=10, max_leaves=16, max_meas=32,
                        max_ais=2, window=4, max_prelim=8, max_initiators=32)
@@ -99,7 +108,7 @@ def test_prune_and_terminate_match_jax(forests, kw, reason):
         tst = state_from_numpy({f.name: np.asarray(getattr(jst, f.name))
                                 for f in dataclasses.fields(jst)}, "cpu")
         term_j = jax.device_get(jlife.terminate(jst, SHAPES, params))
-        term_t = tlife.terminate(tst, SHAPES, params)
+        term_t = tlife.terminate(tst, port(SHAPES), port(params))
         np.testing.assert_array_equal(term_t.dead.numpy(), term_j.dead)
         np.testing.assert_array_equal(term_t.reason.numpy(), term_j.reason)
         _assert_state(term_t.state, term_j.state)
@@ -108,7 +117,7 @@ def test_prune_and_terminate_match_jax(forests, kw, reason):
 
         pr_j = jax.device_get(jlife.n_scan_prune(term_j.state, SHAPES,
                                                  params))
-        pr_t = tlife.n_scan_prune(term_t.state, SHAPES, params)
+        pr_t = tlife.n_scan_prune(term_t.state, port(SHAPES), port(params))
         _assert_state(pr_t.state, pr_j.state)
         for name in pr_j._fields[1:]:
             np.testing.assert_array_equal(getattr(pr_t, name).numpy(),

@@ -1,5 +1,6 @@
-"""The port imports torch and never jax: a fresh interpreter in which
-importing jax raises runs the port's Tracker for a few scans."""
+"""The port imports torch and never jax nor the JAX package: a fresh
+interpreter in which importing jax or pymht_tpu raises runs the port's
+Tracker for a few scans."""
 import os
 import subprocess
 import sys
@@ -13,6 +14,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROGRAM = r"""
 import sys
 sys.modules['jax'] = None          # any 'import jax' now raises ImportError
+sys.modules['pymht_tpu'] = None    # and so does the JAX package
 import numpy as np
 from pymht_tpu_torch import Tracker, TrackerShapes, TrackerParams
 from pymht_tpu_torch.ops import gate_kernel
@@ -27,12 +29,13 @@ targets = sim.generate_initial_targets(rng, 3, (0.0, 0.0), 200.0, 0.9, 0.1)
 sim_list = sim.simulate_targets(rng, targets, sim_time=10.0, dt=2.5)
 scans = sim.simulate_scans(rng, sim_list, 2.5, sigma_R=2.5, lambda_phi=1e-5,
                            radar_range=500.0, p0=(0.0, 0.0))
-tr = Tracker(shapes, params)
+tr = Tracker(shapes, params, device='cpu')
 for s in scans:
     tr.add_measurement_list(s.time, s.measurements)
 assert len(tr.get_tracks()) >= 1
 loaded = sorted(m for m in sys.modules
-                if (m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax')))
+                if (m in ('jax', 'pymht_tpu')
+                    or m.startswith(('jax.', 'jaxlib', 'flax', 'pymht_tpu.')))
                 and sys.modules[m] is not None)
 assert not loaded, loaded
 print('ok')

@@ -23,14 +23,25 @@ from pymht_tpu.core.state import TrackerState as JState  # noqa: E402
 from pymht_tpu.core.tracker import Tracker as JTracker  # noqa: E402
 from pymht_tpu.utils import simulator as sim  # noqa: E402
 from pymht_tpu.utils.oracle import selection_gap  # noqa: E402
+from pymht_tpu_torch.core import config as tconfig  # noqa: E402
 from pymht_tpu_torch.core import select as tsel  # noqa: E402
 from pymht_tpu_torch.core.state import (  # noqa: E402
     state_from_numpy, state_to_numpy)
+
+
+def port(cfg):
+    """The port's own TrackerShapes/TrackerParams, built from the numbers
+    of the JAX package's: each side is given its own classes."""
+    cls = getattr(tconfig, type(cfg).__name__)
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cls)})
+
 
 SHAPES = TrackerShapes(max_targets=12, max_leaves=16, max_meas=48,
                        max_ais=2, window=5, max_prelim=8, max_initiators=48)
 PARAMS = TrackerParams(radar_period=2.5, P_d=0.9, lambda_phi=4e-5,
                        lambda_nu=1e-5, N=3, radar_range=400.0)
+TSHAPES, TPARAMS = port(SHAPES), port(PARAMS)
 
 
 def _np_fields(st):
@@ -100,11 +111,11 @@ def test_select_matches_jax(forests, method, fast_path):
     for jst in forests:
         res_j = jax.device_get(sel_j(jst))
         tst = state_from_numpy(_np_fields(jst), "cpu")
-        res_t = tsel.select(tst, SHAPES, PARAMS, method=method,
+        res_t = tsel.select(tst, TSHAPES, TPARAMS, method=method,
                             fast_path=fast_path)
-        _check_same(res_t, res_j, tsel.leaf_scores(tst, PARAMS))
+        _check_same(res_t, res_j, tsel.leaf_scores(tst, TPARAMS))
         n_conflicted += not bool(tsel._independent_best(
-            tst, SHAPES, PARAMS)[2])
+            tst, TSHAPES, TPARAMS)[2])
     assert n_conflicted >= 4           # the scene exercises the solver
 
 
@@ -114,7 +125,7 @@ def test_selection_gap_vs_exact_oracle(forests):
     gaps = []
     for jst in forests:
         tst = state_from_numpy(_np_fields(jst), "cpu")
-        res = tsel.select(tst, SHAPES, PARAMS, method='lagrangian')
+        res = tsel.select(tst, TSHAPES, TPARAMS, method='lagrangian')
         assert bool(res.feasible)
         d = state_to_numpy(tst.replace(sel_leaf=res.sel))
         back = JState(**{k: jnp.asarray(v) for k, v in d.items()})
@@ -128,6 +139,6 @@ def test_select_refuses_unported_methods(forests):
     tst = state_from_numpy(_np_fields(forests[0]), "cpu")
     for method in ("ipm", "lagrangian_pure"):
         with pytest.raises(NotImplementedError):
-            tsel.select(tst, SHAPES, PARAMS, method=method)
+            tsel.select(tst, TSHAPES, TPARAMS, method=method)
     with pytest.raises(ValueError):
-        tsel.select(tst, SHAPES, PARAMS, method="simplex")
+        tsel.select(tst, TSHAPES, TPARAMS, method="simplex")

@@ -1,0 +1,228 @@
+"""The port stands alone: no file of ``pymht_tpu_torch`` (nor
+``chip_smoke.py``) imports ``jax`` or the JAX package ``pymht_tpu``, and
+its own copies of the host modules (config, simulator, metrics, helpers,
+containers) agree with the JAX package's on the same seeded inputs —
+bit for bit, since both are the same numpy arithmetic.
+"""
+import dataclasses
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from pymht_tpu.core import config as jconfig  # noqa: E402
+from pymht_tpu.utils import (  # noqa: E402
+    containers as jcontainers, helpers as jhelpers, metrics as jmetrics,
+    simulator as jsim)
+from pymht_tpu_torch.core import config as tconfig  # noqa: E402
+from pymht_tpu_torch.utils import (  # noqa: E402
+    containers as tcontainers, helpers as thelpers, metrics as tmetrics,
+    simulator as tsim)
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO_ROOT / "pymht_tpu_torch").rglob("*.py")) \
+    + [REPO_ROOT / "chip_smoke.py"]
+# an import statement naming jax or pymht_tpu as a whole word (so
+# pymht_tpu_torch itself passes), at any indentation
+FORBIDDEN = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|pymht_tpu)(?:\.|\s|,|$)", re.M)
+
+# Fields of the JAX package's TrackerShapes that the port leaves out:
+# pregate_approx selects jax.lax.approx_min_k, a TPU partial reduce (the
+# port's pre-gate is exact top-k only).
+DROPPED_FIELDS = {"TrackerShapes": {"pregate_approx"}, "TrackerParams": set()}
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO_ROOT)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path}: {hits}"
+
+
+def test_scan_finds_a_forbidden_import():
+    """The scan itself: it flags the JAX package and jax, not the port."""
+    assert FORBIDDEN.search("from pymht_tpu.utils import simulator")
+    assert FORBIDDEN.search("    import pymht_tpu")
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert not FORBIDDEN.search("from pymht_tpu_torch.utils import metrics")
+    assert not FORBIDDEN.search("import pymht_tpu_torch")
+    assert len(PORT_FILES) > 20
+
+
+@pytest.mark.parametrize("name", ["TrackerShapes", "TrackerParams"])
+def test_config_fields_and_defaults(name):
+    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+    jf = {f.name: f.default for f in dataclasses.fields(jcls)}
+    tf = {f.name: f.default for f in dataclasses.fields(tcls)}
+    assert set(jf) - set(tf) == DROPPED_FIELDS[name]
+    assert set(tf) <= set(jf)
+    assert [n for n in jf if n in tf] == list(tf)          # same order
+    for n, default in tf.items():
+        assert default == jf[n], n
+
+
+CONFIG_CASES = [
+    ("TrackerShapes", {}, ["ais_fuse_width"]),
+    ("TrackerShapes", dict(max_targets=128, max_leaves=32, max_meas=512,
+                           max_ais=8, ais_per_leaf=3, radar_cand_width=64),
+     ["ais_fuse_width"]),
+    ("TrackerParams", {}, ["lambda_ex", "score_upper_limit",
+                           "merge_threshold", "gamma_initiator"]),
+    ("TrackerParams", dict(P_d=0.9, lambda_phi=2e-5, lambda_nu=1e-5,
+                           gate_probability=0.95,
+                           score_upper_limit_scale=0.5),
+     ["lambda_ex", "score_upper_limit", "merge_threshold",
+      "gamma_initiator"]),
+]
+
+
+@pytest.mark.parametrize("name,kw,props", CONFIG_CASES)
+def test_config_derived_properties(name, kw, props):
+    j, t = getattr(jconfig, name)(**kw), getattr(tconfig, name)(**kw)
+    for f in dataclasses.fields(t):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
+    for p in props:
+        assert getattr(t, p) == getattr(j, p), p
+
+
+def test_config_rejects_what_the_jax_config_rejects():
+    for kw in (dict(window=1), dict(max_leaves=1),
+               dict(max_meas=8, radar_cand_width=9)):
+        with pytest.raises(AssertionError):
+            jconfig.TrackerShapes(**kw)
+        with pytest.raises(AssertionError):
+            tconfig.TrackerShapes(**kw)
+
+
+def _scene(sim, seed):
+    rng = np.random.default_rng(seed)
+    targets = sim.generate_initial_targets(rng, 6, (10.0, -5.0), 300.0, 0.9,
+                                           0.1, assign_mmsi=True, P_r=0.9)
+    sim_list = sim.simulate_targets(rng, targets, sim_time=25.0, dt=2.5)
+    scans = sim.simulate_scans(rng, sim_list, 2.5, sigma_R=2.5,
+                               lambda_phi=2e-5, radar_range=300.0,
+                               p0=(10.0, -5.0), lambda_local=0.5)
+    # AIS reports fall between radar scans: a finer truth for them
+    fine = sim.simulate_targets(rng, targets, sim_time=25.0, dt=0.5)
+    ais = sim.simulate_ais(rng, fine, 2.5, init_time=0.0,
+                           id_scrambling=True)
+    return targets, sim_list, scans, ais
+
+
+@pytest.mark.parametrize("seed", [0, 7, 1234])
+def test_simulator_is_bit_identical(seed):
+    tj, lj, sj, aj = _scene(jsim, seed)
+    tt, lt, st, at = _scene(tsim, seed)
+    assert len(tt) == len(tj)
+    for a, b in zip(tt, tj):
+        np.testing.assert_array_equal(a.state, b.state)
+        assert (a.time, a.P_d, a.sigma_Q, a.mmsi) == \
+            (b.time, b.P_d, b.sigma_Q, b.mmsi)
+    assert len(lt) == len(lj)
+    for row_t, row_j in zip(lt, lj):
+        for a, b in zip(row_t, row_j):
+            np.testing.assert_array_equal(a.state, b.state)
+            assert a.time == b.time
+    assert len(st) == len(sj) and len(st) >= 5
+    for a, b in zip(st, sj):
+        assert a.time == b.time
+        assert a.measurements.dtype == b.measurements.dtype
+        np.testing.assert_array_equal(a.measurements, b.measurements)
+    assert len(at) == len(aj) and sum(map(len, at)) >= 3
+    for row_t, row_j in zip(at, aj):
+        assert len(row_t) == len(row_j)
+        for a, b in zip(row_t, row_j):
+            assert (a.time, a.mmsi, a.highAccuracy) == \
+                (b.time, b.mmsi, b.highAccuracy)
+            np.testing.assert_array_equal(a.state, b.state)
+    cj, rj = jsim.find_center_and_range(lj)
+    ct, rt = tsim.find_center_and_range(lt)
+    np.testing.assert_array_equal(np.asarray(ct), np.asarray(cj))
+    assert rt == rj
+
+
+class _Run:
+    """What metrics.evaluate and helpers.backtrack_measurement_numbers
+    read of a finished tracker: ``t0`` and the per-track sequences."""
+
+    def __init__(self, seqs, t0):
+        self._seqs, self.t0 = seqs, t0
+
+    def _track_measurement_sequences(self, include_terminated=False):
+        return self._seqs
+
+
+def _tracked_run(sim_list, seed):
+    """Tracks that follow the first four truths with noise, one of them
+    late, plus one false track."""
+    rng = np.random.default_rng(seed)
+    t0 = 1.5
+    seqs = {}
+    for k in range(4):
+        rows = sim_list[(2 if k == 3 else 0):]
+        seqs[k] = ([r[k].time - t0 for r in rows],
+                   [int(v) for v in rng.integers(0, 5, len(rows))],
+                   [r[k].state + rng.normal(0, 1.0, 4) for r in rows],
+                   [0] * len(rows))
+    seqs[9] = ([r[0].time - t0 for r in sim_list], [1] * len(sim_list),
+               [np.array([900.0, 900.0, 0.0, 0.0])] * len(sim_list),
+               [0] * len(sim_list))
+    return _Run(seqs, t0)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_metrics_evaluate_equal(seed):
+    _, sim_list, _, _ = _scene(tsim, seed)
+    run = _tracked_run(sim_list, seed)
+    kw = dict(p0=(10.0, -5.0), radar_range=300.0)
+    mj = jmetrics.evaluate(run, sim_list, 2.5, **kw)
+    mt = tmetrics.evaluate(run, sim_list, 2.5, **kw)
+    assert mt.keys() == mj.keys()
+    for key in mj:
+        np.testing.assert_array_equal(np.asarray(mt[key]),
+                                      np.asarray(mj[key]), err_msg=key)
+    assert mt["n_false_tracks"] >= 1 and 0.0 < mt["track_percent"] <= 1.0
+    np.testing.assert_array_equal(tmetrics.truth_positions(sim_list),
+                                  jmetrics.truth_positions(sim_list))
+
+
+def test_helpers_equal():
+    for n in range(0, 9):
+        for k in range(-1, n + 2):
+            assert thelpers.binomial(n, k) == jhelpers.binomial(n, k)
+    for g in range(0, 5):
+        for w in range(1, 6):
+            assert thelpers.expected_hypotheses(g, w) == \
+                jhelpers.expected_hypotheses(g, w)
+    _, sim_list, _, _ = _scene(tsim, 1)
+    run = _tracked_run(sim_list, 1)
+    assert thelpers.backtrack_measurement_numbers(run) == \
+        jhelpers.backtrack_measurement_numbers(run)
+    assert thelpers.backtrack_measurement_numbers(run, track_id=2) == \
+        jhelpers.backtrack_measurement_numbers(run, track_id=2)
+
+
+@pytest.mark.parametrize("cls", ["Position", "Velocity"])
+def test_containers_equal(cls):
+    rng = np.random.default_rng(5)
+    J, T = getattr(jcontainers, cls), getattr(tcontainers, cls)
+    for _ in range(5):
+        a, b = rng.normal(0, 10, 2), rng.normal(0, 10, 2)
+        for op in (lambda c: (c(*a) + c(*b)).to_array(),
+                   lambda c: (c(*a) - c(b)).to_array(),
+                   lambda c: (3.0 * c(*a)).to_array(),
+                   lambda c: (c(*a) / 4.0).to_array(),
+                   lambda c: c(*a).norm(), lambda c: repr(c(*a)),
+                   lambda c: hash(c(*a)), lambda c: c(*a) == c(a),
+                   lambda c: list(c(*a))):
+            np.testing.assert_array_equal(op(T), op(J))
+        if cls == "Position":
+            assert T(*a).distance_to(b) == J(*a).distance_to(b)
+            assert T(*a).in_range_of(b, 12.0) == J(*a).in_range_of(b, 12.0)
+        else:
+            assert T(*a).speed() == J(*a).speed()
+            assert T(*a).heading_deg() == J(*a).heading_deg()

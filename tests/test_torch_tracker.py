@@ -7,14 +7,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from pymht_tpu.core.config import TrackerShapes, TrackerParams  # noqa: E402
+from pymht_tpu.core.config import (  # noqa: E402
+    TrackerShapes as JShapes, TrackerParams as JParams)
 from pymht_tpu.core.tracker import Tracker as JTracker  # noqa: E402
 from pymht_tpu.utils import simulator as sim  # noqa: E402
 from pymht_tpu_torch.core import tracker as ttracker  # noqa: E402
+from pymht_tpu_torch.core.config import (  # noqa: E402
+    TrackerShapes, TrackerParams)
 from pymht_tpu_torch.core.tracker import Tracker  # noqa: E402
 
-SHAPES = TrackerShapes(max_targets=8, max_leaves=32, max_meas=16,
-                       max_ais=4, window=7, max_prelim=8, max_initiators=16)
+# each side gets its own classes, built from the same numbers
+_SHAPES = dict(max_targets=8, max_leaves=32, max_meas=16, max_ais=4,
+               window=7, max_prelim=8, max_initiators=16)
+SHAPES, JSHAPES = TrackerShapes(**_SHAPES), JShapes(**_SHAPES)
 TOL = dict(rtol=1e-4, atol=1e-3)
 
 
@@ -22,8 +27,8 @@ def crossing_scene():
     """Two targets crossing, no clutter, no seeds: both must be
     initiated by the m/n initiator (tests/test_tracker_e2e.py)."""
     period = 2.5
-    params = TrackerParams(radar_period=period, P_d=0.9, lambda_phi=1e-8,
-                           lambda_nu=1e-6, N=5, radar_range=1000.0)
+    params = dict(radar_period=period, P_d=0.9, lambda_phi=1e-8,
+                  lambda_nu=1e-6, N=5, radar_range=1000.0)
     tgt = [sim.SimTarget(state=np.array([-100.0, 10.0, 5.0, -0.5]),
                          time=0.0, P_d=1.0, sigma_Q=0.1),
            sim.SimTarget(state=np.array([100.0, -10.0, -5.0, 0.5]),
@@ -35,14 +40,14 @@ def crossing_scene():
                                lambda_phi=0.0, radar_range=1000.0,
                                p0=(0.0, 0.0), P_d=1.0, local_clutter=False,
                                global_clutter=False)
-    return params, scans, None
+    return TrackerParams(**params), JParams(**params), scans, None
 
 
 def cluttered_scene():
     """Six seeded targets in clutter, with missed detections."""
     period = 2.5
-    params = TrackerParams(radar_period=period, P_d=0.9, lambda_phi=2e-5,
-                           lambda_nu=1e-5, N=4, radar_range=150.0)
+    params = dict(radar_period=period, P_d=0.9, lambda_phi=2e-5,
+                  lambda_nu=1e-5, N=4, radar_range=150.0)
     rng = np.random.default_rng(4)
     targets = sim.generate_initial_targets(rng, 6, (0.0, 0.0), 100.0, 0.9,
                                            0.1)
@@ -53,14 +58,15 @@ def cluttered_scene():
                                p0=(0.0, 0.0), lambda_local=0.5)
     F_inv = np.eye(4)
     F_inv[0, 2] = F_inv[1, 3] = -period
-    return params, scans, [F_inv @ t.state for t in targets[:5]]
+    return (TrackerParams(**params), JParams(**params), scans,
+            [F_inv @ t.state for t in targets[:5]])
 
 
 @pytest.mark.parametrize("scene", [crossing_scene, cluttered_scene])
 def test_tracker_matches_jax(scene):
-    params, scans, seeds = scene()
-    jt = JTracker(SHAPES, params, method='lagrangian', use_ais=False)
-    tt = Tracker(SHAPES, params)
+    params, jparams, scans, seeds = scene()
+    jt = JTracker(JSHAPES, jparams, method='lagrangian', use_ais=False)
+    tt = Tracker(SHAPES, params, device='cpu')
     if seeds is not None:
         jt.pre_initialize(scans[0].time - params.radar_period, seeds)
         tt.pre_initialize(scans[0].time - params.radar_period, seeds)
@@ -88,9 +94,9 @@ def test_tracker_matches_jax(scene):
 
 
 def test_pipelined_outputs_match_stepped():
-    params, scans, seeds = cluttered_scene()
-    a = Tracker(SHAPES, params)
-    b = Tracker(SHAPES, params, pipeline_outputs=True)
+    params, _, scans, seeds = cluttered_scene()
+    a = Tracker(SHAPES, params, device='cpu')
+    b = Tracker(SHAPES, params, pipeline_outputs=True, device='cpu')
     for tr in (a, b):
         tr.pre_initialize(scans[0].time - params.radar_period, seeds)
         for s in scans:
@@ -105,8 +111,8 @@ def test_pipelined_outputs_match_stepped():
 def test_scan_many_matches_stepping():
     """scan_many (a loop of scan_step over stacked scans) gives the
     stepped Tracker's selected labels."""
-    params, scans, seeds = cluttered_scene()
-    tr = Tracker(SHAPES, params)
+    params, _, scans, seeds = cluttered_scene()
+    tr = Tracker(SHAPES, params, device='cpu')
     tr.pre_initialize(scans[0].time - params.radar_period, seeds)
     st0, ist0 = tr.state, tr.init_state
     M = SHAPES.max_meas
@@ -132,8 +138,28 @@ def test_tracker_refuses_unported_options():
     for kw in (dict(use_ais=True), dict(prune_similar=True),
                dict(dynamic_window=True), dict(degrade_on_overload=True)):
         with pytest.raises(NotImplementedError):
-            Tracker(SHAPES, params, **kw)
-    tr = Tracker(SHAPES, params)
+            Tracker(SHAPES, params, device='cpu', **kw)
+    tr = Tracker(SHAPES, params, device='cpu')
     for call in (tr.stream, tr.get_smooth_tracks, tr.degrade):
         with pytest.raises(NotImplementedError):
             call()
+
+
+def test_tracker_defaults_to_the_card(monkeypatch):
+    """No ``device`` means CUDA: without a CUDA device the constructor
+    raises and names device='cpu'; it never carries on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Tracker(SHAPES, TrackerParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Tracker(SHAPES, TrackerParams(), device=None)
+
+
+def test_tracker_runs_on_the_cpu_when_asked():
+    params, _, scans, seeds = cluttered_scene()
+    tr = Tracker(SHAPES, params, device='cpu')
+    assert tr.device == torch.device('cpu')
+    tr.pre_initialize(scans[0].time - params.radar_period, seeds)
+    out = tr.add_measurement_list(scans[0].time, scans[0].measurements)
+    assert tr.state.leaf_x.device.type == 'cpu'
+    assert out.track_mask.sum() == len(seeds)
