@@ -1,8 +1,9 @@
 """pymht_tpu_torch — the PyTorch/CUDA port of pymht_tpu.
 
 The same fixed-shape hypothesis forest and per-scan pipeline as the JAX
-package, on torch tensors of one device; K1 (the gate-and-score pass of
-grow) is a hand-written CUDA kernel (``csrc/gate_score.cu``).
+package (radar and AIS fusion), on torch tensors of one device; K1 (the
+gate-and-score pass of grow) is a hand-written CUDA kernel
+(``csrc/gate_score.cu``).
 
 Public API::
 

@@ -1,23 +1,38 @@
-"""Hypothesis-forest growth, radar branch (counterpart of
-pymht_tpu/core/grow.py:grow with ``ais=None``).
+"""Hypothesis-forest growth (counterpart of pymht_tpu/core/grow.py:grow).
 
 Predict every leaf of every target, gate and score it against every
 measurement (K1, ops/gate_kernel.py, which also returns the radar
-update's gain and covariance per leaf and the gate's reductions), keep
-the best L candidates per target, force the feasibility spine into the
-beam, gather the parents and roll the label history by one scan.
+update's gain and covariance per leaf and the gate's reductions) and,
+with an ``AisBatch``, against the AIS messages fused with the radar
+measurements (ops/ais_fused.py); keep the best L candidates per target,
+force the feasibility spine into the beam, gather the parents and roll
+the label history by one scan.
 
-Candidate layout per leaf: slot 0 is the zero hypothesis (missed
-detection), slot 1 + m is radar measurement m.
+Candidate layout per leaf (C = 1 + M + G (1 + M) slots; G =
+``shapes.ais_fuse_width``, the best G stage-1-gated messages per leaf,
+mapped back to message indices through ``ais_idx``):
+
+* slot 0                       : zero hypothesis (missed detection)
+* slot 1 + m                   : radar measurement m
+* slot 1 + M + g (1 + M)       : pure-AIS association with compressed slot g
+* slot 1 + M + g (1 + M) + 1+m : slot g fused with radar measurement m
+
+With the spatial pre-gate (``shapes.radar_cand_width`` = Km, 0 < Km < M)
+every target's candidates run over its Km nearest measurements only (by
+distance to the selected leaf's prediction): M above becomes Km, K1 takes
+the per-target ``z_sub [T, Km, 2]``, and compressed indices map back to
+scan indices through ``zidx`` after the beam.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..models.constants import sigmaQ_tracker, sigmaR_RADAR_tracker
+from ..ops.ais_fused import ais_candidates
 from ..ops.gate_kernel import BIG, radar_candidates
+from ..ops.topk import smallest_k
 from .config import TrackerShapes, TrackerParams
 from .state import TrackerState
 
@@ -29,31 +44,64 @@ class Scan(NamedTuple):
     time: torch.Tensor     # [] f32
 
 
+class AisBatch(NamedTuple):
+    """AIS messages received since the previous scan, padded to A."""
+    state: torch.Tensor    # [A, 4] f32
+    time: torch.Tensor     # [A] f32
+    mmsi: torch.Tensor     # [A] i32
+    high_accuracy: torch.Tensor  # [A] bool
+    mask: torch.Tensor     # [A] bool
+
+
+def empty_ais(shapes: TrackerShapes, device) -> AisBatch:
+    A = shapes.max_ais
+
+    def z(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return AisBatch(state=z((A, 4), torch.float32),
+                    time=z((A,), torch.float32), mmsi=z((A,), torch.int32),
+                    high_accuracy=z((A,), torch.bool),
+                    mask=z((A,), torch.bool))
+
+
 class GrowOutputs(NamedTuple):
     state: TrackerState
     used_meas: torch.Tensor     # [M] bool — gated by any live leaf
     gated_counts: torch.Tensor  # [T] i32 — gated (leaf, meas) pairs
 
 
-def smallest_k(x: torch.Tensor, k: int):
-    """The k smallest entries along the last axis, ascending, ties broken
-    by lower index first — the order of ``jax.lax.top_k(-x, k)`` (a
-    stable sort; ``torch.topk`` makes no promise about ties)."""
-    vals, idx = torch.sort(x, dim=-1, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
-         params: TrackerParams) -> GrowOutputs:
-    """Advance every target's hypothesis forest by one scan (radar only)."""
-    if ais is not None:
-        raise NotImplementedError("grow: the AIS branch is not ported yet")
-    if shapes.radar_cand_width > 0:
-        raise NotImplementedError("grow: the spatial pre-gate "
-                                  "(radar_cand_width > 0) is not ported yet")
+def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
+         shapes: TrackerShapes, params: TrackerParams) -> GrowOutputs:
+    """Advance every target's hypothesis forest by one scan.  ``ais`` is
+    an AisBatch, or None for the radar-only branch."""
+    if ais is not None and not isinstance(ais, AisBatch):
+        raise TypeError(f"grow: ais must be an AisBatch or None, got "
+                        f"{type(ais).__name__}")
     T, L, W = state.hist_meas.shape
     M = shapes.max_meas
     dev = state.leaf_x.device
+    tb = torch.arange(T, device=dev)
+    dt = scan.time - state.time
+
+    # --- spatial pre-gate: each target's Km nearest measurements ------
+    Km = shapes.radar_cand_width
+    pregate = 0 < Km < M
+    sub = {}
+    z_sub = zmask_sub = zidx = None
+    if pregate:
+        xr = state.leaf_x[tb, state.sel_leaf.long().clamp(0, L - 1)]  # [T,4]
+        px = xr[:, 0] + dt * xr[:, 2]
+        py = xr[:, 1] + dt * xr[:, 3]
+        d2 = ((scan.z[None, :, 0] - px[:, None]) ** 2
+              + (scan.z[None, :, 1] - py[:, None]) ** 2)           # [T,M]
+        d2 = torch.where(scan.mask[None, :], d2, torch.inf)
+        dvals, zidx = smallest_k(d2, Km)                           # [T,Km]
+        z_sub = scan.z[zidx]                                       # [T,Km,2]
+        zmask_sub = scan.mask[zidx] & torch.isfinite(dvals)
+        sub = dict(z_sub=z_sub, zmask_sub=zmask_sub, zidx=zidx.int(),
+                   leaves_per_target=L)
+    M_eff = Km if pregate else M
 
     # --- K1: predict + gate + score every (leaf, measurement) pair ----
     pd_leaf = state.tgt_pd[:, None].expand(T, L)
@@ -63,12 +111,11 @@ def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
         state.leaf_cnllr.reshape(T * L),
         pd_leaf.reshape(T * L),
         state.leaf_mask.reshape(T * L),
-        scan.z, scan.mask,
-        scan.time - state.time, sigmaQ_tracker,
+        scan.z, scan.mask, dt, sigmaQ_tracker,
         float(sigmaR_RADAR_tracker) ** 2,
-        params.eta2, params.lambda_ex)
-    Cn = 1 + M
-    cand_scores = cand.scores.reshape(T, L, Cn)
+        params.eta2, params.lambda_ex, **sub)
+    Cn_r = 1 + M_eff
+    cand_scores = cand.scores.reshape(T, L, Cn_r)
     x_bar = cand.x_bar.reshape(T, L, 4)
     P_bar = cand.P_bar.reshape(T, L, 4, 4)
     K = cand.K.reshape(T, L, 4, 2)
@@ -76,12 +123,35 @@ def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
     zero_score = cand_scores[:, :, 0]                              # [T,L]
 
     # --- beam: the best L candidates per target -----------------------
-    top_scores, top_idx = smallest_k(cand_scores.reshape(T, L * Cn), L)
+    top_scores, top_idx = smallest_k(cand_scores.reshape(T, L * Cn_r), L)
+    Cn = Cn_r
+    if ais is not None:
+        G = min(shapes.ais_fuse_width, shapes.max_ais)
+        (g_ok, gate2, pure_gate, nllr1g, fused_score, x_bar2, z_hat2, K2g,
+         P_ais_hat, ais_idx) = ais_candidates(
+            state, scan, ais, params, G,
+            prefilter=shapes.ais_prefilter_width, z_sub=z_sub,
+            zmask_sub=zmask_sub)
+        cn = state.leaf_cnllr[:, :, None]
+        pure_score = torch.where(pure_gate, cn + nllr1g, BIG)      # [T,L,G]
+        fused = torch.where(gate2, cn[..., None] + fused_score, BIG)
+        ais_block = torch.cat([pure_score[..., None], fused], dim=3)
+        W_a = G * Cn_r
+        Cn = Cn_r + W_a
+        # Block-wise exact merge: the top L of [radar | ais] is the top L
+        # of (top L of radar ++ top L of ais); radar first, so ties fall
+        # as in the JAX package.  Indices go to the per-leaf slot layout
+        # of the module docstring.
+        glob_r = (top_idx // Cn_r) * Cn + top_idx % Cn_r
+        score_a, idx_a = smallest_k(ais_block.reshape(T, L * W_a), L)
+        glob_a = (idx_a // W_a) * Cn + Cn_r + idx_a % W_a
+        top_scores, pos = smallest_k(
+            torch.cat([top_scores, score_a], dim=1), L)            # [T,2L]
+        top_idx = torch.gather(torch.cat([glob_r, glob_a], dim=1), 1, pos)
 
     # Feasibility spine: force the zero-hypothesis child of the
     # previously selected leaf into the beam, so the previous selection
     # plus a missed detection is always a feasible global assignment.
-    tb = torch.arange(T, device=dev)
     zero_parent = state.sel_leaf.long().clamp(0, L - 1)
     has_zero = state.leaf_mask[tb, zero_parent]
     zcand = zero_parent * Cn
@@ -100,7 +170,18 @@ def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
     parent = top_idx // Cn                                         # [T,L]
     slot = top_idx % Cn
     is_zero = slot == 0
-    radar_m = (slot - 1).clamp(0, M - 1)
+    radar_m = (slot - 1).clamp(0, M_eff - 1)
+    if ais is not None:
+        ais_slot = (slot - Cn_r).clamp(0, W_a - 1)
+        is_ais = slot >= Cn_r
+        ais_g = ais_slot // Cn_r                                   # [T,L]
+        ais_sub = ais_slot % Cn_r                          # 0 pure, 1+m fused
+        is_pure_ais = is_ais & (ais_sub == 0)
+        ais_m = (ais_sub - 1).clamp(0, M_eff - 1)
+    if pregate:      # compressed columns back to scan indices
+        radar_m = torch.gather(zidx, 1, radar_m)
+        if ais is not None:
+            ais_m = torch.gather(zidx, 1, ais_m)
 
     # --- gather the parents' payloads, apply the radar update ---------
     tp = (tb[:, None], parent)
@@ -111,8 +192,28 @@ def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
     new_x = torch.where(is_zero[..., None], x_bar_p, x_radar)
     new_P = torch.where(is_zero[..., None, None], P_bar_p, P_radar)
     new_meas_label = torch.where(is_zero, 0, radar_m + 1)
+    new_ais_label = torch.zeros((T, L), dtype=torch.int32, device=dev)
+    new_mmsi_label = new_ais_label
+
+    if ais is not None:
+        # the selected fused and pure-AIS states, from the compressed
+        # stage-2 ingredients ([T,L] gathers; integer channels stay
+        # integers)
+        tpg = (tb[:, None], parent, ais_g)
+        x_p = x_bar2[tpg]
+        zt_f = scan.z[ais_m] - z_hat2[tpg]
+        x_f = x_p + torch.einsum('tlij,tlj->tli', K2g[tpg], zt_f)
+        ais_a = ais_idx[tpg]                        # message index, [T,L]
+        new_x = torch.where(is_ais[..., None],
+                            torch.where(is_pure_ais[..., None], x_p, x_f),
+                            new_x)
+        new_P = torch.where(is_ais[..., None, None], P_ais_hat[tpg], new_P)
+        new_meas_label = torch.where(
+            is_ais, torch.where(is_pure_ais, 0, ais_m + 1), new_meas_label)
+        new_ais_label = torch.where(is_ais, ais_a + 1, 0).int()
+        new_mmsi_label = torch.where(is_ais, ais.mmsi[ais_a], 0).int()
+
     new_meas_label = torch.where(new_mask, new_meas_label, -1).int()
-    zeros_tl = torch.zeros((T, L), dtype=torch.int32, device=dev)
 
     # --- roll the history one column left, write the new column ------
     keep3 = new_mask[:, :, None]
@@ -137,8 +238,8 @@ def grow(state: TrackerState, scan: Scan, ais, shapes: TrackerShapes,
         leaf_cnllr=torch.where(new_mask, top_scores, 0.0),
         leaf_mask=new_mask & state.tgt_mask[:, None],
         hist_meas=shift_append(state.hist_meas, new_meas_label, -1),
-        hist_ais=shift_append(state.hist_ais, zeros_tl, 0),
-        hist_mmsi=shift_append(state.hist_mmsi, zeros_tl, 0),
+        hist_ais=shift_append(state.hist_ais, new_ais_label, 0),
+        hist_mmsi=shift_append(state.hist_mmsi, new_mmsi_label, 0),
         hist_cnllr=shift_append(state.hist_cnllr, top_scores, 0.0),
         hist_x=torch.where(new_mask[:, :, None, None], hx, 0.0),
         tgt_depth=torch.where(state.tgt_mask,

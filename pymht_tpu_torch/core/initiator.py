@@ -1,22 +1,20 @@
-"""m/n track initiation, radar only (counterpart of
-pymht_tpu/core/initiator.py with no AIS messages).
+"""m/n track initiation (counterpart of pymht_tpu/core/initiator.py).
 
-1. preliminary tracks are predicted, measurements gated (chi2 df=2) and
-   assigned by GNN (auction_assign), assigned tracks get a KF update and
-   m += 1, every track n += 1, then m/n analysis confirms (m >= M) or
-   kills (n >= N with m < M, or speed > 1.5 v_max);
+1. preliminary tracks are predicted; every AIS message whose MMSI no
+   prelim holds, predicted to scan time, seeds a new prelim; measurements
+   are gated (chi2 df=2) and assigned by GNN (auction_assign), assigned
+   tracks get a KF update and m += 1, every track n += 1, then m/n
+   analysis confirms (m >= M) or kills (n >= N with m < M, or speed >
+   1.5 v_max);
 2. measurements unclaimed by prelims pair with the previous scan's
    one-point initiators (distance GNN, gate v_max dt) and spawn new
    prelims with two-point velocity initialisation and NIS dedup;
 3. everything still unclaimed becomes the next scan's initiators.
-
-The JAX step's AIS-seed block is skipped: with no AIS messages it is a
-no-op there, so the results are the same.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,6 +22,7 @@ from ..models import pv, ais as ais_model
 from ..ops import kalman as k
 from ..ops.assignment import auction_assign
 from .config import TrackerShapes, TrackerParams
+from .grow import AisBatch
 from .state import _Tensors
 
 
@@ -96,10 +95,16 @@ def _claim(mask, idx, ok):
     return out[:M]
 
 
-def step(state: InitiatorState, z, z_mask, time, ais,
+def step(state: InitiatorState, z, z_mask, time, ais: Optional[AisBatch],
          shapes: TrackerShapes, params: TrackerParams) -> InitiatorOutputs:
-    if ais is not None:
-        raise NotImplementedError("initiator: AIS seeding is not ported yet")
+    """One scan of the initiator.  ``ais`` holds the messages that may
+    seed prelims.  ``None`` (AIS initiation off) gives what an empty
+    AisBatch gives and skips the seeding block: in eager torch that block
+    launches its kernels whether or not a message is there (164 device
+    ops per scan on the radar-only bench scene, H100; PERF.md, Findings)."""
+    if ais is not None and not isinstance(ais, AisBatch):
+        raise TypeError(f"initiator.step: ais must be an AisBatch or None, "
+                        f"got {type(ais).__name__}")
     P = shapes.max_prelim
     M = z.shape[0]
     dev = z.device
@@ -114,6 +119,27 @@ def step(state: InitiatorState, z, z_mask, time, ais,
     pm1, pm2 = state.p_mask[:, None], state.p_mask[:, None, None]
     st = state.replace(p_x=torch.where(pm1, p_x, 0.0),
                        p_P=torch.where(pm2, p_P, 0.0))
+
+    # -- 1b. AIS-seeded prelims ----------------------------------------
+    if ais is not None:
+        dTa = time - ais.time                                            # [A]
+        PhiA = pv.Phi(dTa, dev)
+        ax = torch.einsum('aij,aj->ai', PhiA, ais.state)
+        aP = torch.einsum('aij,jk,alk->ail', PhiA, pv.P0(dev), PhiA) \
+            + pv.Q(dTa, device=dev)
+        held = torch.where(st.p_mask, st.p_mmsi, -1)
+        a_new = ais.mask & ~torch.isin(ais.mmsi, held)
+        a_new = _nis_dedup(ax, a_new, st.p_x, st.p_P, st.p_mask)
+        take, src = _insert_rows(st.p_mask, a_new)
+        st = st.replace(
+            p_x=torch.where(take[:, None], ax[src], st.p_x),
+            p_P=torch.where(take[:, None, None], aP[src], st.p_P),
+            p_m=torch.where(take, 0, st.p_m),
+            p_n=torch.where(take, 0, st.p_n),
+            p_mmsi=torch.where(take, ais.mmsi[src], st.p_mmsi),
+            p_meas_idx=torch.where(take, -1, st.p_meas_idx),
+            p_mask=st.p_mask | take,
+        )
 
     # -- 1c. gate + GNN assign measurements to prelims -----------------
     z_hat, _, S_inv, K, P_hat = k.precalc(pv.C_RADAR(dev), pv.R_RADAR(dev),

@@ -169,3 +169,11 @@ def initiator_from_numpy(d: dict, device):
 
 def initiator_to_numpy(init_state) -> dict:
     return _to_numpy(init_state)
+
+
+def ais_from_numpy(d: dict, device):
+    """An AisBatch from a dict of numpy arrays named like its fields
+    (e.g. a JAX AisBatch's ``_asdict()`` after ``jax.device_get``)."""
+    from .grow import AisBatch
+    return AisBatch(**{f: torch.as_tensor(np.array(d[f]), device=device)
+                       for f in AisBatch._fields})

@@ -1,15 +1,15 @@
 """The per-scan tracker pipeline and the host-facing Tracker class
-(counterpart of pymht_tpu/core/tracker.py, radar only).
+(counterpart of pymht_tpu/core/tracker.py).
 
-Device side: ``scan_step`` composes grow -> select -> terminate ->
-N-scan prune -> initiate -> insert on tensors of one device.  Host side:
-``Tracker`` keeps the JAX Tracker's API (``add_measurement_list``,
-``pre_initialize``, ``get_tracks``) and archives each track's confirmed
-past as numpy, appended from the prune outputs every scan.
+Device side: ``scan_step`` composes grow (radar and, with ``use_ais``,
+AIS fusion) -> select -> terminate -> N-scan prune -> initiate -> insert
+on tensors of one device.  Host side: ``Tracker`` keeps the JAX
+Tracker's API (``add_measurement_list``, ``pre_initialize``,
+``get_tracks``) and archives each track's confirmed past as numpy,
+appended from the prune outputs every scan.
 
-Not ported yet, and raising NotImplementedError: AIS (``use_ais``),
-``prune_similar``, the dynamic window, degradation, streaming and the
-smoother.
+Raising NotImplementedError: ``prune_similar``, the dynamic window,
+degradation, streaming and the smoother.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from .. import sync
 from ..models import pv
 from .config import TrackerShapes, TrackerParams
 from .state import TrackerState, empty_state, insert_targets
-from .grow import Scan, grow
+from .grow import AisBatch, Scan, grow
 from .select import select
 from .lifecycle import n_scan_prune, terminate
 from . import initiator as initiator_mod
@@ -67,20 +67,24 @@ def _not_ported(what):
                               f"yet")
 
 
-def scan_step(state: TrackerState, init_state, scan: Scan, ais,
-              shapes: TrackerShapes, params: TrackerParams,
-              method: str = 'lagrangian', compute_clusters: bool = True,
+def scan_step(state: TrackerState, init_state, scan: Scan,
+              ais: Optional[AisBatch], shapes: TrackerShapes,
+              params: TrackerParams, method: str = 'lagrangian',
+              use_ais: bool = True, ais_initialization: bool = True,
+              compute_clusters: bool = True,
               select_kw: Optional[dict] = None):
-    """One radar scan through the full pipeline.  ``ais`` must be None
-    (AIS fusion, prune_similar and the dynamic window are not ported)."""
-    if ais is not None:
-        _not_ported("AIS fusion")
+    """One radar scan through the full pipeline.  ``ais`` is the scan's
+    AisBatch; it is not read when ``use_ais`` is false (and may then be
+    None)."""
+    if use_ais and not isinstance(ais, AisBatch):
+        raise TypeError("scan_step: use_ais=True needs an AisBatch "
+                        "(grow.empty_ais for a scan with no messages)")
     T, L, W = state.hist_meas.shape
     dev = state.leaf_x.device
     tb = torch.arange(T, device=dev)
 
     # 1. grow
-    g = grow(state, scan, None, shapes, params)
+    g = grow(state, scan, ais if use_ais else None, shapes, params)
     state = g.state
 
     # 2-3. cluster + global hypothesis selection
@@ -105,8 +109,16 @@ def scan_step(state: TrackerState, init_state, scan: Scan, ais,
     state = pr.state
 
     # 8. initiate from the measurements no leaf gated
+    if use_ais and ais_initialization:
+        # messages whose MMSI a surviving leaf associated this scan are
+        # not available for initiation
+        cur_mmsi = torch.where(state.leaf_mask, state.hist_mmsi[:, :, -1], 0)
+        ais_for_init = ais._replace(
+            mask=ais.mask & ~torch.isin(ais.mmsi, cur_mmsi.reshape(-1)))
+    else:
+        ais_for_init = None
     init_out = initiator_mod.step(init_state, scan.z, scan.mask & ~g.used_meas,
-                                  scan.time, None, shapes, params)
+                                  scan.time, ais_for_init, shapes, params)
     init_state = init_out.state
     new_x, new_mask, new_mmsi = _merge_new_targets(
         init_out.new_x, init_out.new_mask, init_out.new_mmsi,
@@ -159,18 +171,22 @@ def _merge_new_targets(new_x, new_mask, new_mmsi, threshold):
             torch.where(keep, new_mmsi, 0))
 
 
-def scan_many(state, init_state, scans: Scan, ais, shapes: TrackerShapes,
-              params: TrackerParams, method: str = 'lagrangian',
+def scan_many(state, init_state, scans: Scan, ais: Optional[AisBatch],
+              shapes: TrackerShapes, params: TrackerParams,
+              method: str = 'lagrangian', use_ais: bool = True,
+              ais_initialization: bool = True,
               compute_clusters: bool = False,
               select_kw: Optional[dict] = None):
-    """Process a batch of scans (leading time axis on ``scans``) one
-    ``scan_step`` after another.  Returns (state, init_state, stacked
-    StepOutputs)."""
+    """Process a batch of scans (leading time axis on ``scans`` and on
+    ``ais``) one ``scan_step`` after another.  Returns (state,
+    init_state, stacked StepOutputs)."""
     outs = []
     for i in range(scans.z.shape[0]):
-        scan = Scan(z=scans.z[i], mask=scans.mask[i], time=scans.time[i])
+        scan = Scan(*(f[i] for f in scans))
+        ais_i = AisBatch(*(f[i] for f in ais)) if use_ais else None
         state, init_state, out = scan_step(
-            state, init_state, scan, ais, shapes, params, method=method,
+            state, init_state, scan, ais_i, shapes, params, method=method,
+            use_ais=use_ais, ais_initialization=ais_initialization,
             compute_clusters=compute_clusters, select_kw=select_kw)
         outs.append(out)
     return state, init_state, StepOutputs(*[torch.stack(f)
@@ -240,21 +256,23 @@ class Tracker:
 
     ``method`` defaults to ``'lagrangian'`` (the tiered hybrid, what the
     benchmark and production run); the JAX Tracker's default ``'ipm'``
-    is not ported.  ``host_syncs`` records, per scan step, how many times
-    the host read a device value (loop exits, branches and the one
-    output transfer).
+    is not ported.  ``use_ais`` (default on, as in the JAX class) runs
+    grow's AIS branch every scan, on an empty batch when a scan brings
+    no ``ais_messages``; ``ais_initialization`` lets unclaimed messages
+    seed preliminary tracks.  ``host_syncs`` records, per scan step, how
+    many times the host read a device value (loop exits, branches and
+    the one output transfer).
     """
 
     def __init__(self, shapes: TrackerShapes = TrackerShapes(),
                  params: TrackerParams = TrackerParams(),
-                 method: str = 'lagrangian', use_ais: bool = False,
+                 method: str = 'lagrangian', use_ais: bool = True,
+                 ais_initialization: bool = True,
                  pipeline_outputs: bool = False,
                  prune_similar: bool = False,
                  dynamic_window: bool = False,
                  degrade_on_overload: bool = False,
                  device=None):
-        if use_ais:
-            _not_ported("AIS fusion (use_ais=True)")
         if prune_similar:
             _not_ported("prune_similar")
         if dynamic_window:
@@ -264,6 +282,8 @@ class Tracker:
         self.shapes = shapes
         self.params = params
         self.method = method
+        self.use_ais = use_ais
+        self.ais_initialization = ais_initialization
         self.device = _resolve_device(device)
         self.pipeline_outputs = pipeline_outputs
         self._pending = None      # (device outputs, scan count)
@@ -272,13 +292,14 @@ class Tracker:
         self.archives = {}          # id -> TrackArchive
         self.terminated = {}        # id -> TrackArchive
         self.scan_times = []
+        self.ais_history = []       # AIS message list per scan
         self.host_syncs = []        # host reads of device values per scan
         self.t0 = None
 
     # -- input --------------------------------------------------------
-    def _pad_scan(self, t, z) -> torch.Tensor:
-        """[M+1, 2] f32 on the device: rows 0..M-1 the measurements, row
-        M (count, time) — one host-to-device transfer per scan."""
+    def _pad_scan(self, t, z) -> np.ndarray:
+        """[M+1, 2] f32: rows 0..M-1 the measurements, row M (count,
+        time)."""
         M = self.shapes.max_meas
         z = np.asarray(z, np.float32).reshape(-1, 2)
         n = min(len(z), M)
@@ -289,19 +310,73 @@ class Tracker:
             logging.getLogger(__name__).warning(
                 "scan has %d measurements; capacity %d — dropping overflow",
                 len(z), M)
-        host = torch.from_numpy(packed)
+        return packed
+
+    def _pad_ais(self, messages) -> list:
+        """The AisBatch fields of one scan as numpy, padded to A; message
+        times relative to ``t0``."""
+        A = self.shapes.max_ais
+        st = np.zeros((A, 4), np.float32)
+        tm = np.zeros((A,), np.float32)
+        mm = np.zeros((A,), np.int32)
+        hi = np.zeros((A,), bool)
+        mask = np.zeros((A,), bool)
+        if len(messages) > A:
+            logging.getLogger(__name__).warning(
+                "scan has %d AIS messages; capacity %d — dropping overflow",
+                len(messages), A)
+        for i, m in enumerate(messages[:A]):
+            st[i] = np.asarray(m.state, np.float32)
+            tm[i] = float(m.time) - self.t0
+            mm[i] = int(m.mmsi)
+            hi[i] = bool(getattr(m, 'highAccuracy', False))
+            mask[i] = True
+        return [st, tm, mm, hi, mask]
+
+    def _pack_inputs(self, t, z, ais_messages=()) -> torch.Tensor:
+        """One scan's inputs on the device after ONE host-to-device
+        transfer: the bytes of the padded scan and, with ``use_ais``, of
+        the padded AIS batch behind it (4-byte fields first; integers and
+        flags travel as their own bytes, never as float values)."""
+        parts = [self._pad_scan(t, z)]
+        if self.use_ais:
+            parts += self._pad_ais(list(ais_messages))
+        host = torch.from_numpy(np.concatenate(
+            [p.reshape(-1).view(np.uint8) for p in parts]))
         if self.device.type == 'cuda':
             return host.pin_memory().to(self.device, non_blocking=True)
         return host.to(self.device)
 
+    def _unpack_inputs(self, packed: torch.Tensor):
+        """(Scan, AisBatch or None) as views of ``_pack_inputs``' bytes."""
+        M, A = self.shapes.max_meas, self.shapes.max_ais
+        o = 0
+
+        def take(shape, dtype):
+            nonlocal o
+            n = int(np.prod(shape)) * dtype.itemsize
+            out = packed[o:o + n].view(dtype).view(shape)
+            o += n
+            return out
+
+        sc = take((M + 1, 2), torch.float32)
+        scan = Scan(z=sc[:M],
+                    mask=torch.arange(M, device=self.device) < sc[M, 0].int(),
+                    time=sc[M, 1])
+        if not self.use_ais:
+            return scan, None
+        return scan, AisBatch(
+            state=take((A, 4), torch.float32), time=take((A,), torch.float32),
+            mmsi=take((A,), torch.int32),
+            high_accuracy=take((A,), torch.bool),
+            mask=take((A,), torch.bool))
+
     def _step(self, packed):
-        M = self.shapes.max_meas
-        count = packed[M, 0].int()
-        scan = Scan(z=packed[:M],
-                    mask=torch.arange(M, device=self.device) < count,
-                    time=packed[M, 1])
-        return scan_step(self.state, self.init_state, scan, None,
-                         self.shapes, self.params, method=self.method)
+        scan, ais = self._unpack_inputs(packed)
+        return scan_step(self.state, self.init_state, scan, ais,
+                         self.shapes, self.params, method=self.method,
+                         use_ais=self.use_ais,
+                         ais_initialization=self.ais_initialization)
 
     def pre_initialize(self, t, states, mmsi=None):
         """Seed confirmed targets from known initial states."""
@@ -326,18 +401,21 @@ class Tracker:
     # -- main entry ---------------------------------------------------
     def add_measurement_list(self, t, z, ais_messages=None,
                              check_integrity: bool = False, **kwargs):
-        """One radar scan.  Returns the step outputs as numpy (or, with
-        ``pipeline_outputs``, the device outputs, absorbed next scan)."""
-        if ais_messages:
-            _not_ported("AIS fusion (ais_messages)")
+        """One radar scan with the AIS messages received since the
+        previous one (objects with ``state``, ``time``, ``mmsi`` and
+        ``highAccuracy``; read only with ``use_ais``).  Returns the step
+        outputs as numpy (or, with ``pipeline_outputs``, the device
+        outputs, absorbed next scan)."""
         if check_integrity or kwargs.pop('checkIntegrity', False):
             _not_ported("check_integrity")
         if self.t0 is None:
             # device time is relative to the first scan for fp32 safety
             self.t0 = float(t) - self.params.radar_period
         t_rel = float(t) - self.t0
+        self.ais_history.append(list(ais_messages or []))
         n_sync = sync.count
-        self.state, self.init_state, out = self._step(self._pad_scan(t_rel, z))
+        self.state, self.init_state, out = self._step(
+            self._pack_inputs(t_rel, z, ais_messages or ()))
         self.scan_times.append(t_rel)
         if self.pipeline_outputs:
             self.flush()

@@ -62,6 +62,21 @@
 //    per tile.  `used` must be zero before the launch (the wrapper
 //    allocates it zeroed: one M-byte fill); the kernel only stores ones
 //    into it, so blocks need no order among them.
+// 6. Per-target measurements (gate_score_sub_kernel).  Under grow's
+//    spatial pre-gate each target t brings its own Km nearest
+//    measurements, z_sub[t] with mask zmask_sub[t], and zidx[t] says which
+//    real measurement each column is (what `radar_candidates_planes(...,
+//    z_sub, zmask_sub)` computes, pymht_tpu/ops/ais_fused.py:438-452, and
+//    the scatter of pymht_tpu/core/grow.py:548-554).  Tiles are cut inside
+//    a target (T * ceil(L / TILE_N) blocks), so a block still has one z
+//    per thread and column; the plane is [N, 1 + Km] and `used` stays on
+//    the real axis: used[zidx[t, k]] = 1 where a leaf of t gates column k.
+//    It reuses the prologue and the row layout, and writes the pair loop
+//    out a second time so that the shared-scan kernel's code, and with it
+//    its measured times, stays exactly as it was.  With Km columns only
+//    Km of a block's threads walk rows, so it moves ~2.3 MB at the bench
+//    shape (Km = 64) and is a launch and a prologue, not a stream of
+//    stores (4.3 us against a bound of 0.68 us on an H100).
 #include <cuda_runtime.h>
 
 namespace {
@@ -258,6 +273,90 @@ gate_score_kernel(const float* __restrict__ x,       // [N, 4]
   if (threadIdx.x < rows) counts[n0 + threadIdx.x] = s_cnt[threadIdx.x];
 }
 
+// Per-target variant: leaf n = t * L + l is gated against z_sub[t].
+__global__ void __launch_bounds__(THREADS)
+gate_score_sub_kernel(const float* __restrict__ x,       // [T * L, 4]
+                      const float* __restrict__ P,       // [T * L, 16]
+                      const float* __restrict__ cnllr,   // [T * L]
+                      const float* __restrict__ pd,      // [T * L]
+                      const bool* __restrict__ mask,     // [T * L]
+                      const float* __restrict__ z_sub,   // [T, Km, 2]
+                      const bool* __restrict__ zmask_sub,  // [T, Km]
+                      const int* __restrict__ zidx,      // [T, Km] in [0, M)
+                      const float* __restrict__ dt,      // [] time step
+                      float q, float r_var, float eta2, float log_lam,
+                      float* __restrict__ scores,        // [T * L, 1 + Km]
+                      float* __restrict__ xbar,          // [T * L, 4]
+                      float* __restrict__ pbar,          // [T * L, 16]
+                      float* __restrict__ kgain,         // [T * L, 8]
+                      float* __restrict__ phat,          // [T * L, 16]
+                      int* __restrict__ counts,          // [T * L]
+                      unsigned char* __restrict__ used,  // [M], zero on entry
+                      int L, int Km, int M, int tiles) {
+  __shared__ Row s_row[TILE_N];
+  __shared__ int s_cnt[TILE_N];
+
+  const int t = blockIdx.x / tiles;
+  const int l0 = (blockIdx.x % tiles) * TILE_N;
+  const int rows = min(TILE_N, L - l0);
+  const int n0 = t * L + l0;
+  const size_t stride = (size_t)Km + 1;
+  const float2* __restrict__ z2 =
+      reinterpret_cast<const float2*>(z_sub) + (size_t)t * Km;
+  const bool* __restrict__ zm = zmask_sub + (size_t)t * Km;
+  const int* __restrict__ zi = zidx + (size_t)t * Km;
+
+  int m = threadIdx.x;
+  float2 zz = make_float2(0.0f, 0.0f);
+  bool zok = false;
+  if (m < Km) {
+    zz = __ldg(z2 + m);
+    zok = zm[m];
+  }
+
+  if (threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    const Row row = leaf_prologue(n0 + r, __ldg(dt), q, r_var, log_lam, x, P,
+                                  cnllr, pd, mask, xbar, pbar, kgain, phat);
+    s_row[r] = row;
+    s_cnt[r] = 0;
+    scores[(size_t)(n0 + r) * stride] = row.zero;
+  }
+  __syncthreads();
+
+  while (m < Km) {
+    float* __restrict__ out = scores + (size_t)n0 * stride + 1 + m;
+    bool any = false;
+    for (int r = 0; r < rows; ++r) {
+      const Row rw = s_row[r];
+      const float dx = zz.x - rw.px;
+      const float dy = zz.y - rw.py;
+      const float nis =
+          rw.i11 * dx * dx + rw.ioff * dx * dy + rw.i22 * dy * dy;
+      const bool ok = (nis <= eta2) && zok && rw.live;
+      if (ok) {
+        atomicAdd(&s_cnt[r], 1);
+        any = true;
+      }
+      out[(size_t)r * stride] = ok ? rw.base + 0.5f * nis : BIG;
+    }
+    // a masked column's index may point anywhere: it is read only under
+    // `ok`, and an index outside [0, M) is never stored through
+    if (any) {
+      const int j = zi[m];
+      if ((unsigned)j < (unsigned)M) used[j] = 1;
+    }
+    m += THREADS;
+    if (m < Km) {
+      zz = __ldg(z2 + m);
+      zok = zm[m];
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x < rows) counts[n0 + threadIdx.x] = s_cnt[threadIdx.x];
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.
@@ -291,5 +390,26 @@ extern "C" int gate_score_launch(
       (const bool*)zmask, (const float*)dt, q, r_var, eta2, log_lam,
       (float*)scores, (float*)xbar, (float*)pbar, (float*)kgain,
       (float*)phat, (int*)counts, (unsigned char*)used, N, M);
+  return (int)cudaGetLastError();
+}
+
+// The per-target entry point: leaf n of target n / L against z_sub[n / L]
+// ([T, Km, 2]), scores [T * L, 1 + Km], used [M] through zidx [T, Km].
+extern "C" int gate_score_sub_launch(
+    const void* x, const void* P, const void* cnllr, const void* pd,
+    const void* mask, const void* z_sub, const void* zmask_sub,
+    const void* zidx, const void* dt, float q, float r_var, float eta2,
+    float log_lam, void* scores, void* xbar, void* pbar, void* kgain,
+    void* phat, void* counts, void* used, int T, int L, int Km, int M,
+    void* stream) {
+  if (T <= 0 || L <= 0) return 0;
+  const int tiles = (L + TILE_N - 1) / TILE_N;
+  gate_score_sub_kernel<<<T * tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)P, (const float*)cnllr,
+      (const float*)pd, (const bool*)mask, (const float*)z_sub,
+      (const bool*)zmask_sub, (const int*)zidx, (const float*)dt, q, r_var,
+      eta2, log_lam, (float*)scores, (float*)xbar, (float*)pbar,
+      (float*)kgain, (float*)phat, (int*)counts, (unsigned char*)used, L, Km,
+      M, tiles);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,15 @@ Pallas contract's three; both make the one launch.  They take the plain
 twin for tensors on the CPU.  For CUDA tensors they launch the kernel or
 raise: there is no fallback.  ``launches`` counts kernel launches, so a
 run can show that its path went through the kernel.
+
+Under grow's spatial pre-gate every target brings its own measurements:
+with ``z_sub [T, Km, 2]``, ``zmask_sub [T, Km]``, ``zidx [T, Km]`` and
+``leaves_per_target`` the kernel's second entry point gates leaf ``n``
+against row ``n // leaves_per_target`` of ``z_sub`` (what
+``radar_candidates_planes(..., z_sub, zmask_sub)`` computes), the plane is
+``[N, 1 + Km]``, and ``used_meas`` stays on the real measurement axis
+through ``zidx``.  ``launches_pregate`` counts that entry point's share of
+``launches``.
 """
 from __future__ import annotations
 
@@ -33,15 +42,18 @@ from ..models import pv
 from . import kalman as k
 
 BIG = 1e9
-launches = 0      # kernel launches made (CUDA tensors only)
+launches = 0          # kernel launches made (CUDA tensors only)
+launches_pregate = 0  # of those, launches of the per-target entry point
 
 _PTR, _F32, _INT = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _ARGTYPES = [_PTR] * 8 + [_F32] * 4 + [_PTR] * 7 + [_INT, _INT, _PTR]
+_ARGTYPES_SUB = [_PTR] * 9 + [_F32] * 4 + [_PTR] * 7 + [_INT] * 4 + [_PTR]
 
 
 class RadarCandidates(NamedTuple):
     """Everything grow's radar branch reads of one scan's candidates."""
     scores: torch.Tensor        # [N, 1+M] f32; column 0 the zero hypothesis
+    #                             ([N, 1+Km] with per-target measurements)
     x_bar: torch.Tensor         # [N, 4]
     P_bar: torch.Tensor         # [N, 4, 4]
     K: torch.Tensor             # [N, 4, 2] radar gain
@@ -52,30 +64,61 @@ class RadarCandidates(NamedTuple):
 
 def radar_candidates_reference(x, P, cnllr, pd, mask, z, zmask,
                                radar_period, q_scale, r_var, eta2,
-                               lambda_ex) -> RadarCandidates:
+                               lambda_ex, z_sub=None, zmask_sub=None,
+                               zidx=None, leaves_per_target=None
+                               ) -> RadarCandidates:
     """Plain torch twin (counterpart of the JAX gate_and_score_reference,
     pymht_tpu/ops/gate_kernel.py:205-223, extended with precalc's K and
     P_hat and the gate's reductions): the einsum Kalman path, with
     kalman.nllr's unclamped det.
 
     x [N,4], P [N,4,4], cnllr/pd [N] f32, mask [N] bool, z [M,2],
-    zmask [M] bool; radar_period a float or 0-d tensor."""
+    zmask [M] bool; radar_period a float or 0-d tensor.  With ``z_sub``
+    [T,Km,2], ``zmask_sub`` [T,Km], ``zidx`` [T,Km] and
+    ``leaves_per_target`` = N // T, leaf n meets row n // L of ``z_sub``
+    and ``used_meas`` [M] is scattered through ``zidx``."""
     dev = x.device
     A = pv.Phi(radar_period, dev)
     Q = pv.Q(radar_period, q_scale, dev)
     R = torch.eye(2, dtype=torch.float32, device=dev) * r_var
     x_bar, P_bar = k.predict(A, Q, x, P)
     z_hat, S, S_inv, K, P_hat = k.precalc(pv.C_RADAR(dev), R, x_bar, P_bar)
-    nis = k.nis(k.residuals(z, z_hat), S_inv)
+    if z_sub is None:
+        zt, zm = k.residuals(z, z_hat), zmask[None, :]
+    else:
+        T, L = _sub_shape(x, z_sub, leaves_per_target)
+        zt = (z_sub[:, None] - z_hat.view(T, L, 1, 2)).reshape(
+            T * L, -1, 2)                                      # [N,Km,2]
+        zm = zmask_sub.repeat_interleave(L, dim=0)             # [N,Km]
+    nis = k.nis(zt, S_inv)
     nllr_m = k.nllr(lambda_ex, pd, S, nis)
-    gate = (nis <= eta2) & zmask[None, :] & mask[:, None]
+    gate = (nis <= eta2) & zm & mask[:, None]
     meas = torch.where(gate, cnllr[:, None] + nllr_m, BIG)
     zero = torch.where(mask, cnllr - torch.log1p(-pd), BIG)
+    if z_sub is None:
+        used = gate.any(dim=0)
+    else:
+        M = z.shape[0]
+        any_l = gate.view(T, L, -1).any(dim=1)                 # [T,Km]
+        used = torch.zeros((M + 1,), dtype=torch.bool, device=dev)
+        used[torch.where(any_l, zidx.long(), M).reshape(-1)] = True
+        used = used[:M]
     return RadarCandidates(
         scores=torch.cat([zero[:, None], meas], dim=1), x_bar=x_bar,
         P_bar=P_bar, K=K, P_hat=P_hat,
         gated_counts=gate.sum(dim=1, dtype=torch.int32),
-        used_meas=gate.any(dim=0))
+        used_meas=used)
+
+
+def _sub_shape(x, z_sub, leaves_per_target):
+    """(T, L) of a per-target call; raises unless N = T * L."""
+    T, L = z_sub.shape[0], leaves_per_target
+    if not L or L < 1 or T * L != x.shape[0]:
+        raise ValueError(
+            f"radar_candidates: z_sub has {T} targets, so x must hold "
+            f"{T} * leaves_per_target leaves; got {x.shape[0]} leaves and "
+            f"leaves_per_target={leaves_per_target}")
+    return T, L
 
 
 def gate_and_score_reference(x, P, cnllr, pd, mask, z, zmask,
@@ -93,6 +136,8 @@ def _lib():
     if lib.gate_score_launch.argtypes is None:
         lib.gate_score_launch.argtypes = _ARGTYPES
         lib.gate_score_launch.restype = _INT
+        lib.gate_score_sub_launch.argtypes = _ARGTYPES_SUB
+        lib.gate_score_sub_launch.restype = _INT
         lib.gate_score_occupancy.argtypes = [ctypes.POINTER(_INT)] * 2
         lib.gate_score_occupancy.restype = _INT
     return lib
@@ -118,12 +163,14 @@ def _check(name, t, dtype, shape, align, dev):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def empty_outputs(N, M, dev) -> RadarCandidates:
+def empty_outputs(N, M, dev, Km=None) -> RadarCandidates:
     """Outputs for one launch: everything uninitialised except
-    ``used_meas``, which the kernel only sets and so must start at zero."""
+    ``used_meas``, which the kernel only sets and so must start at zero.
+    ``Km``: columns of a per-target call (the plane is [N, 1 + Km];
+    ``used_meas`` keeps the real M)."""
     f32 = dict(dtype=torch.float32, device=dev)
     return RadarCandidates(
-        scores=torch.empty((N, M + 1), **f32),
+        scores=torch.empty((N, (M if Km is None else Km) + 1), **f32),
         x_bar=torch.empty((N, 4), **f32),
         P_bar=torch.empty((N, 4, 4), **f32),
         K=torch.empty((N, 4, 2), **f32),
@@ -133,13 +180,29 @@ def empty_outputs(N, M, dev) -> RadarCandidates:
 
 
 def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
-           q_scale, r_var, eta2, lambda_ex):
+           q_scale, r_var, eta2, lambda_ex, z_sub=None, zmask_sub=None,
+           zidx=None, leaves_per_target=None):
     """Launch K1 on the current stream into ``out`` (from
     ``empty_outputs``).  ``dt`` is a 0-d f32 tensor on the device; the
-    other scalars go by value.  Nothing is copied from the host."""
-    global launches
+    other scalars go by value.  Nothing is copied from the host.  With
+    ``z_sub`` the per-target entry point is launched (``out`` from
+    ``empty_outputs(N, M, dev, Km)``; ``zidx`` int32 with values in
+    [0, M))."""
+    global launches, launches_pregate
     dev = x.device
     N, M = x.shape[0], z.shape[0]
+    sub = z_sub is not None
+    if sub:
+        T, L = _sub_shape(x, z_sub, leaves_per_target)
+        Km = z_sub.shape[1]
+        if Km < 1 or zmask_sub is None or zidx is None:
+            raise ValueError("radar_candidates: z_sub needs Km >= 1 columns "
+                             "and both zmask_sub and zidx")
+        per_target = (("z_sub", z_sub, torch.float32, (T, Km, 2), 8),
+                      ("zmask_sub", zmask_sub, torch.bool, (T, Km), 1),
+                      ("zidx", zidx, torch.int32, (T, Km), 4))
+    else:
+        Km, per_target = M, ()
     # alignment: the kernel loads x and P as float4 and z as float2, and
     # stores the per-leaf float outputs as float4
     for name, t, dtype, shape, align in (
@@ -150,8 +213,9 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
             ("mask", mask, torch.bool, (N,), 1),
             ("z", z, torch.float32, (M, 2), 8),
             ("zmask", zmask, torch.bool, (M,), 1),
+            *per_target,
             ("dt", dt, torch.float32, (), 4),
-            ("scores", out.scores, torch.float32, (N, M + 1), 4),
+            ("scores", out.scores, torch.float32, (N, Km + 1), 4),
             ("x_bar", out.x_bar, torch.float32, (N, 4), 16),
             ("P_bar", out.P_bar, torch.float32, (N, 4, 4), 16),
             ("K", out.K, torch.float32, (N, 4, 2), 16),
@@ -161,36 +225,52 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
         _check(name, t, dtype, shape, align, dev)
     if N == 0:
         return
-    fn = _lib().gate_score_launch
+    lib = _lib()
+    leaves = [t.data_ptr() for t in (x, P, cnllr, pd, mask)]
+    scalars = (q_scale, r_var, eta2, math.log(max(float(lambda_ex), 1e-20)))
+    outs = [t.data_ptr() for t in out]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), P.data_ptr(), cnllr.data_ptr(), pd.data_ptr(),
-                 mask.data_ptr(), z.data_ptr(), zmask.data_ptr(),
-                 dt.data_ptr(), q_scale, r_var, eta2,
-                 math.log(max(float(lambda_ex), 1e-20)),
-                 *(t.data_ptr() for t in out), N, M, stream)
+        if sub:
+            err = lib.gate_score_sub_launch(
+                *leaves, z_sub.data_ptr(), zmask_sub.data_ptr(),
+                zidx.data_ptr(), dt.data_ptr(), *scalars, *outs, T, L, Km, M,
+                stream)
+        else:
+            err = lib.gate_score_launch(
+                *leaves, z.data_ptr(), zmask.data_ptr(), dt.data_ptr(),
+                *scalars, *outs, N, M, stream)
     if err != 0:
         raise RuntimeError(f"gate_score kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    launches_pregate += int(sub)
 
 
 def radar_candidates(x, P, cnllr, pd, mask, z, zmask, radar_period,
-                     q_scale, r_var, eta2, lambda_ex) -> RadarCandidates:
+                     q_scale, r_var, eta2, lambda_ex, z_sub=None,
+                     zmask_sub=None, zidx=None,
+                     leaves_per_target=None) -> RadarCandidates:
     """x [N,4], P [N,4,4], cnllr/pd/mask [N], z [M,2], zmask [M];
     ``radar_period`` a float or a 0-d tensor (a device value, the per-scan
-    dt, is never read back).  CPU tensors take the plain twin; CUDA
+    dt, is never read back).  ``z_sub`` [T,Km,2], ``zmask_sub`` [T,Km],
+    ``zidx`` [T,Km] i32 and ``leaves_per_target`` select the per-target
+    pass (module docstring).  CPU tensors take the plain twin; CUDA
     tensors take the kernel."""
     dev = x.device
+    sub = dict(z_sub=z_sub, zmask_sub=zmask_sub, zidx=zidx,
+               leaves_per_target=leaves_per_target)
     if dev.type == "cpu":
         return radar_candidates_reference(x, P, cnllr, pd, mask, z, zmask,
                                           radar_period, q_scale, r_var,
-                                          eta2, lambda_ex)
+                                          eta2, lambda_ex, **sub)
     if dev.type != "cuda":
         raise ValueError(f"radar_candidates: no path for device {dev}")
-    out = empty_outputs(x.shape[0], z.shape[0], dev)
+    out = empty_outputs(x.shape[0], z.shape[0], dev,
+                        Km=None if z_sub is None else z_sub.shape[1])
     launch(out, x, P, cnllr, pd, mask, z, zmask,
-           pv.as_time(radar_period, dev), q_scale, r_var, eta2, lambda_ex)
+           pv.as_time(radar_period, dev), q_scale, r_var, eta2, lambda_ex,
+           **sub)
     return out
 
 

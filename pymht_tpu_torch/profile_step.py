@@ -1,9 +1,13 @@
 """Where a scan step's time goes on the GPU.
 
     python -m pymht_tpu_torch.profile_step        # needs a CUDA device
+    python -m pymht_tpu_torch.profile_step --ais  # the AIS-fusion scene
+    python -m pymht_tpu_torch.profile_step --ais --pregate 64
 
-Runs the bench scene (utils/scenes.py) through the port's Tracker on the
-card.  Over the steady scans (3 onwards) it reports:
+Runs the radar-only bench scene (``Tracker(use_ais=False)``) or, with
+``--ais``, the AIS-fusion scene (``Tracker(use_ais=True)``, A=32, G=2;
+utils/scenes.py) through the port's Tracker on the card; ``--pregate Km``
+sets ``radar_cand_width``.  Over the steady scans (3 onwards) it reports:
 
 * per phase (grow, select, terminate + prune, initiate), the wall time of
   that phase alone, run on the step's own inputs and closed by
@@ -15,6 +19,8 @@ Prints one JSON object.  Nothing here runs on the tracker's hot path.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -24,19 +30,16 @@ import torch
 
 from . import sync
 from .core import initiator as initiator_mod
-from .core.grow import Scan, grow
+from .core.grow import grow
 from .core.lifecycle import n_scan_prune, terminate
 from .core.select import select
 from .core.tracker import Tracker
-from .utils.scenes import bench_scene
+from .utils.scenes import bench_scene, bench_scene_ais
 
 
 def _phase_times(tr: Tracker, packed):
     """Wall ms of each phase of the next step, run alone on its inputs."""
-    M = tr.shapes.max_meas
-    scan = Scan(z=packed[:M],
-                mask=torch.arange(M, device=tr.device) < packed[M, 0].int(),
-                time=packed[M, 1])
+    scan, ais = tr._unpack_inputs(packed)
     shapes, params = tr.shapes, tr.params
     out, t = {}, time.perf_counter()
 
@@ -48,7 +51,7 @@ def _phase_times(tr: Tracker, packed):
         t = now
 
     n_sync = sync.count
-    g = grow(tr.state, scan, None, shapes, params)
+    g = grow(tr.state, scan, ais, shapes, params)
     lap("grow")
     res = select(g.state, shapes, params, method=tr.method)
     lap("select")
@@ -56,32 +59,49 @@ def _phase_times(tr: Tracker, packed):
     st = n_scan_prune(terminate(st, shapes, params).state, shapes,
                       params).state
     lap("terminate_prune")
+    # (the used-MMSI filter of scan_step, a handful of ops, is left out)
     initiator_mod.step(tr.init_state, scan.z, scan.mask & ~g.used_meas,
-                       scan.time, None, shapes, params)
+                       scan.time, ais, shapes, params)
     lap("initiate")
     out["host_syncs_grow_select_prune_initiate"] = sync.count - n_sync
     return out
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ais", action="store_true",
+                    help="the AIS-fusion scene through Tracker(use_ais=True)")
+    ap.add_argument("--pregate", type=int, default=0, metavar="Km",
+                    help="radar_cand_width (0: no spatial pre-gate)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    shapes, params, scans, _, seeds = bench_scene()
+    if args.ais:
+        shapes, params, scans, groups, _, seeds, mmsi = bench_scene_ais()
+    else:
+        shapes, params, scans, _, seeds = bench_scene()
+        groups, mmsi = [], None
+    shapes = dataclasses.replace(shapes, radar_cand_width=args.pregate)
+
+    def messages(i):
+        return groups[i] if i < len(groups) else []
 
     def new_tracker():
-        tr = Tracker(shapes, params, device="cuda")
-        tr.pre_initialize(scans[0].time - params.radar_period, seeds)
+        tr = Tracker(shapes, params, use_ais=args.ais, device="cuda")
+        tr.pre_initialize(scans[0].time - params.radar_period, seeds,
+                          mmsi=mmsi)
         return tr
 
     # pass 1: each phase of each steady step, timed alone
     tr, phases = new_tracker(), []
     for i, s in enumerate(scans):
         if i >= 2:
-            packed = tr._pad_scan(float(s.time) - tr.t0, s.measurements)
+            packed = tr._pack_inputs(float(s.time) - tr.t0, s.measurements,
+                                     messages(i))
             phases.append(_phase_times(tr, packed))
-        tr.add_measurement_list(s.time, s.measurements)
+        tr.add_measurement_list(s.time, s.measurements, messages(i))
     # pass 2: the unchanged steps under the profiler
     tr = new_tracker()
     prof = torch.profiler.profile(activities=[
@@ -92,7 +112,7 @@ def main():
             torch.cuda.synchronize()
             prof.__enter__()
             t_window = time.perf_counter()
-        tr.add_measurement_list(s.time, s.measurements)
+        tr.add_measurement_list(s.time, s.measurements, messages(i))
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t_window)
     prof.__exit__(None, None, None)
@@ -109,6 +129,10 @@ def main():
     top = sorted(events, key=dev_us, reverse=True)[:20]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "scene": "ais" if args.ais else "radar",
+        "radar_cand_width": args.pregate,
+        "ais_messages_per_scan": [min(len(messages(i)), shapes.max_ais)
+                                  for i in range(len(scans))],
         "scans_profiled": n,
         "wall_ms_per_scan": wall_ms / n,
         "device_busy_ms_per_scan": busy_ms / n,

@@ -8,7 +8,9 @@ JAX kernel test's), x_bar at 1e-5 / 1e-4; gating decisions must be
 identical.  The seven-output twin (``radar_candidates_reference``) is
 held against the JAX package's fused planes
 (``radar_candidates_planes``) at rtol 1e-5 / atol 1e-4: both are f32,
-one by einsum, one in closed form.
+one by einsum, one in closed form.  The same holds for the per-target
+entry point (``z_sub``, ``zmask_sub``, ``zidx``) against
+``radar_candidates_planes(z_sub=...)``.
 
 The JAX package is imported inside the tests that use it, so the card
 test also runs where only torch is installed:
@@ -98,9 +100,12 @@ def test_device_time_step_matches_float():
         torch.testing.assert_close(u, v, rtol=0, atol=0)
 
 
-def _planes(inp, T, L, period=2.5, eta2=ARGS["eta2"], lambda_ex=2e-5):
+def _planes(inp, T, L, period=2.5, eta2=ARGS["eta2"], lambda_ex=2e-5,
+            z_sub=None, zmask_sub=None, zidx=None):
     """The JAX package's fused radar planes on the same inputs, laid out
-    as a [T, L] forest (pd per target, as in grow)."""
+    as a [T, L] forest (pd per target, as in grow); with ``z_sub`` the
+    per-target planes and grow's scatter of the used mask through
+    ``zidx`` (pymht_tpu/core/grow.py:548-554)."""
     import jax.numpy as jnp
     from types import SimpleNamespace
     from pymht_tpu.ops.ais_fused import radar_candidates_planes
@@ -115,10 +120,18 @@ def _planes(inp, T, L, period=2.5, eta2=ARGS["eta2"], lambda_ex=2e-5):
                            time=jnp.asarray(1.0 + period, jnp.float32))
     # lambda_phi + lambda_nu = lambda_ex
     params = SimpleNamespace(eta2=eta2, lambda_ex=lambda_ex)
-    out = radar_candidates_planes(state, scan, params)
+    if z_sub is None:
+        out = radar_candidates_planes(state, scan, params)
+        used = jnp.any(out[4], axis=(0, 1))                 # [M]
+    else:
+        out = radar_candidates_planes(state, scan, params,
+                                      z_sub=jnp.asarray(z_sub),
+                                      zmask_sub=jnp.asarray(zmask_sub))
+        M = z.shape[0]
+        scat = jnp.where(jnp.any(out[4], axis=1), jnp.asarray(zidx), M)
+        used = jnp.zeros((M + 1,), bool).at[scat.reshape(-1)].set(True)[:M]
     gate = out[4]
     counts = jnp.sum(gate, axis=2, dtype=jnp.int32)         # [T, L]
-    used = jnp.any(gate, axis=(0, 1))                       # [M]
     return [np.asarray(o) for o in out] + [np.asarray(counts),
                                            np.asarray(used)]
 
@@ -171,6 +184,119 @@ def test_candidates_twin_matches_jax_planes(jax_gk, seed, T, L, M, masked):
     # the three-output entry point is the same pass
     for a, b in zip(tk.gate_and_score(*_torch(inp), **ARGS), out[:3]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _per_target(inp, T, L, Km, seed, mask_targets=()):
+    """Each target's Km nearest valid measurements to its first leaf's
+    prediction (grow's pre-gate): z_sub, zmask_sub, zidx as numpy."""
+    x, z, zmask = inp[0], inp[5], inp[6]
+    M = z.shape[0]
+    first = x.reshape(T, L, 4)[:, 0]
+    pred = first[:, :2] + 2.5 * first[:, 2:]
+    d2 = ((z[None] - pred[:, None]) ** 2).sum(-1)
+    d2[:, ~zmask] = np.inf
+    zidx = np.argsort(d2, axis=1, kind="stable")[:, :Km]
+    zmask_sub = zmask[zidx] & np.isfinite(np.take_along_axis(d2, zidx, 1))
+    # a masked column may point anywhere: scramble those indices
+    rng = np.random.default_rng(seed)
+    zidx = np.where(zmask_sub, zidx, rng.integers(0, M, zidx.shape))
+    for t in mask_targets:
+        zmask_sub[t] = False
+    return (np.ascontiguousarray(z[zidx]), zmask_sub,
+            zidx.astype(np.int32))
+
+
+def _cluster_leaves(inp, T, L, seed):
+    """Make the L leaves of a target neighbours (a real forest), so that
+    a target's nearest measurements matter to all of them."""
+    rng = np.random.default_rng(100 + seed)
+    x = inp[0].reshape(T, L, 4)
+    x[:] = x[:, :1] + rng.normal(0, 1.5, x.shape).astype(np.float32)
+    M = inp[5].shape[0]
+    k = min(M, T)
+    inp[5][:k] = x[:k, 0, :2] + 2.5 * x[:k, 0, 2:] \
+        + rng.normal(0, 2.0, (k, 2)).astype(np.float32)
+    inp[6][:k] = True
+
+
+# (seed, T, L, M, Km, targets whose columns are all masked)
+PER_TARGET_CASES = [(0, 4, 8, 24, 6, ()), (1, 8, 8, 16, 15, ()),
+                    (2, 3, 20, 32, 8, ()), (3, 4, 8, 24, 6, (0, 2)),
+                    (4, 5, 4, 7, 1, ()), (5, 6, 5, 12, 12, ())]
+
+
+@pytest.mark.parametrize("seed,T,L,M,Km,masked", PER_TARGET_CASES)
+def test_per_target_twin_matches_jax_planes(jax_gk, seed, T, L, M, Km,
+                                            masked):
+    """The twin with z_sub / zmask_sub / zidx against
+    radar_candidates_planes(z_sub=...) and grow's scatter of the used
+    mask: gate, counts and used identical, the rest within rtol 1e-5 /
+    atol 1e-4; used stays on the real measurement axis."""
+    tol = dict(rtol=1e-5, atol=1e-4)
+    N = T * L
+    inp = _inputs(seed, N=N, M=M)
+    _cluster_leaves(inp, T, L, seed)
+    z_sub, zmask_sub, zidx = _per_target(inp, T, L, Km, seed, masked)
+    x_bar, P_bar, K, P_hat, gate, nllr_m, counts, used = _planes(
+        inp, T, L, z_sub=z_sub, zmask_sub=zmask_sub, zidx=zidx)
+    sub = dict(z_sub=torch.from_numpy(z_sub),
+               zmask_sub=torch.from_numpy(zmask_sub),
+               zidx=torch.from_numpy(zidx), leaves_per_target=L)
+    out = tk.radar_candidates(*_torch(inp), **ARGS, **sub)
+    assert out.scores.shape == (N, Km + 1)
+    assert out.used_meas.shape == (M,) and out.used_meas.dtype == torch.bool
+    for name, want in (("x_bar", x_bar), ("P_bar", P_bar), ("K", K),
+                       ("P_hat", P_hat)):
+        got = getattr(out, name).numpy()
+        np.testing.assert_allclose(got, want.reshape(got.shape),
+                                   err_msg=name, **tol)
+    s = out.scores.numpy()
+    g = gate.reshape(N, Km)
+    np.testing.assert_array_equal(s[:, 1:] < BIG * 0.5, g)
+    assert (s[:, 1:][~g] == np.float32(BIG)).all()
+    np.testing.assert_allclose(
+        s[:, 1:][g], (inp[2][:, None] + nllr_m.reshape(N, Km))[g], **tol)
+    np.testing.assert_array_equal(out.gated_counts.numpy(),
+                                  counts.reshape(N))
+    np.testing.assert_array_equal(out.used_meas.numpy(), used)
+    assert g.any() and used.any()
+    for t in masked:
+        assert not g.reshape(T, L, Km)[t].any()
+    # the shared-scan pass gates a superset: every used measurement here
+    # is used there too
+    full = tk.radar_candidates(*_torch(inp), **ARGS)
+    assert not (out.used_meas & ~full.used_meas).any()
+    if Km == M:      # all measurements kept: the same gate, re-ordered
+        assert torch.equal(out.used_meas, full.used_meas)
+        assert torch.equal(out.gated_counts, full.gated_counts)
+
+
+def test_per_target_wrapper_refuses_bad_arguments():
+    """launch() checks the per-target tensors before any pointer reaches
+    the kernel."""
+    T, L, M, Km = 4, 8, 24, 6
+    inp = _inputs(0, N=T * L, M=M)
+    z_sub, zmask_sub, zidx = _per_target(inp, T, L, Km, 0)
+    inp = _torch(inp)
+    out = tk.empty_outputs(T * L, M, "cpu", Km=Km)
+    assert out.scores.shape == (T * L, Km + 1)
+    dt = torch.tensor(2.5)
+    scal = (1.0, 6.25, 5.99, 2e-5)
+    good = dict(z_sub=torch.from_numpy(z_sub),
+                zmask_sub=torch.from_numpy(zmask_sub),
+                zidx=torch.from_numpy(zidx), leaves_per_target=L)
+    for bad, match in (
+            (dict(zidx=good["zidx"].long()), "zidx must be"),
+            (dict(zmask_sub=good["zmask_sub"][:, :-1]), "zmask_sub must be"),
+            (dict(z_sub=good["z_sub"].transpose(0, 1)), "leaves"),
+            (dict(leaves_per_target=L - 1), "leaves_per_target"),
+            (dict(leaves_per_target=None), "leaves_per_target"),
+            (dict(zidx=None), "zidx")):
+        with pytest.raises(ValueError, match=match):
+            tk.launch(out, *inp, dt, *scal, **{**good, **bad})
+    with pytest.raises(ValueError, match="scores must be"):
+        tk.launch(tk.empty_outputs(T * L, M, "cpu"), *inp, dt, *scal, **good)
+    assert not out.used_meas.any()
 
 
 def test_candidates_gate_is_score_below_big():
@@ -233,3 +359,41 @@ def test_kernel_matches_twin_on_card(N, M):
     assert torch.equal(out.used_meas, ref.used_meas)
     s3 = tk.gate_and_score(*inp, **ARGS)
     assert tk.launches == n0 + 2 and torch.equal(s3[0], out.scores)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,L,M,Km,masked", [
+    (128, 32, 512, 64, ()), (16, 8, 32, 8, ()), (12, 20, 48, 16, ()),
+    (128, 32, 512, 64, tuple(range(0, 128, 3))), (9, 5, 17, 1, ()),
+    (3, 33, 512, 300, ())])
+def test_per_target_kernel_matches_twin_on_card(T, L, M, Km, masked):
+    """The per-target entry point of the CUDA kernel against the twin on
+    the card: bench leaves (L = 32), a tile smaller than the kernel's 16
+    rows (L = 8, 5), ragged tiles (L = 20, 33), targets with every column
+    masked, Km = 1, and more columns than threads (Km = 300)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    N = T * L
+    inp = _inputs(T, N=N, M=M)
+    _cluster_leaves(inp, T, L, T)
+    z_sub, zmask_sub, zidx = _per_target(inp, T, L, Km, T, masked)
+    inp = _torch(inp, "cuda")
+    sub = dict(z_sub=torch.from_numpy(z_sub).cuda(),
+               zmask_sub=torch.from_numpy(zmask_sub).cuda(),
+               zidx=torch.from_numpy(zidx).cuda(), leaves_per_target=L)
+    n0, p0 = tk.launches, tk.launches_pregate
+    out = tk.radar_candidates(*inp, **ARGS, **sub)
+    torch.cuda.synchronize()
+    assert (tk.launches, tk.launches_pregate) == (n0 + 1, p0 + 1)
+    ref = tk.radar_candidates_reference(*inp, **ARGS, **sub)
+    assert out.scores.shape == (N, Km + 1)
+    for name in ("x_bar", "P_bar", "K", "P_hat"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name),
+                                   rtol=1e-5, atol=1e-4, msg=name)
+    g, g_r = out.scores < BIG * 0.5, ref.scores < BIG * 0.5
+    assert torch.equal(g, g_r) and g_r[:, 1:].any()
+    assert torch.equal(out.scores[~g_r], ref.scores[~g_r])
+    torch.testing.assert_close(out.scores[g_r], ref.scores[g_r], rtol=1e-5,
+                               atol=1e-4)
+    assert torch.equal(out.gated_counts, ref.gated_counts)
+    assert torch.equal(out.used_meas, ref.used_meas)

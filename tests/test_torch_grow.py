@@ -136,7 +136,8 @@ def test_grow_takes_gain_counts_and_used_from_k1(scene, monkeypatch):
     shapes, params, jstate, z, zmask, t = scene()
     calls = []
 
-    def spy(*args):
+    def spy(*args, **kw):
+        assert not kw                       # no pre-gate: the shared scan
         calls.append(tk.radar_candidates(*args))
         return calls[-1]
 
@@ -176,15 +177,17 @@ def test_state_round_trip():
 
 
 def test_grow_refuses_unported_options():
+    """Nothing of grow is left unported: the pre-gate runs, and the only
+    thing grow refuses is an ``ais`` that is not an AisBatch."""
     shapes, params, jstate, z, zmask, t = kernel_path_scene()
     scan = Scan(z=torch.from_numpy(z), mask=torch.from_numpy(zmask),
                 time=torch.tensor(t))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="AisBatch"):
         grow(to_port(jstate), scan, object(), port(shapes), port(params))
-    with pytest.raises(NotImplementedError):
-        grow(to_port(jstate), scan, None,
+    g = grow(to_port(jstate), scan, None,
              dataclasses.replace(port(shapes), radar_cand_width=4),
              port(params))
+    assert g.used_meas.shape == (shapes.max_meas,) and g.state.leaf_mask.any()
 
 
 @pytest.mark.parametrize("seed", range(3))

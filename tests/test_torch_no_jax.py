@@ -1,6 +1,7 @@
 """The port imports torch and never jax nor the JAX package: a fresh
 interpreter in which importing jax or pymht_tpu raises runs the port's
-Tracker for a few scans."""
+Tracker for a few scans, radar only and then with AIS fusion, AIS
+initiation and the spatial pre-gate."""
 import os
 import subprocess
 import sys
@@ -33,6 +34,34 @@ tr = Tracker(shapes, params, device='cpu')
 for s in scans:
     tr.add_measurement_list(s.time, s.measurements)
 assert len(tr.get_tracks()) >= 1
+# the AIS slice: fusion, AIS initiation, the group stream, the pre-gate
+import dataclasses
+from pymht_tpu_torch.utils.ais_io import AisMessageStream
+from pymht_tpu_torch.models import polar
+rng = np.random.default_rng(1)
+targets = sim.generate_initial_targets(rng, 3, (0.0, 0.0), 200.0, 0.9, 0.1,
+                                       assign_mmsi=True, P_r=1.0)
+sim_list = sim.simulate_targets(rng, targets, sim_time=12.5, dt=2.5)
+scans = sim.simulate_scans(rng, sim_list, 2.5, sigma_R=2.5, lambda_phi=1e-5,
+                           radar_range=500.0, p0=(0.0, 0.0))
+fine = sim.simulate_targets(rng, targets, sim_time=12.5, dt=0.5)
+stream = AisMessageStream(sim.simulate_ais(rng, fine, 2.5, init_time=0.0))
+tr = Tracker(dataclasses.replace(shapes, max_ais=4, radar_cand_width=6),
+             params, device='cpu')
+assert tr.use_ais and tr.ais_initialization
+F_inv = np.eye(4)
+F_inv[0, 2] = F_inv[1, 3] = -2.5
+tr.pre_initialize(scans[0].time - 2.5, [F_inv @ t.state for t in targets[:2]],
+                  mmsi=[t.mmsi for t in targets[:2]])
+n_msgs = 0
+for s in scans:
+    msgs = stream.get_measurements(s.time)
+    n_msgs += len(msgs)
+    out = tr.add_measurement_list(s.time, s.measurements, ais_messages=msgs)
+    assert bool(out.sel_feasible)
+assert n_msgs >= 3 and len(tr.get_tracks()) >= 2
+assert any(any(t['confirmed_mmsi'] + t['window_mmsi'])
+           for t in tr.get_tracks().values())
 loaded = sorted(m for m in sys.modules
                 if (m in ('jax', 'pymht_tpu')
                     or m.startswith(('jax.', 'jaxlib', 'flax', 'pymht_tpu.')))

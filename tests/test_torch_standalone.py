@@ -1,8 +1,9 @@
 """The port stands alone: no file of ``pymht_tpu_torch`` (nor
 ``chip_smoke.py``) imports ``jax`` or the JAX package ``pymht_tpu``, and
 its own copies of the host modules (config, simulator, metrics, helpers,
-containers) agree with the JAX package's on the same seeded inputs —
-bit for bit, since both are the same numpy arithmetic.
+containers, ais_io and the polar model's constants) agree with the JAX
+package's on the same seeded inputs — bit for bit, since both are the
+same numpy arithmetic.
 """
 import dataclasses
 import pathlib
@@ -14,13 +15,15 @@ import pytest
 pytest.importorskip("torch")
 
 from pymht_tpu.core import config as jconfig  # noqa: E402
+from pymht_tpu.models import polar as jpolar  # noqa: E402
 from pymht_tpu.utils import (  # noqa: E402
-    containers as jcontainers, helpers as jhelpers, metrics as jmetrics,
-    simulator as jsim)
+    ais_io as jais_io, containers as jcontainers, helpers as jhelpers,
+    metrics as jmetrics, simulator as jsim)
 from pymht_tpu_torch.core import config as tconfig  # noqa: E402
+from pymht_tpu_torch.models import polar as tpolar  # noqa: E402
 from pymht_tpu_torch.utils import (  # noqa: E402
-    containers as tcontainers, helpers as thelpers, metrics as tmetrics,
-    simulator as tsim)
+    ais_io as tais_io, containers as tcontainers, helpers as thelpers,
+    metrics as tmetrics, simulator as tsim)
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO_ROOT / "pymht_tpu_torch").rglob("*.py")) \
@@ -226,3 +229,69 @@ def test_containers_equal(cls):
         else:
             assert T(*a).speed() == J(*a).speed()
             assert T(*a).heading_deg() == J(*a).heading_deg()
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_ais_io_equal(seed):
+    """dedup_latest_per_mmsi and the group stream release the same
+    messages in the same order as the JAX package's copies."""
+    _, _, scans, groups = _scene(tsim, seed)
+    rng = np.random.default_rng(seed)
+    # duplicates: every group also gets older and newer copies of some
+    # of its messages
+    dup = []
+    for g in groups:
+        extra = [tsim.AisMessage(state=m.state + 1.0,
+                                 time=m.time + rng.choice([-0.4, 0.4]),
+                                 mmsi=m.mmsi, highAccuracy=m.highAccuracy)
+                 for m in g[::2]]
+        dup.append(list(g) + extra)
+    assert sum(map(len, dup)) > sum(map(len, groups))
+    for g in dup:
+        a, b = tais_io.dedup_latest_per_mmsi(g), jais_io.dedup_latest_per_mmsi(g)
+        assert len(a) == len(b) == len({m.mmsi for m in g})
+        assert all(x is y for x, y in zip(a, b))
+    st, sj = tais_io.AisMessageStream(dup), jais_io.AisMessageStream(dup)
+    released = 0
+    for s in scans:
+        a, b = st.get_measurements(s.time), sj.getMeasurements(s.time)
+        assert len(a) == len(b) and all(x is y for x, y in zip(a, b))
+        released += len(a)
+    assert released > 0
+    assert tais_io.AisMessageStream([]).get_measurements(0.0) == []
+
+
+def test_polar_constants_equal():
+    """models/polar.py: the random-walk constants, and the radar model it
+    re-exports from the port's own pv."""
+    assert (tpolar.sigma_hdg, tpolar.sigma_speed) == \
+        (jpolar.sigma_hdg, jpolar.sigma_speed)
+    assert tpolar.sigmaR_RADAR_tracker == jpolar.sigmaR_RADAR_tracker
+    np.testing.assert_array_equal(tpolar.C_RADAR("cpu").numpy(),
+                                  np.asarray(jpolar.C_RADAR))
+    np.testing.assert_array_equal(tpolar.H_radar("cpu").numpy(),
+                                  np.asarray(jpolar.H_radar))
+    np.testing.assert_array_equal(tpolar.P0("cpu").numpy(),
+                                  np.asarray(jpolar.P0))
+    np.testing.assert_array_equal(tpolar.R_RADAR("cpu").numpy(),
+                                  np.asarray(jpolar.R_RADAR()))
+    np.testing.assert_array_equal(tpolar.Phi(2.5).numpy(),
+                                  np.asarray(jpolar.Phi(2.5)))
+    assert tpolar.__name__.startswith("pymht_tpu_torch.")
+
+
+def test_ais_model_covariance_equal():
+    """models/ais.py: R for a flag and for a batch of flags."""
+    import torch
+    from pymht_tpu.models import ais as jais
+    from pymht_tpu_torch.models import ais as tais
+    flags = np.array([True, False, False, True])
+    np.testing.assert_array_equal(
+        tais.R(torch.from_numpy(flags), "cpu").numpy(),
+        np.stack([np.asarray(jais.R(bool(f))) for f in flags]))
+    for f in (True, False):
+        np.testing.assert_array_equal(tais.R(f, "cpu").numpy(),
+                                      np.asarray(jais.R(f)))
+    assert (tais.sigmaR_AIS_true_highAccuracy,
+            tais.sigmaR_AIS_true_lowAccuracy) == \
+        (jais.sigmaR_AIS_true_highAccuracy, jais.sigmaR_AIS_true_lowAccuracy)

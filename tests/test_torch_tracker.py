@@ -66,7 +66,7 @@ def cluttered_scene():
 def test_tracker_matches_jax(scene):
     params, jparams, scans, seeds = scene()
     jt = JTracker(JSHAPES, jparams, method='lagrangian', use_ais=False)
-    tt = Tracker(SHAPES, params, device='cpu')
+    tt = Tracker(SHAPES, params, use_ais=False, device='cpu')
     if seeds is not None:
         jt.pre_initialize(scans[0].time - params.radar_period, seeds)
         tt.pre_initialize(scans[0].time - params.radar_period, seeds)
@@ -95,8 +95,9 @@ def test_tracker_matches_jax(scene):
 
 def test_pipelined_outputs_match_stepped():
     params, _, scans, seeds = cluttered_scene()
-    a = Tracker(SHAPES, params, device='cpu')
-    b = Tracker(SHAPES, params, pipeline_outputs=True, device='cpu')
+    a = Tracker(SHAPES, params, use_ais=False, device='cpu')
+    b = Tracker(SHAPES, params, use_ais=False, pipeline_outputs=True,
+                device='cpu')
     for tr in (a, b):
         tr.pre_initialize(scans[0].time - params.radar_period, seeds)
         for s in scans:
@@ -112,7 +113,7 @@ def test_scan_many_matches_stepping():
     """scan_many (a loop of scan_step over stacked scans) gives the
     stepped Tracker's selected labels."""
     params, _, scans, seeds = cluttered_scene()
-    tr = Tracker(SHAPES, params, device='cpu')
+    tr = Tracker(SHAPES, params, use_ais=False, device='cpu')
     tr.pre_initialize(scans[0].time - params.radar_period, seeds)
     st0, ist0 = tr.state, tr.init_state
     M = SHAPES.max_meas
@@ -126,7 +127,7 @@ def test_scan_many_matches_stepping():
     batch = ttracker.Scan(z=torch.from_numpy(z), mask=torch.from_numpy(m),
                           time=torch.from_numpy(t))
     _, _, outs = ttracker.scan_many(st0, ist0, batch, None, SHAPES, params,
-                                    compute_clusters=True)
+                                    use_ais=False, compute_clusters=True)
     for i, s in enumerate(scans):
         o = tr.add_measurement_list(s.time, s.measurements)
         np.testing.assert_array_equal(outs.sel_hist_meas[i].numpy(),
@@ -135,14 +136,18 @@ def test_scan_many_matches_stepping():
 
 def test_tracker_refuses_unported_options():
     params = TrackerParams()
-    for kw in (dict(use_ais=True), dict(prune_similar=True),
+    for kw in (dict(prune_similar=True),
                dict(dynamic_window=True), dict(degrade_on_overload=True)):
         with pytest.raises(NotImplementedError):
             Tracker(SHAPES, params, device='cpu', **kw)
     tr = Tracker(SHAPES, params, device='cpu')
+    assert tr.use_ais and tr.ais_initialization     # the JAX class's defaults
     for call in (tr.stream, tr.get_smooth_tracks, tr.degrade):
         with pytest.raises(NotImplementedError):
             call()
+    with pytest.raises(TypeError, match="AisBatch"):
+        ttracker.scan_step(tr.state, tr.init_state, None, None, SHAPES,
+                           params)
 
 
 def test_tracker_defaults_to_the_card(monkeypatch):
@@ -156,6 +161,8 @@ def test_tracker_defaults_to_the_card(monkeypatch):
 
 
 def test_tracker_runs_on_the_cpu_when_asked():
+    """Also the default ``use_ais=True`` with no messages: the AIS branch
+    runs on an empty batch."""
     params, _, scans, seeds = cluttered_scene()
     tr = Tracker(SHAPES, params, device='cpu')
     assert tr.device == torch.device('cpu')
