@@ -31,7 +31,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    no host sync inside grow;
 6. pre-gate: the AIS scene with ``radar_cand_width=64`` for 5 scans, card
    against CPU (must agree) and against the un-pre-gated card run
-   (reported), with the launches of K1's per-target entry point counted.
+   (reported), with the launches of K1's per-target entry point counted;
+7. stream: the AIS scene through ``Tracker.stream(chunk=4)`` on the card
+   against the stepped card run of phase 5 and against the same stream on
+   the CPU (ids, labels, confirmed archives, states), K1 once per scan,
+   ms/scan and host reads per scan beside the stepped path's;
+8. dynamic window and degrade: the radar-only scene streamed with the
+   on-device window and ``prune_similar`` for 8 scans, ``degrade()`` by
+   hand (L 32 -> 16), then the rest: card against CPU, the forest's
+   invariants after every chunk, the selected estimate unchanged by the
+   conversion, K1 at N = 2048 after it, track quality above its floor;
+   and one more grow, merge and window under the CUDA sync debug mode;
+9. roof: a short streamed run with ``degrade_on_overload`` and a scripted
+   clock that reports an overlong second and third chunk: ``degrade()``
+   fires once, after the second;
+10. scatter: ``select`` on the AIS phase's last grown forest with the
+    scatter formulations forced against the dense ones (must agree), then
+    both builds timed at the bench shape and on a seeded swarm forest
+    (T=2048, L=16, M=4096, A=8, W=7);
+11. smoother: ``get_smooth_tracks`` (pure RTS, and 5 EM iterations in
+    'full' mode) on the card tracker of phase 4 against the CPU tracker's.
 
 The line before the last is one JSON object describing each kernel of
 the path; the last line is ``{"ok": true, "device": {...}}``.  There is
@@ -39,6 +58,7 @@ no CPU fallback: without a CUDA device the script exits with code 1.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -59,6 +79,23 @@ MIN_COVERAGE_AIS = 0.985
 MAX_RMS_AIS = 4.2
 PREGATE_KM = 64
 PREGATE_SCANS = 5
+# The dynamic-window-and-degrade run of the radar-only scene (streamed
+# with the on-device window and prune_similar, beam halved by hand after
+# DEGRADE_AFTER scans).  The JAX package (CPU, the same steps:
+# tests/jax_degrade_reference.py) scores coverage 0.99462 and rms
+# 4.1965 m on it (13 scans, no false track; 42 targets with a shrunk
+# window at the switch, 71 at the end).
+STREAM_CHUNK = 4
+DEGRADE_AFTER = 8
+MIN_COVERAGE_DEGRADE = 0.99
+MAX_RMS_DEGRADE = 4.5
+ROOF_SCANS, ROOF_CHUNK = 8, 2
+# Smoothed tracks, card against CPU: the same measurements, initial
+# states within STATE_ATOL; 16 steps of f32 filtering and smoothing, and
+# with EM five refits of Q and R that feed rounding back.
+SMOOTH_RTOL, SMOOTH_ATOL = 1e-3, 5e-2
+SWARM = dict(max_targets=2048, max_leaves=16, max_meas=4096, max_ais=8,
+             window=7)
 
 # K1 against its twin: gating decisions, per-leaf counts and the used
 # mask identical; scores, x_bar, P_bar, K and P_hat within these (f32;
@@ -294,20 +331,28 @@ def kernel_times(gk, inp, dt, args, sub=None):
 
 def kernel_phase():
     """Returns (shared-scan entry point's numbers at the bench shape, the
-    per-target entry point's at T=128, L=32, Km=64)."""
+    per-target entry point's at T=128, L=32, Km=64, the shared-scan entry
+    point's kernel-alone time and bound at the half beam, N=2048)."""
     import torch
     from pymht_tpu_torch.ops import gate_kernel as gk
     args = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
     dt = torch.full((), 2.5, device="cuda")
-    cases = [("bench", 4096, 512, {}), ("ragged", 4095, 512, {}),
+    cases = [("bench", 4096, 512, {}), ("half beam", 2048, 512, {}),
+             ("ragged", 4095, 512, {}),
              ("ragged, N % 4 = 2", 4094, 512, {}),
              ("one measurement", 4096, 1, {}),
              ("measurements masked", 4096, 512, {"zmask_all": False}),
              ("leaves masked", 4096, 512, {"mask_all": False})]
-    res = {}
+    res, res_half = {}, {}
+    scalars = (args["q_scale"], args["r_var"], args["eta2"],
+               args["lambda_ex"])
     for i, (name, N, M, kw) in enumerate(cases):
         inp = k1_inputs(i, N, M, "cuda", **kw)
         err, g_r = check_against_twin(gk, name, inp, dt, args)
+        if name == "half beam":
+            res_half = dict(max_err=err, **k1_bound(N, M),
+                            kernel_ms=kernel_alone_ms(gk, inp, dt, scalars,
+                                                      n_sets=1))
         if name == "bench":
             res = dict(max_err=err,
                        gated_share=float(g_r[:, 1:].float().mean()),
@@ -335,7 +380,7 @@ def kernel_phase():
                            gated_share=float(g_r[:, 1:].float().mean()),
                            **kernel_times(gk, inp, dt, args, sub),
                            **k1_sub_bound(T, L, Km, M))
-    return res, res_sub
+    return res, res_sub, res_half
 
 
 # ----------------------------------------------------------------------
@@ -372,28 +417,38 @@ def check_run(outs, what):
                   f"{what} scan {i}: NaN in {name}")
 
 
-def check_card_against_cpu(gpu, gpu_outs, cpu, cpu_outs, what):
-    """Same track ids, same selected (measurement, MMSI) labels per scan,
-    states and objective within tolerance."""
-    check(sorted(gpu.get_tracks()) == sorted(cpu.get_tracks()),
-          f"{what}: card and CPU runs end with different track ids")
+def check_card_against_cpu(gpu, gpu_outs, cpu, cpu_outs, what,
+                           other="the CPU run"):
+    """Same track ids, same selected (measurement, MMSI) labels and the
+    same confirmed archives per scan, states and objective within
+    tolerance."""
+    check(sorted(gpu.get_tracks()) == sorted(cpu.get_tracks())
+          and sorted(gpu.terminated) == sorted(cpu.terminated),
+          f"{what}: ends with other track ids than {other}")
+    check(len(gpu_outs) == len(cpu_outs), f"{what}: scan counts differ")
     for i, (g, c) in enumerate(zip(gpu_outs, cpu_outs)):
         check(np.array_equal(g.track_mask, c.track_mask)
               and np.array_equal(g.track_id, c.track_id),
-              f"{what} scan {i}: track slots or ids differ from the CPU run")
+              f"{what} scan {i}: track slots or ids differ from {other}")
         live = g.track_mask
         check(np.array_equal(g.sel_hist_meas[live], c.sel_hist_meas[live])
               and np.array_equal(g.sel_hist_mmsi[live],
                                  c.sel_hist_mmsi[live]),
               f"{what} scan {i}: selected (measurement, MMSI) labels differ "
-              f"from the CPU run")
+              f"from {other}")
+        check(np.array_equal(g.confirmed_mask, c.confirmed_mask)
+              and np.array_equal(g.confirmed_meas, c.confirmed_meas)
+              and np.array_equal(g.confirmed_mmsi, c.confirmed_mmsi)
+              and np.array_equal(g.dead, c.dead),
+              f"{what} scan {i}: confirmed archives differ from {other}")
         check(np.allclose(g.track_x[live], c.track_x[live],
-                          rtol=STATE_RTOL, atol=STATE_ATOL),
-              f"{what} scan {i}: track states differ from the CPU run")
+                          rtol=STATE_RTOL, atol=STATE_ATOL)
+              and np.allclose(g.confirmed_x, c.confirmed_x,
+                              rtol=STATE_RTOL, atol=STATE_ATOL),
+              f"{what} scan {i}: track states differ from {other}")
         check(math.isclose(float(g.sel_obj), float(c.sel_obj),
                            rel_tol=OBJ_RTOL, abs_tol=1e-3),
-              f"{what} scan {i}: selection objective differs from the CPU "
-              f"run")
+              f"{what} scan {i}: selection objective differs from {other}")
 
 
 def quality(tracker, sim_list, params, what, min_coverage, max_rms):
@@ -404,7 +459,7 @@ def quality(tracker, sim_list, params, what, min_coverage, max_rms):
           f"{len(tracker.get_tracks())} tracks, coverage "
           f"{m['track_percent']:.5f} (floor {min_coverage}), rms "
           f"{m['rms']:.4f} m (ceiling {max_rms}), false tracks "
-          f"{m['n_false_tracks']}; card run matches the CPU run")
+          f"{m['n_false_tracks']}")
     check(m["track_percent"] >= min_coverage and m["rms"] <= max_rms,
           f"{what}: track quality below the floor: {m}")
     return m
@@ -426,7 +481,8 @@ def slice_phase():
     m = quality(gpu, sim_list, params, "slice", MIN_COVERAGE, MAX_RMS)
     return dict(launches=launches,
                 ms_per_scan=1e3 * float(np.median(wall[2:])),
-                syncs=gpu.host_syncs, n_scans=len(scans), metrics=m)
+                syncs=gpu.host_syncs, n_scans=len(scans), metrics=m,
+                gpu=gpu, cpu=cpu)
 
 
 def selected_labels(outs):
@@ -443,22 +499,32 @@ def selected_labels(outs):
 
 def grow_makes_no_host_sync(tracker, scan, messages):
     """One more grow on the tracker's final forest with the CUDA sync
-    debug mode set to raise: grow (pre-gate, K1, the AIS chain, the beam)
-    must not read a device value on the host."""
+    debug mode set to raise, followed by the similar-state merge and the
+    on-device window trigger: grow (pre-gate, K1, the AIS chain, the
+    beam), ``prune_similar`` and ``shrink_windows`` must not read a device
+    value on the host.  Returns the grown forest."""
     import torch
     from pymht_tpu_torch.core.grow import grow
+    from pymht_tpu_torch.core.merge import prune_similar
+    from pymht_tpu_torch.core.tracker import shrink_windows
     packed = tracker._pack_inputs(float(scan.time) - tracker.t0
                                   + tracker.params.radar_period,
                                   scan.measurements, messages)
     sc, ais = tracker._unpack_inputs(packed)
+    fresh = torch.zeros_like(tracker.state.tgt_mask)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         g = grow(tracker.state, sc, ais, tracker.shapes, tracker.params)
+        st = prune_similar(g.state, tracker.shapes, tracker.params)
+        st = shrink_windows(st, g.gated_counts, fresh, tracker.params)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    check(bool(g.state.leaf_mask.any()), "grow under sync debug: no leaf")
+    check(bool(st.leaf_mask.any()), "grow under sync debug: no leaf")
+    check(bool((st.tgt_window <= tracker.params.N).all()),
+          "window under sync debug: a window grew")
+    return g.state
 
 
 def ais_phase():
@@ -480,14 +546,14 @@ def ais_phase():
     check(fused >= 1 and pure >= 1,
           f"AIS: {fused} fused and {pure} pure-AIS associations selected; "
           f"the phase needs at least one of each")
-    grow_makes_no_host_sync(gpu, scans[-1], groups[0])
+    grown = grow_makes_no_host_sync(gpu, scans[-1], groups[0])
     cpu, cpu_outs, _ = run_tracker("cpu", shapes, params, scans, seeds, **kw)
     check_card_against_cpu(gpu, gpu_outs, cpu, cpu_outs, "AIS")
     m = quality(gpu, sim_list, params, "AIS", MIN_COVERAGE_AIS, MAX_RMS_AIS)
     n_msgs = [min(len(g), shapes.max_ais) for g in gpu.ais_history]
     print(f"AIS: messages per scan {n_msgs}; selected associations: "
-          f"{fused} fused, {pure} pure AIS; grow reads no device value on "
-          f"the host")
+          f"{fused} fused, {pure} pure AIS; grow, prune_similar and the "
+          f"on-device window read no device value on the host")
 
     # ---- the spatial pre-gate on the same scene ----------------------
     import dataclasses
@@ -514,7 +580,433 @@ def ais_phase():
                 ms_per_scan=1e3 * float(np.median(wall[2:])),
                 syncs=gpu.host_syncs, n_scans=len(scans),
                 n_scans_pregate=len(short), metrics=m, fused=fused,
-                pure=pure, pregate_scans_equal=same)
+                pure=pure, pregate_scans_equal=same, gpu=gpu,
+                gpu_outs=gpu_outs, grown=grown)
+
+
+# ----------------------------------------------------------------------
+# streaming, the dynamic window, degrade, the roof trigger
+# ----------------------------------------------------------------------
+
+def flatten(chunks):
+    """The per-scan StepOutputs of a list of per-chunk stacked ones."""
+    from pymht_tpu_torch.core.tracker import StepOutputs
+    return [StepOutputs(*(f[j] for f in c))
+            for c in chunks for j in range(len(c.track_mask))]
+
+
+def new_tracker(device, shapes, params, scans, seeds, mmsi=None, **kw):
+    from pymht_tpu_torch import Tracker
+    tracker = Tracker(shapes, params, method="lagrangian", device=device,
+                      **kw)
+    tracker.pre_initialize(scans[0].time - params.radar_period, seeds,
+                           mmsi=mmsi)
+    return tracker
+
+
+class CheckingClock:
+    """A clock for ``Tracker._clock`` that checks the forest's invariants
+    at every reading (``stream`` reads it once before and once after each
+    chunk) and leaves the time the checks took out of what it reports."""
+
+    def __init__(self, tracker):
+        self.tracker, self.spent = tracker, 0.0
+
+    def __call__(self):
+        t0 = time.perf_counter()
+        self.tracker.check_integrity()
+        self.spent += time.perf_counter() - t0
+        return time.perf_counter() - self.spent
+
+
+def stream_all(tracker, scans, groups=None, **kw):
+    """``scans`` through ONE ``stream`` call in chunks of STREAM_CHUNK.
+    Returns (per-scan outputs, wall seconds per scan of each chunk, as
+    ``stream`` logged them: its clock closes a chunk after the fetch of
+    the chunk's outputs, which waits for the device)."""
+    n0 = len(tracker.runtime_log)
+    outs = flatten(tracker.stream(scans, groups, chunk=STREAM_CHUNK, **kw))
+    log = tracker.runtime_log[n0:]
+    check(len(log) == len(scans), "stream: the runtime log does not hold "
+                                  "one entry per scan")
+    return outs, [log[i0] for i0 in range(0, len(scans), STREAM_CHUNK)]
+
+
+def stream_phase(ais):
+    """``ais``: what ais_phase returned (its stepped card run is the
+    reference)."""
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.utils.scenes import bench_scene_ais
+    shapes, params, scans, groups, _, seeds, mmsi = bench_scene_ais()
+    groups = [groups[i] if i < len(groups) else []
+              for i in range(len(scans))]
+    kw = dict(mmsi=mmsi, use_ais=True, dynamic_window=False)
+
+    # every transfer of the streamed run, noted beside sync's count
+    from pymht_tpu_torch import sync
+    from pymht_tpu_torch.core import tracker as tracker_mod
+    moved = {"to_device": 0, "to_host": 0}
+    real_up, real_fetch = tracker_mod._to_device, sync.fetch
+
+    def noting_up(host, device):
+        moved["to_device"] += 1
+        return real_up(host, device)
+
+    def noting_fetch(t):
+        moved["to_host"] += 1
+        return real_fetch(t)
+
+    gpu = new_tracker("cuda", shapes, params, scans, seeds, **kw)
+    gk.launches = gk.launches_pregate = 0
+    tracker_mod._to_device, sync.fetch = noting_up, noting_fetch
+    try:
+        gpu_outs, per_scan = stream_all(gpu, scans, groups)
+    finally:
+        tracker_mod._to_device, sync.fetch = real_up, real_fetch
+    launches = gk.launches
+    n_chunks = -(-len(scans) // STREAM_CHUNK)
+    check(moved == {"to_device": n_chunks, "to_host": n_chunks},
+          f"stream: {moved} transfers over {n_chunks} chunks, not one each "
+          f"way per chunk")
+    check(launches == len(scans) and gk.launches_pregate == 0,
+          f"stream: K1 launched {launches} times over {len(scans)} scans")
+    check_run(gpu_outs, "stream")
+    gpu.check_integrity()
+    check_card_against_cpu(gpu, gpu_outs, ais["gpu"], ais["gpu_outs"],
+                           "stream", other="the stepped card run")
+    cpu = new_tracker("cpu", shapes, params, scans, seeds, **kw)
+    cpu_outs, _ = stream_all(cpu, scans, groups)
+    check_card_against_cpu(gpu, gpu_outs, cpu, cpu_outs, "stream",
+                           other="the stream on the CPU")
+    check([c[0] for c in gpu.chunk_syncs]
+          == [len(scans[i:i + STREAM_CHUNK])
+              for i in range(0, len(scans), STREAM_CHUNK)],
+          "stream: chunk_syncs does not list the chunks")
+    reads = sum(c[1] for c in gpu.chunk_syncs)
+    return dict(launches=launches, n_scans=len(scans),
+                ms_per_scan=1e3 * float(np.median(per_scan[1:])),
+                ms_per_scan_first_chunk=1e3 * per_scan[0],
+                syncs_per_scan=reads / len(scans))
+
+
+def degrade_run(device, launch_sizes=None):
+    """The radar-only scene streamed with the on-device window and
+    prune_similar; the beam is halved by hand after DEGRADE_AFTER scans."""
+    from pymht_tpu_torch.utils.scenes import bench_scene
+    shapes, params, scans, sim_list, seeds = bench_scene()
+    tr = new_tracker(device, shapes, params, scans, seeds, use_ais=False,
+                     prune_similar=True)
+    tr._clock = CheckingClock(tr)       # the invariants after every chunk
+    outs, per_scan = stream_all(tr, scans[:DEGRADE_AFTER],
+                                dynamic_window=True)
+    shrunk = int(((tr.state.tgt_window < params.N) & tr.state.tgt_mask).sum())
+    ids0, x0 = tr.get_track_states()
+    check(tr.degrade(), "degrade: the beam did not shrink")
+    ids1, x1 = tr.get_track_states()
+    L = shapes.max_leaves // 2
+    check(tr.shapes.max_leaves == L
+          and tuple(tr.state.leaf_mask.shape) == (shapes.max_targets, L),
+          "degrade: shapes and state do not follow the new beam")
+    check(np.array_equal(ids0, ids1) and np.array_equal(x0, x1),
+          "degrade: the selected estimate changed across the conversion")
+    tr.check_integrity()
+    outs2, per_scan2 = stream_all(tr, scans[DEGRADE_AFTER:],
+                                  dynamic_window=True)
+    shrunk2 = int(((tr.state.tgt_window < params.N) & tr.state.tgt_mask).sum())
+    return dict(tracker=tr, outs=outs + outs2, sim_list=sim_list,
+                params=params, n_scans=len(scans),
+                ms_before=[round(1e3 * t, 2) for t in per_scan],
+                ms_after=[round(1e3 * t, 2) for t in per_scan2],
+                shrunk=(shrunk, shrunk2), L=(shapes.max_leaves, L),
+                T=shapes.max_targets)
+
+
+def degrade_phase():
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    # the leaves of every K1 launch of the run, noted beside the count
+    sizes, real_launch = [], gk.launch
+
+    def noting_launch(out, x, *args, **kw):
+        sizes.append(x.shape[0])
+        return real_launch(out, x, *args, **kw)
+
+    gk.launches = gk.launches_pregate = 0
+    gk.launch = noting_launch
+    try:
+        gpu = degrade_run("cuda")
+    finally:
+        gk.launch = real_launch
+    launches = gk.launches
+    n, T, (L0, L1) = gpu["n_scans"], gpu["T"], gpu["L"]
+    check(launches == n and sizes == [T * L0] * DEGRADE_AFTER
+          + [T * L1] * (n - DEGRADE_AFTER),
+          f"degrade: K1 launched {launches} times over {n} scans at "
+          f"N = {sorted(set(sizes))}")
+    check_run(gpu["outs"], "degrade")
+    cpu = degrade_run("cpu")
+    check_card_against_cpu(gpu["tracker"], gpu["outs"], cpu["tracker"],
+                           cpu["outs"], "degrade")
+    check(gpu["shrunk"] == cpu["shrunk"],
+          "degrade: the card and the CPU shrank other windows")
+    m = quality(gpu["tracker"], gpu["sim_list"], gpu["params"],
+                "dynamic window and degrade", MIN_COVERAGE_DEGRADE,
+                MAX_RMS_DEGRADE)
+    return dict(launches=launches, launches_half_beam=sizes.count(T * L1),
+                n_scans=n, metrics=m, shrunk=gpu["shrunk"],
+                ms_before=gpu["ms_before"], ms_after=gpu["ms_after"])
+
+
+def roof_phase():
+    """``degrade_on_overload`` under a scripted clock: chunks 1 and 2 (of
+    0..3) are reported as taking 90 % of the radar period per scan.  The
+    first chunk of a call is never a load signal, so chunk 0 would not
+    fire either way; chunk 1 fires; chunk 2 is the chunk after a degrade
+    and is not checked."""
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.utils.scenes import bench_scene
+    shapes, params, scans, _, seeds = bench_scene()
+    scans = scans[:ROOF_SCANS]
+    long = 0.9 * params.radar_period * ROOF_CHUNK
+    script = [long, long, long, 0.01]
+    tr = new_tracker("cuda", shapes, params, scans, seeds, use_ais=False,
+                     degrade_on_overload=True)
+    reads = iter(t for k, sec in enumerate(script)
+                 for t in (1e3 * k, 1e3 * k + sec))
+    tr._clock = lambda: next(reads)
+    fired, real_degrade = [], tr.degrade
+
+    def noting_degrade(*a, **kw):
+        fired.append(len(tr.scan_times))
+        return real_degrade(*a, **kw)
+
+    tr.degrade = noting_degrade
+    gk.launches = gk.launches_pregate = 0
+    outs = flatten(tr.stream(scans, chunk=ROOF_CHUNK))
+    launches = gk.launches
+    check(launches == len(scans), f"roof: K1 launched {launches} times")
+    check(fired == [2 * ROOF_CHUNK],
+          f"roof: degrade() fired after scans {fired}, not once after "
+          f"scan {2 * ROOF_CHUNK}")
+    check(tr.shapes.max_leaves == shapes.max_leaves // 2,
+          "roof: the beam is not half the original")
+    check(next(reads, None) is None, "roof: the clock was not read twice "
+                                     "per chunk")
+    check_run(outs, "roof")
+    tr.check_integrity()
+    print(f"roof: {len(scans)} scans in chunks of {ROOF_CHUNK}, the clock "
+          f"scripted to {[round(s / ROOF_CHUNK, 3) for s in script]} s per "
+          f"scan against a {params.radar_period} s period: degrade() fired "
+          f"after scans {fired} (L {shapes.max_leaves} -> "
+          f"{tr.shapes.max_leaves}); runtime log: {tr.runtime.summary()}")
+    return dict(launches=launches, n_scans=len(scans))
+
+
+# ----------------------------------------------------------------------
+# the scatter formulations of select
+# ----------------------------------------------------------------------
+
+@contextlib.contextmanager
+def forced_scatter(sel_mod):
+    """Both size switches of select at 0: the scatter builds."""
+    saved = sel_mod._USAGE_DENSE_LIMIT, sel_mod._INT32_WALL
+    sel_mod._USAGE_DENSE_LIMIT = sel_mod._INT32_WALL = 0
+    try:
+        yield
+    finally:
+        sel_mod._USAGE_DENSE_LIMIT, sel_mod._INT32_WALL = saved
+
+
+@contextlib.contextmanager
+def forced_dense(sel_mod):
+    """select's dense-compare limit above any shape: the dense builds of
+    ``_hist_usage`` and ``_selection_feasible`` (at the swarm shape the
+    former compares T*L*W*(M+A) = 0.94e9 elements, beyond the default
+    limit)."""
+    saved = sel_mod._USAGE_DENSE_LIMIT
+    sel_mod._USAGE_DENSE_LIMIT = 1 << 62
+    try:
+        yield
+    finally:
+        sel_mod._USAGE_DENSE_LIMIT = saved
+
+
+def swarm_forest(seed, device):
+    """A seeded forest at swarm width: every target's leaves draw their
+    labels from two measurements of its own, every 16th target also from
+    its neighbour's (so ~1,800 of the 28,728 slots are contested, under
+    select's cap of 2,048); ~70 % live leaves; an AIS label on 2 % of the
+    nodes."""
+    import torch
+    from pymht_tpu_torch.core.config import TrackerParams, TrackerShapes
+    from pymht_tpu_torch.core.state import empty_state
+    shapes, params = TrackerShapes(**SWARM), TrackerParams()
+    T, L, W = shapes.max_targets, shapes.max_leaves, shapes.window
+    rng = np.random.default_rng(seed)
+    own = 2 * np.arange(T)[:, None, None] + rng.integers(1, 3, (T, L, W))
+    share = (np.arange(T) % 16 == 0)[:, None, None] \
+        & (rng.random((T, L, W)) < 0.5)
+    hist_meas = np.where(share, own + 2, own)
+    hist_meas = np.where(rng.random((T, L, W)) < 0.2, 0, hist_meas)
+    hist_ais = np.where(rng.random((T, L, W)) < 0.02,
+                        rng.integers(1, shapes.max_ais + 1, (T, L, W)), 0)
+    leaf_mask = rng.random((T, L)) < 0.7
+    leaf_mask[:, 0] = True
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(device)
+
+    st = empty_state(shapes, params, device)
+    return shapes, params, st.replace(
+        hist_meas=dev(hist_meas, torch.int32),
+        hist_ais=dev(hist_ais, torch.int32),
+        leaf_mask=dev(leaf_mask, torch.bool),
+        leaf_cnllr=dev(rng.normal(0, 2, (T, L)), torch.float32),
+        tgt_mask=torch.ones(T, dtype=torch.bool, device=device),
+        tgt_depth=torch.full((T,), W, dtype=torch.int32, device=device),
+        tgt_id=torch.arange(T, dtype=torch.int32, device=device))
+
+
+def wall_ms(fn, reps=7):
+    """Median wall time of ``fn`` closed by a synchronize (these builds
+    are a handful of device ops, some with host reads in between, so the
+    host's clock is the one a caller feels)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def build_times(sel_mod, state, shapes, params):
+    """Wall ms of the dense and the scatter build of each function that
+    has both, in the order dense, scatter, scatter, dense (the mean of
+    each pair is kept)."""
+    sel0 = sel_mod.leaf_scores(state, params).argmin(dim=1)
+    usage = sel_mod._hist_usage(state, shapes)
+    big = state.tgt_mask
+    fns = {
+        "_hist_usage": lambda dense: sel_mod._hist_usage(state, shapes),
+        "_selection_feasible": lambda dense: sel_mod._selection_feasible(
+            state, shapes, sel0),
+        "cluster": lambda dense: sel_mod.cluster(state, shapes),
+        # select_hybrid shares the dense usage tensor with cluster, so the
+        # dense build is timed without it
+        "select_hybrid's Uc": lambda dense: sel_mod._contested_leaf_usage(
+            state, shapes, big, 256, usage if dense else None),
+    }
+    out = {}
+    for name, fn in fns.items():
+        ms = {True: [], False: []}
+        for dense in (True, False, False, True):
+            if dense:
+                with forced_dense(sel_mod):
+                    ms[dense].append(wall_ms(lambda: fn(True)))
+            else:
+                with forced_scatter(sel_mod):
+                    ms[dense].append(wall_ms(lambda: fn(False)))
+        out[name] = (float(np.mean(ms[True])), float(np.mean(ms[False])))
+    return out
+
+
+def scatter_phase(ais, card):
+    """``ais``: what ais_phase returned; its last grown forest (after
+    grow, before select) is the bench-shape input."""
+    import torch
+    from pymht_tpu_torch.core import select as sel_mod
+    from pymht_tpu_torch.utils.scenes import bench_scene_ais
+    shapes, params = bench_scene_ais()[:2]
+    state = ais["grown"]
+    for fast_path in (True, False):
+        d = sel_mod.select(state, shapes, params, fast_path=fast_path)
+        with forced_scatter(sel_mod):
+            s = sel_mod.select(state, shapes, params, fast_path=fast_path)
+        torch.cuda.synchronize()
+        for name in ("sel", "labels", "n_clusters", "feasible"):
+            check(torch.equal(getattr(d, name), getattr(s, name)),
+                  f"scatter (fast_path={fast_path}): {name} differs between "
+                  f"the builds")
+        check(math.isclose(float(d.obj), float(s.obj), rel_tol=OBJ_RTOL,
+                           abs_tol=1e-3),
+              f"scatter (fast_path={fast_path}): objectives differ")
+    n_clusters = int(d.n_clusters)
+    conflict = not bool(sel_mod._independent_best(state, shapes, params)[2])
+    print(f"scatter: select on the AIS scene's last grown forest "
+          f"({n_clusters} clusters, independent optima "
+          f"{'in conflict' if conflict else 'conflict-free'}): sel, labels, "
+          f"n_clusters and feasibility identical between the dense and the "
+          f"scatter builds, with and without the fast path")
+
+    sw_shapes, sw_params, sw_state = swarm_forest(0, "cuda")
+    T, L, W = sw_state.hist_meas.shape
+    check(T * L * W * (sw_shapes.max_meas + sw_shapes.max_ais)
+          > sel_mod._USAGE_DENSE_LIMIT,
+          "scatter: the swarm shape does not cross the dense limit")
+    with forced_dense(sel_mod):
+        d = sel_mod._hist_usage(sw_state, sw_shapes)
+    with forced_scatter(sel_mod):
+        s = sel_mod._hist_usage(sw_state, sw_shapes)
+    check(torch.equal(d, s) and bool(d.any()),
+          "scatter: swarm usage differs between the builds")
+    check(torch.equal(sel_mod._hist_usage(sw_state, sw_shapes), s),
+          "scatter: swarm usage by the default build differs")
+    del d, s
+    res = {}
+    for what, args in (("bench", (state, shapes, params)),
+                       ("swarm", (sw_state, sw_shapes, sw_params))):
+        res[what] = build_times(sel_mod, *args)
+        T, L, W = args[0].hist_meas.shape
+        print(f"select builds, {what} shape (T={T}, L={L}, W={W}, "
+              f"M={args[1].max_meas}, A={args[1].max_ais}), wall ms dense / "
+              f"scatter, {card}: "
+              + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
+                          for k, v in res[what].items()))
+    return res
+
+
+def smoother_phase(gpu, cpu, card):
+    """``gpu``, ``cpu``: the slice phase's trackers after its 13 scans."""
+    import torch
+    res = {}
+    for em_iters, em_mode in ((0, "scalar"), (5, "full")):
+        kw = dict(em_iters=em_iters, em_mode=em_mode,
+                  include_terminated=True)
+        gpu.get_smooth_tracks(**kw)                    # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gpu.get_smooth_tracks(**kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = cpu.get_smooth_tracks(**kw)
+        check(sorted(got) == sorted(want), "smoother: track ids differ from "
+                                           "the CPU run")
+        n_ok, n_max = 0, 0
+        for tid, (pos, vel, ok) in got.items():
+            pos_c, vel_c, ok_c = want[tid]
+            check(ok == ok_c and pos.shape == pos_c.shape,
+                  f"smoother: track {tid} differs in length or status")
+            if not ok:
+                continue
+            n_ok += 1
+            n_max = max(n_max, len(pos))
+            check(np.isfinite(pos).all() and np.isfinite(vel).all(),
+                  f"smoother: track {tid} is not finite")
+            check(np.allclose(pos, pos_c, rtol=SMOOTH_RTOL, atol=SMOOTH_ATOL),
+                  f"smoother (em_iters={em_iters}): positions of track "
+                  f"{tid} differ from the CPU run by "
+                  f"{np.abs(pos - pos_c).max():.3g} m")
+        check(n_ok >= 50, f"smoother: only {n_ok} tracks were smoothed")
+        n_pad = 1 << (n_max - 1).bit_length()
+        print(f"smoother (em_iters={em_iters}, em_mode={em_mode!r}): "
+              f"{n_ok} tracks padded to {n_pad} steps in one call, "
+              f"{ms:.2f} ms wall on the card ({card}); positions within "
+              f"rtol {SMOOTH_RTOL} / atol {SMOOTH_ATOL} m of the CPU run")
+        res[(em_iters, em_mode)] = ms
+    return res
 
 
 def main():
@@ -544,7 +1036,7 @@ def main():
           f"SMs ({per_sm * 256} of 2048 thread slots); one block "
           f"per 16 leaves, so {sms * per_sm} blocks run at once")
     torch.cuda.synchronize()
-    k1, k1p = kernel_phase()
+    k1, k1p, k1h = kernel_phase()
     print(f"K1 at bench shape (N=4096, M=512, gated share "
           f"{k1['gated_share']:.5f}), device time, {card}: kernel alone "
           f"{1e3 * k1['kernel_ms']:.3f} us with the plane hot in L2 "
@@ -558,6 +1050,11 @@ def main():
           f"{k1['bound_ms'] / k1['kernel_ms']:.3f} of it hot, "
           f"{k1['bound_ms'] / k1['kernel_flushed_ms']:.3f} flushed")
 
+    print(f"K1 at the half beam (N=2048, M=512, the shape after degrade()), "
+          f"device time, {card}: kernel alone "
+          f"{1e3 * k1h['kernel_ms']:.3f} us hot; bound "
+          f"{1e3 * k1h['bound_ms']:.3f} us ({k1h['bytes']} bytes): the "
+          f"kernel reaches {k1h['bound_ms'] / k1h['kernel_ms']:.3f} of it")
     print(f"K1 per target (T=128, L=32, Km=64, M=512, gated share "
           f"{k1p['gated_share']:.5f}), device time, {card}: kernel alone "
           f"{1e3 * k1p['kernel_ms']:.3f} us hot, "
@@ -570,6 +1067,11 @@ def main():
 
     res = slice_phase()
     ais = ais_phase()
+    stream = stream_phase(ais)
+    deg = degrade_phase()
+    roof = roof_phase()
+    scatter_phase(ais, card)
+    smoother_phase(res["gpu"], res["cpu"], card)
     for what, r in (("slice (radar only)", res), ("AIS scene", ais)):
         syncs = r["syncs"]
         print(f"{what} on the card: {r['ms_per_scan']:.2f} ms/scan (median "
@@ -577,6 +1079,22 @@ def main():
               f"syncs per scan median {np.median(syncs):.0f} (min "
               f"{min(syncs)}, max {max(syncs)}); K1 launches "
               f"{r['launches']} ({card})")
+
+    print(f"stream (AIS scene, chunks of {STREAM_CHUNK}) on the card: "
+          f"{stream['ms_per_scan']:.2f} ms/scan (median of the chunks after "
+          f"the first, which took {stream['ms_per_scan_first_chunk']:.2f}) "
+          f"against {ais['ms_per_scan']:.2f} stepped in this run; host reads "
+          f"per scan {stream['syncs_per_scan']:.2f} against "
+          f"{np.mean(ais['syncs']):.2f} stepped (one output fetch per chunk, "
+          f"not per scan); K1 launches {stream['launches']} ({card})")
+    print(f"dynamic window and degrade (radar-only scene, prune_similar, "
+          f"chunks of {STREAM_CHUNK}) on the card: "
+          f"ms/scan of each chunk {deg['ms_before']} at L=32 (the first "
+          f"pays the warm-up), {deg['ms_after']} at L=16 after degrade(); "
+          f"targets with a shrunk window: {deg['shrunk'][0]} "
+          f"before the switch, {deg['shrunk'][1]} at the end; K1 launches "
+          f"{deg['launches']}, the last {deg['launches_half_beam']} at "
+          f"N = 2048 ({card})")
 
     check("jax" not in sys.modules, "the port imported jax")
     check(not [m for m in sys.modules
@@ -590,14 +1108,25 @@ def main():
         "replaces": "pymht_tpu/ops/gate_kernel.py:34",
         # launches on the main paths: the radar-only slice and the AIS
         # scene (shared-scan entry point), then the pre-gated AIS scans
-        # (per-target entry point)
-        "launches": res["launches"] + ais["launches"],
+        # (per-target entry point), then this slice's paths: the streamed
+        # AIS scene, the dynamic-window-and-degrade run and the roof run
+        "launches": res["launches"] + ais["launches"] + stream["launches"]
+        + deg["launches"] + roof["launches"],
         "launches_slice": res["launches"],
         "launches_ais": ais["launches"],
         "launches_pregate": ais["launches_pregate"],
-        "launches_per_scan": (res["launches"] + ais["launches"])
-        / (res["n_scans"] + ais["n_scans"]),
-        "max_abs_err": max(k1["max_err"], k1p["max_err"]),
+        "launches_stream": stream["launches"],
+        "launches_degrade": deg["launches"],
+        "launches_half_beam": deg["launches_half_beam"],
+        "launches_roof": roof["launches"],
+        "launches_per_scan": (res["launches"] + ais["launches"]
+                              + stream["launches"] + deg["launches"]
+                              + roof["launches"])
+        / (res["n_scans"] + ais["n_scans"] + stream["n_scans"]
+           + deg["n_scans"] + roof["n_scans"]),
+        "max_abs_err": max(k1["max_err"], k1p["max_err"], k1h["max_err"]),
+        "half_beam_kernel_ms": k1h["kernel_ms"],
+        "half_beam_bound_ms": k1h["bound_ms"],
         "ms": k1["ms"],
         "kernel_ms": k1["kernel_ms"],
         "kernel_flushed_ms": k1["kernel_flushed_ms"],

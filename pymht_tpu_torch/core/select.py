@@ -12,11 +12,13 @@ Pick one leaf per target minimising total score subject to single-use
 * tier 3 — larger clusters run the compact contested-slot Lagrangian,
   warm-started from the duals carried across scans.
 
-Only the dense formulations are ported; above their size limits (and
-for ``'ipm'``/``'lagrangian_pure'``) the functions raise
-NotImplementedError.  Where JAX branches or exits a loop on a device
-value, the port reads it on the host (``sync.flag``); loop bodies are
-functions from carry to carry.
+The usage tensors have two formulations that give identical results:
+dense compares, and scatter builds that never materialise a
+[T, n_slots] tensor.  ``_USAGE_DENSE_LIMIT`` and ``_INT32_WALL`` (module
+attributes, so a test can set them small) choose by problem size.
+``'ipm'`` and ``'lagrangian_pure'`` raise NotImplementedError.  Where
+JAX branches or exits a loop on a device value, the port reads it on the
+host (``sync.flag``); loop bodies are functions from carry to carry.
 """
 from __future__ import annotations
 
@@ -33,8 +35,15 @@ BIG = 1e4
 K_ENUM = 4
 C_ENUM = 16
 
-# Dense-formulation limits of the JAX package (select.py:109,263,979);
-# the scatter formulations above them are not ported yet.
+# Formulation switches, at the JAX package's sizes (select.py:109,263,
+# 979).  Up to _USAGE_DENSE_LIMIT virtual elements ``_hist_usage`` and
+# ``_selection_feasible`` compare densely, above it they scatter.  Below
+# _INT32_WALL elements of [T, n_slots] ``cluster`` and ``select_hybrid``
+# build contestedness and the compact usage from the dense usage tensor;
+# from the wall on (strictly: T * n_slots == _INT32_WALL already takes
+# the scatter build) from min/max-target-id scatters.  On an H100 the
+# dense builds are the faster ones at the bench shape (PERF.md, Select
+# build), so the constants stand.
 _USAGE_DENSE_LIMIT = 1 << 29
 _INT32_WALL = 1 << 31
 CLUSTER_COMPACT_CAP = 2048
@@ -50,13 +59,6 @@ class SelectionResult(NamedTuple):
     labels: torch.Tensor     # [T] cluster label per target
     n_clusters: torch.Tensor  # [] number of clusters
     lam: torch.Tensor        # [S] final dual prices
-
-
-def _dense_only(what, n, limit):
-    if n > limit:
-        raise NotImplementedError(
-            f"{what}: {n} elements exceed the dense limit {limit}; the "
-            f"scatter formulation is not ported yet")
 
 
 # ----------------------------------------------------------------------
@@ -79,20 +81,108 @@ def _slot_index(state: TrackerState, shapes: TrackerShapes):
     return torch.stack([radar, ais], dim=-1), n_slots
 
 
-def _hist_usage(state: TrackerState, shapes: TrackerShapes):
+def _hist_usage(state: TrackerState, shapes: TrackerShapes, tgt_filter=None):
     """[T, W, M+A] bool: does any live leaf of target t use radar
     measurement m (block [0, M)) or AIS message a (block [M, M+A)) at
-    window column w?  Dense form only."""
+    window column w?  Dense compares up to _USAGE_DENSE_LIMIT virtual
+    elements, one scatter of the T*L*W labels per family above."""
     T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
-    _dense_only("_hist_usage", T * L * W * (M + A), _USAGE_DENSE_LIMIT)
     dev = state.hist_meas.device
-    live = state.leaf_mask[:, :, None, None]
-    um = ((state.hist_meas[..., None]
-           == torch.arange(1, M + 1, device=dev)) & live).any(dim=1)
-    ua = ((state.hist_ais[..., None]
-           == torch.arange(1, A + 1, device=dev)) & live).any(dim=1)
-    return torch.cat([um, ua], dim=2)
+    live = state.leaf_mask
+    if tgt_filter is not None:
+        live = live & tgt_filter[:, None]
+    if T * L * W * (M + A) <= _USAGE_DENSE_LIMIT:
+        live4 = live[:, :, None, None]
+        um = ((state.hist_meas[..., None]
+               == torch.arange(1, M + 1, device=dev)) & live4).any(dim=1)
+        ua = ((state.hist_ais[..., None]
+               == torch.arange(1, A + 1, device=dev)) & live4).any(dim=1)
+        return torch.cat([um, ua], dim=2)
+    P = M + A
+    n = T * W * P
+    base = ((torch.arange(T, device=dev)[:, None, None] * W
+             + torch.arange(W, device=dev)[None, None, :]) * P)    # [T,1,W]
+    live3 = live[:, :, None]
+    mi = torch.where((state.hist_meas >= 1) & live3,
+                     base + state.hist_meas - 1, n)                # [T,L,W]
+    ai = torch.where((state.hist_ais >= 1) & live3,
+                     base + M + state.hist_ais - 1, n)
+    out = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
+    out[mi.reshape(-1)] = True       # int64 indices: n cannot overflow
+    out[ai.reshape(-1)] = True
+    return out[:n].reshape(T, W, P)
+
+
+def _slot_flat_labels(state: TrackerState, shapes: TrackerShapes):
+    """Flat slot id per (leaf, window column) for radar and AIS labels:
+    w*(M+A) + (m-1) and w*(M+A) + M + (a-1); no label or dead leaf -> n
+    (= W*(M+A)).  Small [T, L, W] int64 tensors, never [T, n_slots]."""
+    T, L, W = state.hist_meas.shape
+    M, A = shapes.max_meas, shapes.max_ais
+    P = M + A
+    n = W * P
+    base = torch.arange(W, device=state.hist_meas.device)[None, None, :] * P
+    live3 = state.leaf_mask[:, :, None]
+    mi = torch.where((state.hist_meas >= 1) & live3,
+                     base + state.hist_meas - 1, n)                # [T,L,W]
+    ai = torch.where((state.hist_ais >= 1) & live3,
+                     base + M + state.hist_ais - 1, n)
+    return mi, ai, n
+
+
+def _filtered_flat_labels(state, shapes, tgt_filter):
+    mi, ai, n = _slot_flat_labels(state, shapes)
+    if tgt_filter is not None:
+        keep = tgt_filter[:, None, None]
+        mi = torch.where(keep, mi, n)
+        ai = torch.where(keep, ai, n)
+    return mi, ai, n
+
+
+def _contested_minmax(state: TrackerState, shapes: TrackerShapes,
+                      tgt_filter=None):
+    """Exact per-slot contestedness without a [T, n_slots] tensor: scatter
+    the smallest and the largest target id using each slot into [n_slots]
+    buffers; a slot is used by two distinct targets iff min < max.  Masked
+    entries go to the dump index n.  Returns (contested, used), both
+    [n_slots] bool."""
+    T = state.hist_meas.shape[0]
+    mi, ai, n = _filtered_flat_labels(state, shapes, tgt_filter)
+    dev = mi.device
+    tid = torch.arange(T, dtype=torch.int32, device=dev)[:, None, None] \
+        .expand(mi.shape).reshape(-1)
+    mn = torch.full((n + 1,), T, dtype=torch.int32, device=dev)
+    mx = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    for idx in (mi, ai):
+        f = idx.reshape(-1)
+        mn.scatter_reduce_(0, f, tid, 'amin', include_self=True)
+        mx.scatter_reduce_(0, f, tid, 'amax', include_self=True)
+    return mn[:n] < mx[:n], mx[:n] >= 0
+
+
+def _compact_rank(contested, cap):
+    """[S+1] map: flat slot id -> compact column (< cap), or the dump
+    column ``cap`` (uncontested, beyond the cap, or the invalid id S)."""
+    r = torch.cumsum(contested.int(), 0) - 1
+    rank = torch.where(contested & (r < cap), r, cap)
+    return torch.cat([rank, rank.new_full((1,), cap)])
+
+
+def _compact_usage(state: TrackerState, shapes: TrackerShapes, rank_pad,
+                   cap, tgt_filter=None):
+    """[T, cap] f32: does any live leaf of target t use compact contested
+    column c?  One 2-D scatter of a constant per label family (duplicate
+    writes of the same value), never a [T, n_slots] tensor."""
+    T = state.hist_meas.shape[0]
+    mi, ai, _ = _filtered_flat_labels(state, shapes, tgt_filter)
+    dev = mi.device
+    tids = torch.arange(T, device=dev)[:, None, None].expand(mi.shape) \
+        .reshape(-1)
+    uc = torch.zeros((T, cap + 1), dtype=torch.float32, device=dev)
+    for idx in (mi, ai):
+        uc[tids, rank_pad[idx.reshape(-1)]] = 1.0
+    return uc[:, :cap]
 
 
 # ----------------------------------------------------------------------
@@ -113,26 +203,35 @@ def _propagate_labels(adj, carry):
 def cluster(state: TrackerState, shapes: TrackerShapes, usage=None):
     """Connected components of the target-measurement sharing graph.
     Returns (labels [T], n_clusters []).  The adjacency is built over the
-    contested slots only (at most CLUSTER_COMPACT_CAP of them, else the
-    full usage matrix)."""
+    contested slots only.  Below _INT32_WALL elements of [T, n_slots]
+    they come from the dense usage tensor (at most CLUSTER_COMPACT_CAP of
+    them, else the full usage matrix); from the wall on, from the
+    min/max-target-id scatters, truncated to the first
+    CLUSTER_COMPACT_CAP contested slots (clusters can then split, never
+    merge)."""
     T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
     S = W * (M + A)
-    _dense_only("cluster", T * S, _INT32_WALL)
     dev = state.hist_meas.device
     CAPc = min(CLUSTER_COMPACT_CAP, S)
-    use = _hist_usage(state, shapes) if usage is None else usage
-    useb = use.reshape(T, -1)                                 # [T, S]
-    contested = useb.sum(dim=0) >= 2
-    n_cont = contested.sum()
-    slot_ids = torch.where(contested, torch.arange(S, device=dev), S)
-    idx = torch.sort(slot_ids).values[:CAPc]
-    uc = (useb[:, idx.clamp(0, S - 1)] & (idx < S)[None, :]).float()
-    if sync.flag(n_cont <= CAPc):
-        adj = (uc @ uc.T) > 0
+    if T * S < _INT32_WALL:
+        use = _hist_usage(state, shapes) if usage is None else usage
+        useb = use.reshape(T, -1)                             # [T, S]
+        contested = useb.sum(dim=0) >= 2
+        n_cont = contested.sum()
+        slot_ids = torch.where(contested, torch.arange(S, device=dev), S)
+        idx = torch.sort(slot_ids).values[:CAPc]
+        uc = (useb[:, idx.clamp(0, S - 1)] & (idx < S)[None, :]).float()
+        if sync.flag(n_cont <= CAPc):
+            adj = (uc @ uc.T) > 0
+        else:
+            usef = useb.float()
+            adj = (usef @ usef.T) > 0
     else:
-        usef = useb.float()
-        adj = (usef @ usef.T) > 0
+        contested, _ = _contested_minmax(state, shapes)
+        uc = _compact_usage(state, shapes, _compact_rank(contested, CAPc),
+                            CAPc)                             # [T, CAPc]
+        adj = (uc @ uc.T) > 0
     tm = state.tgt_mask
     adj = adj & tm[:, None] & tm[None, :]
     adj = adj | (torch.eye(T, dtype=torch.bool, device=dev) & tm[:, None])
@@ -425,6 +524,55 @@ def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
     return c.best_sel, c.best_feas, c.best_obj, c.best_lb, c.lam
 
 
+def _contested_leaf_usage(state: TrackerState, shapes: TrackerShapes, big,
+                          CAP: int, usage=None):
+    """The compact Lagrangian's columns: the first CAP slots used by two
+    or more distinct ``big`` targets, and each live leaf's 0/1 usage of
+    them.  With the dense ``usage`` [T, W, M+A] both come from compares;
+    with ``usage=None`` from the min/max-target-id scatters and one
+    scatter of each leaf's labels (no [T, n_slots] tensor).  Returns
+    (Uc [T, L, CAP] f32, col_slot [CAP], col_ok [CAP], n_cont [],
+    eff_leaf [T, L]: the live leaves of the ``big`` targets)."""
+    T, L, W = state.hist_meas.shape
+    M, A = shapes.max_meas, shapes.max_ais
+    P = M + A
+    S = W * P
+    dev = state.hist_meas.device
+    if usage is not None:
+        contested = ((usage & big[:, None, None]).sum(dim=0) >= 2).reshape(S)
+    else:
+        contested, _ = _contested_minmax(state, shapes, tgt_filter=big)
+    n_cont = contested.sum()
+    s_ids = torch.where(contested, torch.arange(S, device=dev), S)
+    col_slot = torch.sort(s_ids).values[:CAP]
+    col_ok = col_slot < S
+    eff_leaf = state.leaf_mask & big[:, None]
+    if usage is not None:
+        cs = torch.where(col_ok, col_slot, 0)
+        cw = torch.where(col_ok, cs // P, 0)
+        off = cs % P
+        cais = col_ok & (off >= M)
+        # cval > 0 guards empty columns: hist_meas == 0 is the
+        # zero-hypothesis code, not a slot.
+        cval = torch.where(col_ok,
+                           torch.where(off >= M, off - M + 1, off + 1), 0)
+        wids = torch.arange(W, device=dev)[None, None, :, None]
+        m_match = (state.hist_meas[..., None] == cval) & ~cais & (cval > 0)
+        a_match = (state.hist_ais[..., None] == cval) & cais
+        use_c = ((m_match | a_match) & (wids == cw)).any(dim=2)
+        Uc = (use_c & eff_leaf[..., None]).float()                  # [T,L,CAP]
+    else:
+        rank_pad = _compact_rank(contested, CAP)                    # [S+1]
+        mi, ai, _ = _filtered_flat_labels(state, shapes, big)
+        tlids = torch.arange(T * L, device=dev)[:, None].expand(T * L, W) \
+            .reshape(-1)
+        Uc2 = torch.zeros((T * L, CAP + 1), dtype=torch.float32, device=dev)
+        for idx in (mi, ai):
+            Uc2[tlids, rank_pad[idx.reshape(-1)]] = 1.0
+        Uc = Uc2[:, :CAP].reshape(T, L, CAP)
+    return Uc, col_slot, col_ok, n_cont, eff_leaf
+
+
 # ----------------------------------------------------------------------
 # The tiered hybrid (production path)
 # ----------------------------------------------------------------------
@@ -438,16 +586,15 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
     to K_ENUM targets, compact contested-slot Lagrangian for the rest."""
     T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
-    P = M + A
-    S = W * P
-    _dense_only("select_hybrid", T * S, _INT32_WALL)
+    S = W * (M + A)
     dev = state.hist_meas.device
     slots, n_slots = _slot_index(state, shapes)
     slots_flat = slots.reshape(T, L, W * 2)
     f = leaf_scores(state, params)
     tb = torch.arange(T, device=dev)
 
-    usage = _hist_usage(state, shapes)
+    dense_ok = T * S < _INT32_WALL
+    usage = _hist_usage(state, shapes) if dense_ok else None
     labels, n_clusters = (cluster(state, shapes, usage=usage)
                           if labels_in is None else labels_in)
     csize = cluster_sizes(labels, state.tgt_mask)
@@ -465,24 +612,8 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
 
     # Tier 3 over the slots used by >= 2 distinct big-cluster targets.
     CAP = min(contested_cap, S)
-    contested = ((usage & big[:, None, None]).sum(dim=0) >= 2).reshape(S)
-    n_cont = contested.sum()
-    s_ids = torch.where(contested, torch.arange(S, device=dev), S)
-    col_slot = torch.sort(s_ids).values[:CAP]
-    col_ok = col_slot < S
-    cs = torch.where(col_ok, col_slot, 0)
-    cw = torch.where(col_ok, cs // P, 0)
-    off = cs % P
-    cais = col_ok & (off >= M)
-    # cval > 0 guards empty columns: hist_meas == 0 is the
-    # zero-hypothesis code, not a slot.
-    cval = torch.where(col_ok, torch.where(off >= M, off - M + 1, off + 1), 0)
-    eff_leaf = state.leaf_mask & big[:, None]
-    wids = torch.arange(W, device=dev)[None, None, :, None]
-    m_match = (state.hist_meas[..., None] == cval) & ~cais & (cval > 0)
-    a_match = (state.hist_ais[..., None] == cval) & cais
-    use_c = ((m_match | a_match) & (wids == cw)).any(dim=2)
-    Uc = (use_c & eff_leaf[..., None]).float()                      # [T,L,CAP]
+    Uc, col_slot, col_ok, n_cont, eff_leaf = _contested_leaf_usage(
+        state, shapes, big, CAP, usage)
     lam_pad0 = torch.cat([state.lam, state.lam.new_zeros((1,))])
     lam_c0 = torch.where(col_ok, lam_pad0[col_slot.clamp(0, S)], 0.0)
 
@@ -532,18 +663,31 @@ def _independent_best(state: TrackerState, shapes: TrackerShapes,
 
 def _selection_feasible(state: TrackerState, shapes: TrackerShapes, sel):
     """True iff ``sel`` uses every (window column, measurement/AIS) slot
-    at most once.  Dense form only."""
+    at most once.  Dense compares up to _USAGE_DENSE_LIMIT virtual
+    elements, scatter-add counts above (T*W writes against T*W*(M+A)
+    compares)."""
     T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
-    _dense_only("_selection_feasible", T * W * (M + A), _USAGE_DENSE_LIMIT)
     dev = state.hist_meas.device
     tb = torch.arange(T, device=dev)
     act = state.tgt_mask[:, None]
     sm = torch.where(act, state.hist_meas[tb, sel.long()], -1)       # [T,W]
     sa = torch.where(act, state.hist_ais[tb, sel.long()], 0)
-    cm = (sm[:, :, None] == torch.arange(1, M + 1, device=dev)).sum(dim=0)
-    ca = (sa[:, :, None] == torch.arange(1, A + 1, device=dev)).sum(dim=0)
-    return ~((cm > 1).any() | (ca > 1).any())
+    if T * W * (M + A) <= _USAGE_DENSE_LIMIT:
+        cm = (sm[:, :, None] == torch.arange(1, M + 1, device=dev)).sum(dim=0)
+        ca = (sa[:, :, None] == torch.arange(1, A + 1, device=dev)).sum(dim=0)
+        return ~((cm > 1).any() | (ca > 1).any())
+    P = M + A
+    n = W * P
+    base_w = torch.arange(W, device=dev)[None, :] * P                # [1,W]
+    smi = torch.where(sm >= 1, base_w + sm - 1, n)                   # [T,W]
+    sai = torch.where(sa >= 1, base_w + M + sa - 1, n)
+    # index_add_, not bincount: on a CUDA tensor bincount reads the
+    # largest index on the host
+    idx = torch.cat([smi.reshape(-1), sai.reshape(-1)])
+    cnt = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+    cnt.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return ~(cnt[:n] > 1).any()
 
 
 def select(state: TrackerState, shapes: TrackerShapes,

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.topk import smallest_k
 from .config import TrackerShapes, TrackerParams
 
 f32, i32 = torch.float32, torch.int32
@@ -101,6 +102,61 @@ def empty_state(shapes: TrackerShapes, params: TrackerParams,
         next_id=z((), i32),
         lam=z((W * (shapes.max_meas + shapes.max_ais),), f32),
     )
+
+
+_LEAF_FIELDS = ('leaf_x', 'leaf_P', 'leaf_cnllr', 'leaf_mask', 'hist_meas',
+                'hist_ais', 'hist_mmsi', 'hist_cnllr', 'hist_x')
+
+
+def shrink_beam(state: TrackerState, new_L: int) -> TrackerState:
+    """The forest with a narrower hypothesis beam (L -> new_L): each
+    target keeps its best ``new_L`` live leaves by cumulative NLLR (ties
+    by lower index, as ``jax.lax.top_k``), the currently selected leaf
+    first.  Between scans leaf indices are stable, so the conversion is
+    one gather; ``sel_leaf`` and ``spine_leaf`` are remapped so that the
+    next grow's feasibility spine (the zero-hypothesis child of the
+    previous selection) stays intact."""
+    T, L, W = state.hist_meas.shape
+    if new_L > L:
+        raise ValueError(f"shrink_beam: new_L {new_L} exceeds L {L}")
+    if new_L == L:
+        return state
+    dev = state.leaf_mask.device
+    tb = torch.arange(T, device=dev)
+    sel = state.sel_leaf.long().clamp(0, L - 1)
+    sel_live = state.leaf_mask[tb, sel]
+    key = torch.where(state.leaf_mask, state.leaf_cnllr, torch.inf)
+    is_sel = ((torch.arange(L, device=dev)[None, :] == sel[:, None])
+              & sel_live[:, None])
+    key = torch.where(is_sel, -torch.inf, key)              # selected first
+    _, keep = smallest_k(key, new_L)                          # [T, new_L]
+    new_sel = torch.where(sel_live,
+                          (keep == sel[:, None]).int().argmax(dim=1), 0).int()
+
+    def take(a):
+        idx = keep.reshape(keep.shape + (1,) * (a.dim() - 2))
+        return torch.gather(a, 1, idx.expand(keep.shape + a.shape[2:]))
+
+    return state.replace(sel_leaf=new_sel, spine_leaf=new_sel,
+                         **{f: take(getattr(state, f)) for f in _LEAF_FIELDS})
+
+
+def expand_beam(state: TrackerState, new_L: int) -> TrackerState:
+    """The inverse conversion: the beam widened to ``new_L`` with dead
+    leaves.  Leaf order is kept, so ``sel_leaf`` does not change."""
+    T, L, W = state.hist_meas.shape
+    if new_L < L:
+        raise ValueError(f"expand_beam: new_L {new_L} is below L {L}")
+    if new_L == L:
+        return state
+
+    def pad(a, fill):
+        return torch.cat([a, a.new_full((T, new_L - L) + a.shape[2:], fill)],
+                         dim=1)
+
+    return state.replace(**{f: pad(getattr(state, f),
+                                   -1 if f == 'hist_meas' else 0)
+                            for f in _LEAF_FIELDS})
 
 
 def insert_targets(state: TrackerState, new_x, new_P, new_mask, new_mmsi,

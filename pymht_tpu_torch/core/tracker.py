@@ -4,17 +4,16 @@
 Device side: ``scan_step`` composes grow (radar and, with ``use_ais``,
 AIS fusion) -> select -> terminate -> N-scan prune -> initiate -> insert
 on tensors of one device.  Host side: ``Tracker`` keeps the JAX
-Tracker's API (``add_measurement_list``, ``pre_initialize``,
-``get_tracks``) and archives each track's confirmed past as numpy,
+Tracker's API (``add_measurement_list``, ``stream``, ``degrade``,
+``pre_initialize``, ``get_tracks``, ``get_smooth_tracks``,
+``check_integrity``) and archives each track's confirmed past as numpy,
 appended from the prune outputs every scan.
-
-Raising NotImplementedError: ``prune_similar``, the dynamic window,
-degradation, streaming and the smoother.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -23,9 +22,11 @@ import torch
 from .. import sync
 from ..models import pv
 from .config import TrackerShapes, TrackerParams
-from .state import TrackerState, empty_state, insert_targets
+from ..utils.timing import RuntimeLog
+from .state import TrackerState, empty_state, insert_targets, shrink_beam
 from .grow import AisBatch, Scan, grow
-from .select import select
+from .merge import prune_similar as merge_similar
+from .select import cluster, select
 from .lifecycle import n_scan_prune, terminate
 from . import initiator as initiator_mod
 
@@ -62,20 +63,19 @@ class StepOutputs(NamedTuple):
     used_meas: torch.Tensor      # [M] bool
 
 
-def _not_ported(what):
-    raise NotImplementedError(f"{what} is not ported to the torch package "
-                              f"yet")
-
-
 def scan_step(state: TrackerState, init_state, scan: Scan,
               ais: Optional[AisBatch], shapes: TrackerShapes,
               params: TrackerParams, method: str = 'lagrangian',
               use_ais: bool = True, ais_initialization: bool = True,
-              compute_clusters: bool = True,
+              prune_similar: bool = False, compute_clusters: bool = True,
+              dynamic_window: bool = False,
               select_kw: Optional[dict] = None):
     """One radar scan through the full pipeline.  ``ais`` is the scan's
     AisBatch; it is not read when ``use_ais`` is false (and may then be
-    None)."""
+    None).  ``prune_similar`` merges near-identical sibling hypotheses
+    after grow; ``dynamic_window`` shrinks the N-scan window of targets
+    that are over budget (``shrink_windows``).  Neither reads a value on
+    the host."""
     if use_ais and not isinstance(ais, AisBatch):
         raise TypeError("scan_step: use_ais=True needs an AisBatch "
                         "(grow.empty_ais for a scan with no messages)")
@@ -86,6 +86,8 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
     # 1. grow
     g = grow(state, scan, ais if use_ais else None, shapes, params)
     state = g.state
+    if prune_similar:
+        state = merge_similar(state, shapes, params)
 
     # 2-3. cluster + global hypothesis selection
     sel_res = select(state, shapes, params, method=method,
@@ -135,6 +137,10 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
                            scan.time, params)
     inserted = state.tgt_mask & ~prev_mask
 
+    # 9. on-device dynamic window
+    if dynamic_window:
+        state = shrink_windows(state, g.gated_counts, inserted, params)
+
     live = state.leaf_mask.int()
     outputs = StepOutputs(
         track_mask=track_mask, track_id=track_id, track_x=track_x,
@@ -151,6 +157,29 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
         n_leaves=live.sum().int(), leaf_counts=live.sum(dim=1).int(),
         gated_counts=g.gated_counts, used_meas=g.used_meas)
     return state, init_state, outputs
+
+
+def shrink_windows(state: TrackerState, gated_counts, inserted,
+                   params: TrackerParams) -> TrackerState:
+    """The on-device dynamic window: graceful degradation for the
+    streaming path, where no wall clock exists inside the step.  A target
+    (other than one ``inserted`` this scan) shrinks its N-scan window by
+    one when its beam is still full after N-scan pruning, or when its
+    share of the scan's gated-pair work (live leaves x gated pairs)
+    exceeds max_target_time / radar_period with its beam at least half
+    full.  Shapes are static, so this changes no arithmetic: it makes
+    the N-scan pruning of that target more aggressive.  No host read."""
+    L = state.leaf_mask.shape[1]
+    lc = state.leaf_mask.sum(dim=1)                                  # [T]
+    proxy = lc.float() * (1.0 + gated_counts.float())
+    total = torch.where(state.tgt_mask, proxy, 0.0).sum()
+    share = params.max_target_time / params.radar_period
+    sat = state.tgt_mask & (lc >= L)
+    over = (state.tgt_mask & (lc >= L // 2)
+            & (proxy > share * torch.clamp(total, min=1.0)))
+    shrink = (sat | over) & ~inserted
+    return state.replace(tgt_window=torch.where(
+        shrink, torch.clamp(state.tgt_window - 1, min=1), state.tgt_window))
 
 
 def _merge_new_targets(new_x, new_mask, new_mmsi, threshold):
@@ -176,10 +205,11 @@ def scan_many(state, init_state, scans: Scan, ais: Optional[AisBatch],
               method: str = 'lagrangian', use_ais: bool = True,
               ais_initialization: bool = True,
               compute_clusters: bool = False,
+              dynamic_window: bool = False, prune_similar: bool = False,
               select_kw: Optional[dict] = None):
     """Process a batch of scans (leading time axis on ``scans`` and on
-    ``ais``) one ``scan_step`` after another.  Returns (state,
-    init_state, stacked StepOutputs)."""
+    ``ais``) one ``scan_step`` after another, with nothing fetched in
+    between.  Returns (state, init_state, stacked StepOutputs)."""
     outs = []
     for i in range(scans.z.shape[0]):
         scan = Scan(*(f[i] for f in scans))
@@ -187,7 +217,8 @@ def scan_many(state, init_state, scans: Scan, ais: Optional[AisBatch],
         state, init_state, out = scan_step(
             state, init_state, scan, ais_i, shapes, params, method=method,
             use_ais=use_ais, ais_initialization=ais_initialization,
-            compute_clusters=compute_clusters, select_kw=select_kw)
+            prune_similar=prune_similar, compute_clusters=compute_clusters,
+            dynamic_window=dynamic_window, select_kw=select_kw)
         outs.append(out)
     return state, init_state, StepOutputs(*[torch.stack(f)
                                             for f in zip(*outs)])
@@ -195,12 +226,23 @@ def scan_many(state, init_state, scans: Scan, ais: Optional[AisBatch],
 
 _NP_DTYPE = {torch.float32: np.float32, torch.int32: np.int32,
              torch.bool: np.bool_}
+_TORCH_DTYPE = {v: k for k, v in _NP_DTYPE.items()}
+
+
+def _to_device(host: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``; through pinned memory, without
+    waiting, when that is a GPU."""
+    t = torch.from_numpy(host)
+    if device.type == 'cuda':
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def outputs_to_host(out: StepOutputs) -> StepOutputs:
-    """All step outputs copied to the host in ONE transfer: the fields'
-    bytes are packed into one uint8 tensor, fetched, and split into
-    numpy arrays of the original dtypes and shapes."""
+    """All step outputs (of one scan, or stacked over a chunk of scans)
+    copied to the host in ONE transfer: the fields' bytes are packed into
+    one uint8 tensor, fetched, and split into numpy arrays of the
+    original dtypes and shapes."""
     parts = [t.reshape(-1).view(torch.uint8) for t in out]
     host = sync.fetch(torch.cat(parts)).numpy()
     fields, o = [], 0
@@ -259,9 +301,16 @@ class Tracker:
     is not ported.  ``use_ais`` (default on, as in the JAX class) runs
     grow's AIS branch every scan, on an empty batch when a scan brings
     no ``ais_messages``; ``ais_initialization`` lets unclaimed messages
-    seed preliminary tracks.  ``host_syncs`` records, per scan step, how
-    many times the host read a device value (loop exits, branches and
-    the one output transfer).
+    seed preliminary tracks.  ``prune_similar`` merges near-identical
+    sibling hypotheses after grow.  ``dynamic_window`` applies the host
+    triggers of ``_dynamic_window`` after every stepped scan (``stream``
+    takes its own, on-device, ``dynamic_window``);
+    ``degrade_on_overload`` lets the wall-clock roof halve the beam
+    (``degrade``).  ``host_syncs`` records, per scan step, how many times
+    the host read a device value (loop exits, branches and the one output
+    transfer); ``chunk_syncs`` the same per streamed chunk, as (scans,
+    reads).  Every wall-clock trigger reads the time through
+    ``self._clock``.
     """
 
     def __init__(self, shapes: TrackerShapes = TrackerShapes(),
@@ -273,12 +322,6 @@ class Tracker:
                  dynamic_window: bool = False,
                  degrade_on_overload: bool = False,
                  device=None):
-        if prune_similar:
-            _not_ported("prune_similar")
-        if dynamic_window:
-            _not_ported("the dynamic window")
-        if degrade_on_overload:
-            _not_ported("degradation")
         self.shapes = shapes
         self.params = params
         self.method = method
@@ -286,14 +329,24 @@ class Tracker:
         self.ais_initialization = ais_initialization
         self.device = _resolve_device(device)
         self.pipeline_outputs = pipeline_outputs
+        self.prune_similar = prune_similar
+        self.dynamic_window = dynamic_window
+        self.degrade_on_overload = degrade_on_overload
+        self._degrade_cooldown = 0
+        self._clock = time.perf_counter
         self._pending = None      # (device outputs, scan count)
         self.state = empty_state(shapes, params, self.device)
         self.init_state = initiator_mod.empty_initiator(shapes, self.device)
         self.archives = {}          # id -> TrackArchive
         self.terminated = {}        # id -> TrackArchive
+        self.init_P = {}            # id -> initial covariance [4,4]
         self.scan_times = []
+        self.scan_history = []      # raw numpy measurements per scan
         self.ais_history = []       # AIS message list per scan
+        self.runtime = RuntimeLog(radar_period=params.radar_period)
+        self.runtime_log = []       # wall seconds per scan
         self.host_syncs = []        # host reads of device values per scan
+        self.chunk_syncs = []       # (scans, host reads) per streamed chunk
         self.t0 = None
 
     # -- input --------------------------------------------------------
@@ -341,11 +394,8 @@ class Tracker:
         parts = [self._pad_scan(t, z)]
         if self.use_ais:
             parts += self._pad_ais(list(ais_messages))
-        host = torch.from_numpy(np.concatenate(
-            [p.reshape(-1).view(np.uint8) for p in parts]))
-        if self.device.type == 'cuda':
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host.to(self.device)
+        return _to_device(np.concatenate(
+            [p.reshape(-1).view(np.uint8) for p in parts]), self.device)
 
     def _unpack_inputs(self, packed: torch.Tensor):
         """(Scan, AisBatch or None) as views of ``_pack_inputs``' bytes."""
@@ -371,12 +421,13 @@ class Tracker:
             high_accuracy=take((A,), torch.bool),
             mask=take((A,), torch.bool))
 
-    def _step(self, packed):
+    def _step(self, packed, **kw):
         scan, ais = self._unpack_inputs(packed)
         return scan_step(self.state, self.init_state, scan, ais,
                          self.shapes, self.params, method=self.method,
                          use_ais=self.use_ais,
-                         ais_initialization=self.ais_initialization)
+                         ais_initialization=self.ais_initialization,
+                         prune_similar=self.prune_similar, **kw)
 
     def pre_initialize(self, t, states, mmsi=None):
         """Seed confirmed targets from known initial states."""
@@ -405,13 +456,17 @@ class Tracker:
         previous one (objects with ``state``, ``time``, ``mmsi`` and
         ``highAccuracy``; read only with ``use_ais``).  Returns the step
         outputs as numpy (or, with ``pipeline_outputs``, the device
-        outputs, absorbed next scan)."""
-        if check_integrity or kwargs.pop('checkIntegrity', False):
-            _not_ported("check_integrity")
+        outputs, absorbed next scan).  ``check_integrity`` (or the
+        ``checkIntegrity`` kwarg) runs the structural invariants after
+        the scan and raises AssertionError on a violation."""
+        tic = self._clock()
+        check_integrity = check_integrity or kwargs.pop('checkIntegrity',
+                                                        False)
         if self.t0 is None:
             # device time is relative to the first scan for fp32 safety
             self.t0 = float(t) - self.params.radar_period
         t_rel = float(t) - self.t0
+        self.scan_history.append(np.asarray(z, np.float32).reshape(-1, 2))
         self.ais_history.append(list(ais_messages or []))
         n_sync = sync.count
         self.state, self.init_state, out = self._step(
@@ -421,11 +476,63 @@ class Tracker:
             self.flush()
             self._pending = (out, len(self.scan_times))
             self.host_syncs.append(sync.count - n_sync)
+            self._record_wall(self._clock() - tic)
+            if check_integrity:
+                self.check_integrity()
             return out
         out_np = outputs_to_host(out)
         self.host_syncs.append(sync.count - n_sync)
         self._absorb_outputs(out_np, n_scans=len(self.scan_times))
+        dt_wall = self._clock() - tic
+        self._record_wall(dt_wall)
+        if self.dynamic_window:
+            self._dynamic_window(dt_wall, out_np.leaf_counts,
+                                 out_np.gated_counts)
+        if check_integrity:
+            self.check_integrity()
         return out_np
+
+    def _record_wall(self, seconds):
+        self.runtime_log.append(seconds)
+        self.runtime.record('Total', seconds)
+
+    def _dynamic_window(self, dt_wall, leaf_counts, gated_counts=None):
+        """Graceful degradation under load on the stepped path, three
+        triggers in escalating scope:
+
+        1. per-target time budget: each target's share of the scan's wall
+           time is estimated from its growth-cost proxy (live leaves x
+           gated pairs); a target whose estimate exceeds
+           ``params.max_target_time`` shrinks its window;
+        2. beam saturation: a target whose hypothesis beam is full is
+           over budget in capacity and shrinks its window;
+        3. global roof: a whole-scan wall time above 80 % of the radar
+           period lowers the window roof for every target and, with
+           ``degrade_on_overload``, halves the beam (``degrade``), after
+           which three scans pass before the beam may shrink again.
+        The first two scans never count as load."""
+        L = self.shapes.max_leaves
+        tw = sync.fetch(self.state.tgt_window).numpy()
+        warm = len(self.scan_times) > 2
+        if gated_counts is not None and warm:
+            proxy = (np.asarray(leaf_counts, np.float64)
+                     * (1.0 + np.asarray(gated_counts, np.float64)))
+            total = proxy.sum()
+            if total > 0:
+                over = dt_wall * proxy / total > self.params.max_target_time
+                tw = np.where(over, np.maximum(tw - 1, 1), tw)
+        saturated = np.asarray(leaf_counts) >= L
+        tw = np.where(saturated, np.maximum(tw - 1, 1), tw)
+        roof = dt_wall > 0.8 * self.params.radar_period and warm
+        if roof:
+            self._n_roof = max(1, getattr(self, '_n_roof', self.params.N) - 1)
+            tw = np.minimum(tw, self._n_roof)
+        self.state = self.state.replace(tgt_window=torch.from_numpy(
+            np.ascontiguousarray(tw, np.int32)).to(self.device))
+        self._degrade_cooldown = max(0, self._degrade_cooldown - 1)
+        if roof and self.degrade_on_overload and self._degrade_cooldown == 0:
+            if self.degrade():
+                self._degrade_cooldown = 3
 
     def flush(self):
         """Absorb any pipelined outputs still pending on the device."""
@@ -434,14 +541,213 @@ class Tracker:
             self._pending = None
             self._absorb_outputs(outputs_to_host(prev_out), n_scans=prev_n)
 
-    def degrade(self, *args, **kwargs):
-        _not_ported("Tracker.degrade")
+    def degrade(self, beam_factor: int = 2,
+                ais_per_leaf: Optional[int] = None, min_leaves: int = 4):
+        """Carry on with a narrower hypothesis beam (L -> max(min_leaves,
+        L // beam_factor)): compute-shedding degradation.  Under static
+        shapes only a smaller beam reduces the work of a scan: about half
+        of grow's candidates and half of every selection tensor.  The
+        device state is converted by ``state.shrink_beam`` (one gather)
+        and ``self.shapes`` follows; ``ais_per_leaf`` also narrows the
+        AIS fusion width.  Returns True if the beam shrank.  One-way."""
+        L = self.shapes.max_leaves
+        new_L = max(min_leaves, L // beam_factor)
+        if new_L >= L:
+            return False
+        self.flush()
+        self.state = shrink_beam(self.state, new_L)
+        kw = dict(max_leaves=new_L)
+        if ais_per_leaf is not None:
+            kw['ais_per_leaf'] = max(0, min(ais_per_leaf,
+                                            self.shapes.max_ais))
+        self.shapes = dataclasses.replace(self.shapes, **kw)
+        return True
 
-    def stream(self, *args, **kwargs):
-        _not_ported("Tracker.stream")
+    # -- streaming ----------------------------------------------------
+    def make_stream_inputs(self, scans, ais_groups=None):
+        """The inputs of ``scan_many`` for a chunk of scans, on the device
+        after ONE host-to-device transfer.
 
-    def get_smooth_tracks(self, *args, **kwargs):
-        _not_ported("Tracker.get_smooth_tracks")
+        ``scans``: objects with ``.time`` (absolute) and ``.measurements``
+        [n, 2]; ``ais_groups``: optional per-scan lists of AIS messages.
+        Returns (Scan, AisBatch) with a leading scan axis and every time
+        relative to the tracker's origin ``self.t0`` (any other base
+        shifts the first scan's dt and breaks pre-initialised tracks).
+        Call after ``pre_initialize``, or the origin is taken from the
+        first scan."""
+        scans = list(scans)
+        if self.t0 is None:
+            self.t0 = float(scans[0].time) - self.params.radar_period
+        n, M, A = len(scans), self.shapes.max_meas, self.shapes.max_ais
+        n_z_over = n_ais_over = 0
+        zb = np.zeros((n, M, 2), np.float32)
+        tb = np.zeros((n,), np.float32)
+        a_st = np.zeros((n, A, 4), np.float32)
+        a_tm = np.zeros((n, A), np.float32)
+        a_mm = np.zeros((n, A), np.int32)
+        mb = np.zeros((n, M), bool)
+        a_hi = np.zeros((n, A), bool)
+        a_mk = np.zeros((n, A), bool)
+        for i, s in enumerate(scans):
+            z = np.asarray(s.measurements, np.float32).reshape(-1, 2)
+            k = min(len(z), M)
+            n_z_over += max(0, len(z) - M)
+            zb[i, :k] = z[:k]
+            mb[i, :k] = True
+            tb[i] = float(s.time) - self.t0
+            group = (ais_groups[i] if ais_groups is not None
+                     and i < len(ais_groups) else [])
+            n_ais_over += max(0, len(group) - A)
+            for j, m in enumerate(group[:A]):
+                a_st[i, j] = np.asarray(m.state, np.float32)
+                a_tm[i, j] = float(m.time) - self.t0
+                a_mm[i, j] = int(m.mmsi)
+                a_hi[i, j] = bool(getattr(m, 'highAccuracy', False))
+                a_mk[i, j] = True
+        if n_z_over or n_ais_over:
+            # a silent shape overflow skews streaming results
+            logging.getLogger(__name__).warning(
+                "make_stream_inputs: dropped %d measurements and %d AIS "
+                "messages overflowing static shapes (M=%d, A=%d) across "
+                "%d scans — raise TrackerShapes.max_meas/max_ais",
+                n_z_over, n_ais_over, M, A, n)
+        # 4-byte fields first, so every view below is aligned
+        fields = [zb, tb, a_st, a_tm, a_mm, mb, a_hi, a_mk]
+        packed = _to_device(np.concatenate(
+            [f.reshape(-1).view(np.uint8) for f in fields]), self.device)
+        views, o = [], 0
+        for f in fields:
+            views.append(packed[o:o + f.nbytes].view(_TORCH_DTYPE[f.dtype.type])
+                         .view(f.shape))
+            o += f.nbytes
+        zb, tb, a_st, a_tm, a_mm, mb, a_hi, a_mk = views
+        return (Scan(z=zb, mask=mb, time=tb),
+                AisBatch(state=a_st, time=a_tm, mmsi=a_mm,
+                         high_accuracy=a_hi, mask=a_mk))
+
+    def stream(self, scans, ais_groups=None, chunk: int = 16,
+               compute_clusters: bool = False,
+               dynamic_window: bool = False):
+        """Device-resident streaming with host supervision: ``chunk``
+        scans go to the device in one transfer and through ``scan_many``
+        with nothing fetched in between; the chunk's stacked outputs come
+        back in ONE transfer and every scan is absorbed into the same
+        per-track archives as ``add_measurement_list``.  Between chunks
+        the host supervises by the wall clock: the runtime log and, with
+        ``degrade_on_overload``, the roof-triggered switch to the
+        half-beam state when a chunk took more than 80 % of the radar
+        period per scan.  The first chunk of a call never counts as load
+        (on the card it pays the kernel build and the warm-up), and the
+        chunk after a degrade is not checked, so that one overlong chunk
+        cannot collapse the beam to its minimum.  ``dynamic_window`` is
+        the on-device window trigger of ``scan_step``.
+
+        Returns the list of per-chunk stacked StepOutputs (host numpy)."""
+        scans = list(scans)
+        if not scans:
+            return []
+        if self.t0 is None:
+            self.t0 = float(scans[0].time) - self.params.radar_period
+        self.flush()
+        outs_all = []
+        # chunks still to pass unchecked after a degrade; counted in
+        # chunks, so kept apart from the stepped path's cooldown in scans
+        cooldown = 0
+        for n_chunks_done, i0 in enumerate(range(0, len(scans), chunk)):
+            sub = scans[i0:i0 + chunk]
+            group = (ais_groups[i0:i0 + chunk]
+                     if ais_groups is not None else None)
+            tic = self._clock()
+            n_sync = sync.count
+            scan_b, ais_b = self.make_stream_inputs(sub, group)
+            self.state, self.init_state, outs = scan_many(
+                self.state, self.init_state, scan_b, ais_b, self.shapes,
+                self.params, method=self.method, use_ais=self.use_ais,
+                ais_initialization=self.ais_initialization,
+                compute_clusters=compute_clusters,
+                dynamic_window=dynamic_window,
+                prune_similar=self.prune_similar)
+            outs_np = outputs_to_host(outs)
+            self.chunk_syncs.append((len(sub), sync.count - n_sync))
+            per_scan = (self._clock() - tic) / len(sub)
+            for j, s in enumerate(sub):
+                self.scan_history.append(
+                    np.asarray(s.measurements, np.float32).reshape(-1, 2))
+                self.ais_history.append(
+                    list(group[j]) if group is not None and j < len(group)
+                    else [])
+                self.scan_times.append(float(s.time) - self.t0)
+                self._absorb_outputs(StepOutputs(*(f[j] for f in outs_np)),
+                                     n_scans=len(self.scan_times))
+                self._record_wall(per_scan)
+            # supervision between chunks
+            if cooldown > 0:
+                cooldown -= 1
+            elif (n_chunks_done >= 1 and self.degrade_on_overload
+                    and per_scan > 0.8 * self.params.radar_period):
+                if self.degrade():
+                    cooldown = 1
+            outs_all.append(outs_np)
+        return outs_all
+
+    addMeasurementList = add_measurement_list
+
+    # -- observability --------------------------------------------------
+    def print_time_log(self):
+        print(self.runtime.summary())
+
+    printTimeLog = print_time_log
+
+    def profile_phases(self, t, z, ais_messages=None, record=True):
+        """Per-phase timing of one scan: each phase run alone on the
+        current state (utils/timing.phase_profile); with ``record`` the
+        results enter ``self.runtime``.  Does NOT mutate tracker state."""
+        from ..utils.timing import phase_profile
+        phases = phase_profile(self, t, z, ais_messages)
+        if record:
+            for k, v in phases.items():
+                self.runtime.record(k, v)
+        return phases
+
+    def get_runtime_average(self):
+        return self.runtime.averages()
+
+    def print_target_list(self):
+        """One line per active target: id, current best state, leaf count
+        and score."""
+        st = self.state
+        sel, xs, cn = _np(st.sel_leaf), _np(st.leaf_x), _np(st.leaf_cnllr)
+        ids, nleaf = _np(st.tgt_id), _np(st.leaf_mask).sum(axis=1)
+        print("Target list:")
+        for slot in np.nonzero(_np(st.tgt_mask))[0]:
+            x = xs[slot, sel[slot]]
+            print(f"  T{int(ids[slot]):<4d} pos=({x[0]:8.1f},{x[1]:8.1f}) "
+                  f"vel=({x[2]:6.2f},{x[3]:6.2f}) "
+                  f"leaves={int(nleaf[slot]):3d} "
+                  f"cnllr={float(cn[slot, sel[slot]]):8.3f}")
+
+    printTargetList = print_target_list
+
+    def print_cluster_list(self):
+        """Clusters of targets sharing gated measurements."""
+        labels, n = cluster(self.state, self.shapes)
+        labels, ids = _np(labels), _np(self.state.tgt_id)
+        groups = {}
+        for slot in np.nonzero(_np(self.state.tgt_mask))[0]:
+            groups.setdefault(int(labels[slot]), []).append(int(ids[slot]))
+        print(f"Cluster list ({int(n)} clusters):")
+        for i, (_, members) in enumerate(sorted(groups.items())):
+            print(f"  Cluster {i}: targets {members}")
+
+    printClusterList = print_cluster_list
+
+    def check_integrity(self):
+        """Structural invariants of the forest state
+        (utils/integrity.py).  Raises AssertionError on violation."""
+        from ..utils.integrity import check_state_integrity
+        check_state_integrity(self)
+
+    checkIntegrity = check_integrity
 
     def _absorb_outputs(self, out, n_scans=None):
         W = self.shapes.window
@@ -451,6 +757,12 @@ class Tracker:
             # window column w is scan index (n-1) - (W-1-w)
             i = n - 1 - (W - 1 - w)
             return self.scan_times[i] if 0 <= i < n else None
+
+        # the true initial covariance of tracks inserted this scan (the
+        # initiator's two-point covariance)
+        for slot in np.nonzero(out.inserted_mask)[0]:
+            self.init_P[int(out.inserted_id[slot])] = np.asarray(
+                out.inserted_P[slot], np.float64)
 
         reasons = {1: 'OutOfRange', 2: 'TooLowScore', 3: 'TooLowScore'}
         for slot in np.nonzero(out.track_mask)[0]:
@@ -522,3 +834,91 @@ class Tracker:
                     seqs[tid] = (list(arch.times), list(arch.meas),
                                  list(arch.states), list(arch.mmsi))
         return seqs
+
+    def get_smooth_tracks(self, em_iters: int = 0,
+                          include_terminated: bool = False,
+                          em_mode: str = 'scalar'):
+        """RTS-smoothed (positions, velocities, ok) per track id.
+
+        Each track's selected measurements are looked up in
+        ``scan_history``; all tracks are padded to a common power-of-two
+        length and smoothed in ONE batched call on the tracker's device
+        (ops/smoother.smooth_tracks); trailing masked steps do not
+        perturb the smoothed interior.  A track with fewer than two
+        measurements comes back unsmoothed with ``ok`` False.
+        ``em_iters=5, em_mode='full'`` refits Q, R, x0 and P0 per track
+        as pykalman's EM does; the default is pure RTS on the pv model."""
+        from ..ops.smoother import smooth_tracks
+        time_to_idx = {t: i for i, t in enumerate(self.scan_times)}
+        out = {}
+        batch = []                      # (tid, zs [n,2], mask [n], x0)
+        for tid, (times, labels, states, _mmsi) in \
+                self._track_measurement_sequences(include_terminated).items():
+            zs, mask = [], []
+            for t, lab in zip(times, labels):
+                idx = time_to_idx.get(t)
+                if idx is None or lab is None or lab < 1 \
+                        or lab - 1 >= len(self.scan_history[idx]):
+                    zs.append(np.zeros(2, np.float32))
+                    mask.append(False)
+                else:
+                    zs.append(self.scan_history[idx][lab - 1])
+                    mask.append(True)
+            zs = np.array(zs, np.float32).reshape(-1, 2)
+            mask = np.array(mask, bool)
+            if mask.sum() < 2:
+                pos = np.where(mask[:, None], zs, np.nan)
+                out[tid] = (pos, np.full_like(pos, np.nan), False)
+                continue
+            batch.append((tid, zs, mask, np.asarray(states[0], np.float32)))
+        if not batch:
+            return out
+        n_max = max(len(b[2]) for b in batch)
+        n_pad = 1 << (n_max - 1).bit_length()
+        B = len(batch)
+        zb = np.zeros((B, n_pad, 2), np.float32)
+        mb = np.zeros((B, n_pad), bool)
+        x0b = np.zeros((B, 4), np.float32)
+        for i, (_, zs, mask, x0) in enumerate(batch):
+            zb[i, :len(mask)] = zs
+            mb[i, :len(mask)] = mask
+            x0b[i] = x0
+        dev = self.device
+        xs_b, _ = smooth_tracks(
+            torch.from_numpy(x0b).to(dev), pv.P0(dev).expand(B, 4, 4),
+            torch.from_numpy(zb).to(dev), torch.from_numpy(mb).to(dev),
+            self.params.radar_period, em_iters=em_iters, em_mode=em_mode)
+        xs_b = _np(xs_b)
+        for i, (tid, _, mask, _) in enumerate(batch):
+            xs = xs_b[i, :len(mask)]
+            out[tid] = (xs[:, :2], xs[:, 2:], True)
+        return out
+
+    getSmoothTracks = get_smooth_tracks
+
+    def get_track_states(self):
+        """(ids, [n_active, 4] current best state) of the active tracks."""
+        st = self.state
+        sel, x, ids = _np(st.sel_leaf), _np(st.leaf_x), _np(st.tgt_id)
+        slots = np.nonzero(_np(st.tgt_mask))[0]
+        if len(slots) == 0:
+            return ids[:0], np.zeros((0, 4), np.float32)
+        return ids[slots], np.stack([x[s, sel[s]] for s in slots])
+
+    def get_track_nodes(self):
+        """Current best state per active track id."""
+        ids, states = self.get_track_states()
+        return {int(i): s for i, s in zip(ids, states)}
+
+    getTrackNodes = get_track_nodes
+
+    def compare_tracks_with_truth(self, truth_states):
+        """NEES of each active track against a paired truth state."""
+        st = self.state
+        sel, xs, Ps = _np(st.sel_leaf), _np(st.leaf_x), _np(st.leaf_P)
+        out = []
+        for slot, xt in zip(np.nonzero(_np(st.tgt_mask))[0], truth_states):
+            d = xs[slot, sel[slot]] - np.asarray(xt)
+            Pi = np.linalg.inv(Ps[slot, sel[slot]] + 1e-9 * np.eye(4))
+            out.append(float(d @ Pi @ d))
+        return out

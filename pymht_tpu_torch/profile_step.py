@@ -3,11 +3,16 @@
     python -m pymht_tpu_torch.profile_step        # needs a CUDA device
     python -m pymht_tpu_torch.profile_step --ais  # the AIS-fusion scene
     python -m pymht_tpu_torch.profile_step --ais --pregate 64
+    python -m pymht_tpu_torch.profile_step --prune-similar --dynamic-window
 
 Runs the radar-only bench scene (``Tracker(use_ais=False)``) or, with
 ``--ais``, the AIS-fusion scene (``Tracker(use_ais=True)``, A=32, G=2;
 utils/scenes.py) through the port's Tracker on the card; ``--pregate Km``
-sets ``radar_cand_width``.  Over the steady scans (3 onwards) it reports:
+sets ``radar_cand_width``; ``--prune-similar`` and ``--dynamic-window``
+turn on ``scan_step``'s arguments of those names (the stepped Tracker
+hands the step only the first; the second is streaming's, given to the
+step here so that its device work can be read beside the rest).  Over the
+steady scans (3 onwards) it reports:
 
 * per phase (grow, select, terminate + prune, initiate), the wall time of
   that phase alone, run on the step's own inputs and closed by
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -32,6 +38,7 @@ from . import sync
 from .core import initiator as initiator_mod
 from .core.grow import grow
 from .core.lifecycle import n_scan_prune, terminate
+from .core.merge import prune_similar
 from .core.select import select
 from .core.tracker import Tracker
 from .utils.scenes import bench_scene, bench_scene_ais
@@ -52,6 +59,8 @@ def _phase_times(tr: Tracker, packed):
 
     n_sync = sync.count
     g = grow(tr.state, scan, ais, shapes, params)
+    if tr.prune_similar:
+        g = g._replace(state=prune_similar(g.state, shapes, params))
     lap("grow")
     res = select(g.state, shapes, params, method=tr.method)
     lap("select")
@@ -73,6 +82,10 @@ def main(argv=None):
                     help="the AIS-fusion scene through Tracker(use_ais=True)")
     ap.add_argument("--pregate", type=int, default=0, metavar="Km",
                     help="radar_cand_width (0: no spatial pre-gate)")
+    ap.add_argument("--prune-similar", action="store_true",
+                    help="merge similar sibling hypotheses after grow")
+    ap.add_argument("--dynamic-window", action="store_true",
+                    help="the on-device window trigger in every step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -89,9 +102,12 @@ def main(argv=None):
         return groups[i] if i < len(groups) else []
 
     def new_tracker():
-        tr = Tracker(shapes, params, use_ais=args.ais, device="cuda")
+        tr = Tracker(shapes, params, use_ais=args.ais, device="cuda",
+                     prune_similar=args.prune_similar)
         tr.pre_initialize(scans[0].time - params.radar_period, seeds,
                           mmsi=mmsi)
+        if args.dynamic_window:
+            tr._step = functools.partial(tr._step, dynamic_window=True)
         return tr
 
     # pass 1: each phase of each steady step, timed alone
@@ -131,6 +147,8 @@ def main(argv=None):
         "device": torch.cuda.get_device_name(0),
         "scene": "ais" if args.ais else "radar",
         "radar_cand_width": args.pregate,
+        "prune_similar": args.prune_similar,
+        "dynamic_window": args.dynamic_window,
         "ais_messages_per_scan": [min(len(messages(i)), shapes.max_ais)
                                   for i in range(len(scans))],
         "scans_profiled": n,

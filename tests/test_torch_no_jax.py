@@ -1,7 +1,9 @@
 """The port imports torch and never jax nor the JAX package: a fresh
 interpreter in which importing jax or pymht_tpu raises runs the port's
 Tracker for a few scans, radar only and then with AIS fusion, AIS
-initiation and the spatial pre-gate."""
+initiation and the spatial pre-gate, and then streams a run with
+``prune_similar`` and the on-device window, degrades the beam, checks the
+forest and smooths the tracks."""
 import os
 import subprocess
 import sys
@@ -62,6 +64,25 @@ for s in scans:
 assert n_msgs >= 3 and len(tr.get_tracks()) >= 2
 assert any(any(t['confirmed_mmsi'] + t['window_mmsi'])
            for t in tr.get_tracks().values())
+# the streaming slice: stream, prune_similar, the on-device window,
+# degrade, check_integrity, the runtime log and the smoother
+tr = Tracker(dataclasses.replace(shapes, max_ais=4), params, device='cpu',
+             prune_similar=True, degrade_on_overload=True)
+tr.pre_initialize(scans[0].time - 2.5, [F_inv @ t.state for t in targets[:2]],
+                  mmsi=[t.mmsi for t in targets[:2]])
+stream = AisMessageStream(sim.simulate_ais(rng, fine, 2.5, init_time=0.0))
+groups = [stream.get_measurements(s.time) for s in scans]
+outs = tr.stream(scans[:4], groups[:4], chunk=3, dynamic_window=True)
+assert [len(c.track_mask) for c in outs] == [3, 1]
+tr.check_integrity()
+assert tr.degrade() and tr.shapes.max_leaves == 4
+outs = tr.stream(scans[4:], groups[4:], chunk=3)
+tr.check_integrity()
+assert all(c.sel_feasible.all() for c in outs)
+assert len(tr.runtime_log) == len(scans) and tr.get_runtime_average()['Total'] > 0
+smooth = tr.get_smooth_tracks(em_iters=2, em_mode='full')
+assert len(smooth) >= 2 and any(ok for _, _, ok in smooth.values())
+assert len(tr.profile_phases(scans[-1].time + 2.5, scans[-1].measurements)) == 6
 loaded = sorted(m for m in sys.modules
                 if (m in ('jax', 'pymht_tpu')
                     or m.startswith(('jax.', 'jaxlib', 'flax', 'pymht_tpu.')))

@@ -1,9 +1,9 @@
 """The port stands alone: no file of ``pymht_tpu_torch`` (nor
 ``chip_smoke.py``) imports ``jax`` or the JAX package ``pymht_tpu``, and
 its own copies of the host modules (config, simulator, metrics, helpers,
-containers, ais_io and the polar model's constants) agree with the JAX
-package's on the same seeded inputs — bit for bit, since both are the
-same numpy arithmetic.
+containers, ais_io, timing, integrity and the polar model's constants)
+agree with the JAX package's on the same seeded inputs — bit for bit,
+since both are the same numpy arithmetic.
 """
 import dataclasses
 import pathlib
@@ -18,12 +18,14 @@ from pymht_tpu.core import config as jconfig  # noqa: E402
 from pymht_tpu.models import polar as jpolar  # noqa: E402
 from pymht_tpu.utils import (  # noqa: E402
     ais_io as jais_io, containers as jcontainers, helpers as jhelpers,
-    metrics as jmetrics, simulator as jsim)
+    integrity as jintegrity, metrics as jmetrics, simulator as jsim,
+    timing as jtiming)
 from pymht_tpu_torch.core import config as tconfig  # noqa: E402
 from pymht_tpu_torch.models import polar as tpolar  # noqa: E402
 from pymht_tpu_torch.utils import (  # noqa: E402
     ais_io as tais_io, containers as tcontainers, helpers as thelpers,
-    metrics as tmetrics, simulator as tsim)
+    integrity as tintegrity, metrics as tmetrics, simulator as tsim,
+    timing as ttiming)
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO_ROOT / "pymht_tpu_torch").rglob("*.py")) \
@@ -295,3 +297,123 @@ def test_ais_model_covariance_equal():
     assert (tais.sigmaR_AIS_true_highAccuracy,
             tais.sigmaR_AIS_true_lowAccuracy) == \
         (jais.sigmaR_AIS_true_highAccuracy, jais.sigmaR_AIS_true_lowAccuracy)
+
+
+def test_runtime_log_equal():
+    """utils/timing.RuntimeLog: the same recordings give the same
+    averages, watchdog counts and summary line."""
+    assert ttiming.PHASES == jtiming.PHASES
+    rng = np.random.default_rng(2)
+    for scale in (0.1, 1.0, 2.0):        # none, soft and hard violations
+        a, b = ttiming.RuntimeLog(2.5), jtiming.RuntimeLog(2.5)
+        for _ in range(20):
+            phase = str(rng.choice(["Total", "Process", "Optim", "Other"]))
+            sec = float(rng.uniform(0, 2.0)) * scale
+            a.record(phase, sec)
+            b.record(phase, sec)
+        assert (a.violations, a.soft_violations) == \
+            (b.violations, b.soft_violations)
+        assert a.averages() == b.averages() and a.summary() == b.summary()
+    assert ttiming.RuntimeLog.__module__.startswith("pymht_tpu_torch.")
+
+
+def _grown_tracker():
+    import torch  # noqa: F401
+    from pymht_tpu_torch.core.tracker import Tracker
+    shapes = tconfig.TrackerShapes(max_targets=6, max_leaves=8, max_meas=12,
+                                   max_ais=2, window=5, max_prelim=4,
+                                   max_initiators=12)
+    params = tconfig.TrackerParams(radar_period=2.5, P_d=0.9,
+                                   lambda_phi=1e-5, lambda_nu=1e-6, N=3,
+                                   radar_range=1e4)
+    tr = Tracker(shapes, params, use_ais=False, device='cpu')
+    x0 = [np.array([0.0, 0.0, 5.0, 0.0]), np.array([0.0, 6.0, 5.0, 0.0]),
+          np.array([300.0, 0.0, 0.0, -4.0])]
+    tr.pre_initialize(0.0, x0)
+    rng = np.random.default_rng(8)
+    for i in range(4):
+        t = 2.5 * (i + 1)
+        z = np.stack([x[:2] + x[2:] * t + rng.normal(0, 1.5, 2) for x in x0]
+                     + [rng.uniform(-20, 60, 2) for _ in range(3)])
+        tr.add_measurement_list(t, z, check_integrity=True)
+    return tr
+
+
+class _JaxView:
+    """The port tracker's forest as the JAX package's integrity check
+    reads it: numpy arrays under the same field names."""
+
+    def __init__(self, tracker):
+        from types import SimpleNamespace
+        self.shapes = tracker.shapes
+        self.state = SimpleNamespace(**{
+            f.name: getattr(tracker.state, f.name).numpy()
+            for f in dataclasses.fields(tracker.state)})
+
+
+INTEGRITY_FAULTS = {
+    "none": lambda st, t, live: {},
+    "leaf_on_free_target": lambda st, t, live: dict(
+        tgt_mask=st.tgt_mask & (np.arange(len(st.tgt_mask)) != t)),
+    "selected_leaf_dead": lambda st, t, live: dict(
+        leaf_mask=_without(st.leaf_mask, t, int(st.sel_leaf[t]))),
+    "duplicate_ids": lambda st, t, live: dict(
+        tgt_id=np.where(st.tgt_mask, 7, st.tgt_id).astype(np.int32)),
+    "twin_histories": lambda st, t, live: dict(
+        hist_meas=_copy_row(st.hist_meas, t, live[0], live[1]),
+        hist_ais=_copy_row(st.hist_ais, t, live[0], live[1])),
+    "label_before_birth": lambda st, t, live: dict(
+        tgt_depth=np.where(np.arange(len(st.tgt_depth)) == t, 1,
+                           st.tgt_depth).astype(np.int32)),
+    "two_mmsi_on_a_path": lambda st, t, live: dict(
+        hist_mmsi=_two_mmsi(st.hist_mmsi, t, live[0])),
+    "history_score_out_of_step": lambda st, t, live: dict(
+        leaf_cnllr=st.leaf_cnllr + 1.0),
+}
+
+
+def _without(mask, t, leaf):
+    out = mask.copy()
+    out[t, leaf] = False
+    return out
+
+
+def _copy_row(a, t, src, dst):
+    out = a.copy()
+    out[t, dst] = out[t, src]
+    return out
+
+
+def _two_mmsi(a, t, leaf):
+    out = a.copy()
+    out[t, leaf, -1], out[t, leaf, -2] = 111, 222
+    return out
+
+
+@pytest.mark.parametrize("fault", list(INTEGRITY_FAULTS))
+def test_integrity_check_equal(fault):
+    """utils/integrity.check_state_integrity: the port's copy (torch
+    state) and the JAX package's (the same arrays as numpy) accept the
+    grown forest and reject the same broken ones."""
+    import torch
+    tr = _grown_tracker()
+    view = _JaxView(tr)
+    live_per_target = view.state.leaf_mask.sum(axis=1)
+    t = int(np.argmax(live_per_target))
+    live = np.nonzero(view.state.leaf_mask[t])[0]
+    assert len(live) >= 2
+    changes = INTEGRITY_FAULTS[fault](view.state, t, live)
+    for k, v in changes.items():
+        setattr(view.state, k, v)
+    tr.state = tr.state.replace(**{k: torch.from_numpy(v)
+                                   for k, v in changes.items()})
+    if fault == "none":
+        tintegrity.check_state_integrity(tr)
+        jintegrity.check_state_integrity(view)
+        return
+    with pytest.raises(AssertionError):
+        jintegrity.check_state_integrity(view)
+    with pytest.raises(AssertionError):
+        tintegrity.check_state_integrity(tr)
+    with pytest.raises(AssertionError):
+        tr.checkIntegrity()

@@ -135,16 +135,22 @@ def test_scan_many_matches_stepping():
 
 
 def test_tracker_refuses_unported_options():
+    """What is still refused: the selection methods that are not ported
+    and a step without its AisBatch.  The options and entry points of the
+    streaming and degradation slice are accepted."""
     params = TrackerParams()
-    for kw in (dict(prune_similar=True),
-               dict(dynamic_window=True), dict(degrade_on_overload=True)):
-        with pytest.raises(NotImplementedError):
-            Tracker(SHAPES, params, device='cpu', **kw)
-    tr = Tracker(SHAPES, params, device='cpu')
+    tr = Tracker(SHAPES, params, device='cpu', prune_similar=True,
+                 dynamic_window=True, degrade_on_overload=True)
     assert tr.use_ais and tr.ais_initialization     # the JAX class's defaults
-    for call in (tr.stream, tr.get_smooth_tracks, tr.degrade):
+    assert tr.stream([]) == [] and tr.get_smooth_tracks() == {}
+    assert tr.degrade() and tr.shapes.max_leaves == SHAPES.max_leaves // 2
+    assert tr.state.leaf_mask.shape[1] == SHAPES.max_leaves // 2
+    tr.check_integrity()
+    _, _, scans, _ = cluttered_scene()
+    for method in ("ipm", "lagrangian_pure"):
         with pytest.raises(NotImplementedError):
-            call()
+            Tracker(SHAPES, params, method=method, device='cpu') \
+                .add_measurement_list(scans[0].time, scans[0].measurements)
     with pytest.raises(TypeError, match="AisBatch"):
         ttracker.scan_step(tr.state, tr.init_state, None, None, SHAPES,
                            params)
