@@ -1,8 +1,9 @@
-"""Global hypothesis selection, the tiered hybrid (counterpart of the
-``'lagrangian'`` and ``'greedy'`` paths of pymht_tpu/core/select.py).
+"""Global hypothesis selection (counterpart of
+pymht_tpu/core/select.py).
 
 Pick one leaf per target minimising total score subject to single-use
-(window column, measurement) slots:
+(window column, measurement) slots.  The production solver
+(``method='lagrangian'``) is a tiered hybrid:
 
 * tier 0 — if the per-target independent optima are conflict-free they
   are the global optimum; no solver runs;
@@ -12,21 +13,28 @@ Pick one leaf per target minimising total score subject to single-use
 * tier 3 — larger clusters run the compact contested-slot Lagrangian,
   warm-started from the duals carried across scans.
 
+Two further solvers are kept for parity and cross-checks:
+
+* ``'ipm'``             — dense assembly + interior-point LP with
+                          truncated branch-and-bound (ops/lp.py);
+* ``'lagrangian_pure'`` — a gather/scatter Lagrangian over ALL slots,
+                          applied to the whole forest.
+
 The usage tensors have two formulations that give identical results:
 dense compares, and scatter builds that never materialise a
 [T, n_slots] tensor.  ``_USAGE_DENSE_LIMIT`` and ``_INT32_WALL`` (module
-attributes, so a test can set them small) choose by problem size.
-``'ipm'`` and ``'lagrangian_pure'`` raise NotImplementedError.  Where
+attributes, so a test can set them small) choose by problem size.  Where
 JAX branches or exits a loop on a device value, the port reads it on the
 host (``sync.flag``); loop bodies are functions from carry to carry.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import sync
+from ..ops import lp as lp_ops
 from .config import TrackerShapes, TrackerParams
 from .grow import smallest_k
 from .state import TrackerState
@@ -259,6 +267,56 @@ def leaf_scores(state: TrackerState, params: TrackerParams):
 
 
 # ----------------------------------------------------------------------
+# Dense IPM path
+# ----------------------------------------------------------------------
+
+def select_ipm(state: TrackerState, shapes: TrackerShapes,
+               params: TrackerParams, budget: int = 8) -> SelectionResult:
+    """The whole forest as one dense 0/1 program, solved by
+    ``ops/lp.solve_ilp``: usage rows ``A_in [n_slots, T*L]`` scattered
+    from the label histories, one equality row per target."""
+    T, L, W = state.hist_meas.shape
+    dev = state.hist_meas.device
+    slots, n_slots = _slot_index(state, shapes)
+    n = T * L
+
+    # A_in [n_slots, n]: leaf uses slot.  A scatter, not a one-hot (a
+    # dense one-hot over slots is O(T*L*W*S) memory); int64 flat indices.
+    s = torch.where(state.leaf_mask[..., None, None], slots, n_slots)
+    col = torch.arange(n, device=dev).reshape(T, L)[..., None, None]
+    flat_idx = (col * (n_slots + 1) + s).reshape(-1)
+    A_in = torch.zeros((n * (n_slots + 1),), dtype=torch.float32, device=dev)
+    A_in[flat_idx] = 1.0
+    A_in = A_in.reshape(n, n_slots + 1)[:, :n_slots].T.contiguous()  # [S, n]
+    # Keep every slot used by at least one leaf: within-target conflicts
+    # across the window matter too (a measurement may be claimed by two
+    # different targets' histories at different tree depths).
+    in_mask = A_in.sum(dim=1) > 0.5
+
+    A_eq = (torch.arange(T, device=dev)[:, None]
+            == (torch.arange(n, device=dev) // L)[None, :]).float()
+    f = leaf_scores(state, params).reshape(n)
+    # Inactive targets: the equality row must stay satisfiable, so their
+    # leaf 0 is allowed as a dummy with zero cost.
+    dummy = ((~state.tgt_mask)[:, None]
+             & (torch.arange(L, device=dev) == 0)[None, :]).reshape(n)
+    var_mask = state.leaf_mask.reshape(n) | dummy
+    f = torch.where(dummy, 0.0, f)
+
+    ones_T = torch.ones((T,), dtype=torch.bool, device=dev)
+    # tgt_mask is passed all-true so the dummy leaves keep their rows
+    # feasible; inactive targets score 0 and do not move the objective.
+    sel, feas, obj, bound = lp_ops.solve_ilp(
+        f, A_eq, ones_T.float(), A_in,
+        torch.ones((n_slots,), dtype=torch.float32, device=dev),
+        var_mask, ones_T, in_mask, T, L, ones_T, budget=budget)
+    labels, n_clusters = cluster(state, shapes)
+    return SelectionResult(sel=sel.int(), feasible=feas, obj=obj,
+                           bound=bound, labels=labels,
+                           n_clusters=n_clusters, lam=state.lam)
+
+
+# ----------------------------------------------------------------------
 # Tier 2: batched exact enumeration of small clusters
 # ----------------------------------------------------------------------
 
@@ -360,6 +418,207 @@ def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
     lb_bucket = torch.minimum(torch.where(finite, best_val, INF), lb_outside)
     bound_small = torch.where(torch.isfinite(lb_bucket), lb_bucket, 0.0).sum()
     return sel_enum, obj_small, bound_small
+
+
+# ----------------------------------------------------------------------
+# The gather/scatter Lagrangian over all slots ('lagrangian_pure')
+# ----------------------------------------------------------------------
+
+def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
+                      params: TrackerParams, iters: int = 60,
+                      theta: float = 1.0,
+                      participate: Optional[torch.Tensor] = None,
+                      obj_offset=0.0,
+                      lam0: Optional[torch.Tensor] = None,
+                      patience: int = 6,
+                      repair_rounds: int = 8,
+                      repair_cadence: int = 4,
+                      with_clusters: bool = True) -> SelectionResult:
+    """Subgradient ascent with gather/scatter duals, no matrices.
+
+    Dual price lam[s] per single-use slot; the reduced cost of a leaf is
+    its score plus the prices of every slot in its history (one gather).
+    The decode is an argmin per target; usage counts come from a
+    scatter-add of the decoded selection.  Feasible incumbents are
+    maintained with a conflict-repair sweep.
+
+    ``participate`` restricts the solve to a subset of targets (their
+    clusters must be disjoint from the rest: guaranteed when the subset
+    is a union of connected components).  ``obj_offset`` is the exact
+    objective of the already-solved remainder, used only to scale the
+    relative convergence tolerance.  One host read per iteration, one
+    more on the repair cadence, one per repair round after the first.
+    """
+    T, L, W = state.hist_meas.shape
+    dev = state.hist_meas.device
+    eff_tgt = state.tgt_mask if participate is None \
+        else (state.tgt_mask & participate)
+    eff_leaf = state.leaf_mask & eff_tgt[:, None]
+    slots, n_slots = _slot_index(state, shapes)                 # [T,L,W,2]
+    f = leaf_scores(state, params)                              # [T,L]
+    slots_flat = slots.reshape(T, L, W * 2)
+    lam_init = state.lam if lam0 is None else lam0
+    tb = torch.arange(T, device=dev)
+    zero1 = torch.zeros((1,), dtype=torch.float32, device=dev)
+    false1 = torch.zeros((1,), dtype=torch.bool, device=dev)
+
+    def reduced_cost(lam):
+        return f + torch.cat([lam, zero1])[slots_flat].sum(dim=2)
+
+    def decode(lam):
+        rc = reduced_cost(lam)
+        lb = torch.where(eff_tgt, rc.amin(dim=1), 0.0).sum() - lam.sum()
+        return rc.argmin(dim=1), lb
+
+    def own_slots(sel):
+        return torch.where(eff_tgt[:, None], slots_flat[tb, sel], n_slots)
+
+    def usage_of(sel):
+        s = own_slots(sel).reshape(-1)
+        cnt = torch.zeros((n_slots + 1,), dtype=torch.float32, device=dev)
+        cnt.index_add_(0, s, torch.ones_like(s, dtype=torch.float32))
+        return cnt[:n_slots]
+
+    # Per-(target, column) unavoidability: a slot is unavoidable for t if
+    # EVERY live leaf of t uses it (a shared within-window prefix).  An
+    # unavoidable claimant must win the keep decision: by grow's spine
+    # invariant at most one target can unavoidably claim a slot.  A
+    # slot's window column is part of its identity, so the test is a
+    # [T, W*2] all-live-leaves-agree test per column, not a [T, n_slots]
+    # table.  Loop-invariant.
+    sf = torch.where(eff_leaf[..., None], slots_flat, -1)        # [T,L,K]
+    rep = sf.amax(dim=1)                                         # [T,K]
+    agree = ((sf == rep[:, None, :]) | ~eff_leaf[..., None]).all(dim=1)
+    unav_cols = (agree & (rep >= 0) & (rep < n_slots)
+                 & (eff_leaf.sum(dim=1) > 0)[:, None]).float()   # [T,K]
+    ar_L = torch.arange(L, device=dev)
+
+    def repair_round(rc, carry):
+        """Keep-best-per-slot conflict resolution: every over-used slot
+        keeps its best claimant (unavoidable claimants first, then
+        spine holders, then score; lowest index within tolerance); all
+        other conflicted targets ban their current leaf and repick by
+        reduced cost plus a penalty on still-contested slots.  A spine
+        holder never loses its slot, so the repair ends at the
+        all-spines assignment in the worst case."""
+        sel, banned, _ = carry
+        over_pad = torch.cat([usage_of(sel) > 1.5, false1])
+        own = own_slots(sel)                                      # [T,K]
+        own_flat = own.reshape(-1)
+        on_spine = (sel == state.spine_leaf).float()
+        key = (f[tb, sel][:, None] - 1e8 * unav_cols
+               - 5e7 * on_spine[:, None])
+        over_own = over_pad[own]
+        claim = torch.where(over_own, key, INF)
+        slot_min = torch.full((n_slots + 1,), INF, dtype=torch.float32,
+                              device=dev)
+        slot_min.scatter_reduce_(0, own_flat, claim.reshape(-1), 'amin',
+                                 include_self=True)
+        in_conf = over_own.any(dim=1) & eff_tgt
+        # The keeper of a slot is the LOWEST-INDEX claimant within
+        # tolerance of the slot's best key (an epsilon added to the key
+        # itself would vanish in f32 next to the priority offsets).
+        min_own = slot_min[own]
+        is_min = over_own & (key <= min_own + 1e-5 * (1.0 + min_own.abs()))
+        cand = torch.where(is_min, tb[:, None], T)
+        slot_owner = torch.full((n_slots + 1,), T, dtype=torch.int64,
+                                device=dev)
+        slot_owner.scatter_reduce_(0, own_flat, cand.reshape(-1), 'amin',
+                                   include_self=True)
+        keeper = (~over_own | (slot_owner[own] == tb[:, None])).all(dim=1)
+        loser = in_conf & ~keeper
+        banned = banned | (loser[:, None] & (ar_L[None, :] == sel[:, None]))
+        # Conflict-aware repick: penalise leaves that touch any slot
+        # currently over-used so losers prefer clean leaves.
+        pen = over_pad[slots_flat].sum(dim=2).float()
+        rcb = torch.where(banned, INF, rc + 1e3 * pen)
+        sel = torch.where(loser, rcb.argmin(dim=1), sel)
+        return sel, banned, in_conf.any()
+
+    def repair(sel, lam):
+        rc = reduced_cost(lam)
+        carry = (sel, torch.zeros((T, L), dtype=torch.bool, device=dev), None)
+        for it in range(repair_rounds):
+            # the JAX loop starts with had_conf = True: no read on round 0
+            if it > 0 and not sync.flag(carry[2]):
+                break
+            carry = repair_round(rc, carry)
+        sel = carry[0]
+        return sel, ~(usage_of(sel) > 1.5).any()
+
+    def obj_of(sel):
+        return torch.where(eff_tgt, f[tb, sel], 0.0).sum()
+
+    def step(it, carry):
+        """One subgradient iteration: decode, (on cadence) repair into a
+        feasible incumbent, fixed-theta Polyak step."""
+        lam, best_sel, best_obj, best_feas, best_lb, last_sel, stale = carry
+        sel, lb = decode(lam)
+        best_lb = torch.maximum(best_lb, lb)
+        cnt = usage_of(sel)
+        # Subgradient of the dualised <=1 rows over rows in play: used
+        # rows push prices up, slack rows that still carry a price decay
+        # back toward 0.
+        g = torch.where((cnt > 0) | (lam > 0), cnt - 1.0, 0.0)
+        feas = ~(cnt > 1.5).any()
+        if it % repair_cadence == 0 and sync.flag(~feas):
+            sel_c, feas_c = repair(sel, lam)
+        else:
+            sel_c, feas_c = sel, feas
+        obj = torch.where(feas_c, obj_of(sel_c), INF)
+        better = feas_c & ((obj < best_obj - 1e-6) | ~best_feas)
+        # Patience resets only on a MATERIAL improvement (>= 0.01 % of
+        # the pre-update incumbent).
+        material = feas_c & ((obj < best_obj
+                              - 1e-4 * (1.0 + best_obj.abs()))
+                             | ~best_feas)
+        best_sel = torch.where(better, sel_c, best_sel)
+        best_obj = torch.where(better, obj, best_obj)
+        best_feas = best_feas | feas_c
+        same = (sel == last_sel).all()
+        stale = torch.where(material, 0, stale + 1)
+        stale = torch.where(feas & same, stale + 3, stale)
+        gnorm2 = torch.clamp(torch.dot(g, g), min=1e-6)
+        gap_est = torch.where(
+            best_feas,
+            torch.minimum(torch.clamp(best_obj - lb, min=1e-3),
+                          1.0 + 0.25 * best_obj.abs()),
+            1.0)
+        lam = torch.clamp(lam + theta * gap_est / gnorm2 * g, min=0.0)
+        return lam, best_sel, best_obj, best_feas, best_lb, sel, stale
+
+    def go_on(carry):
+        _, _, best_obj, best_feas, best_lb, _, stale = carry
+        gap = best_obj - best_lb
+        # Convergence is judged against the GLOBAL objective (exact part
+        # + this subproblem).  The patience exit only fires once the
+        # certified gap is inside the 0.1 % contract.
+        scale = 1.0 + (obj_offset + best_obj).abs()
+        converged = best_feas & (gap <= 2e-4 * scale)
+        patience_out = (best_feas & (stale >= patience)
+                        & (gap <= 1e-3 * scale))
+        return ~converged & ~patience_out
+
+    # Seed a feasible incumbent by repairing the warm-started decode.
+    sel_seed, lb_seed = decode(lam_init)
+    sel_seed, feas_seed = repair(sel_seed, lam_init)
+    obj_seed = torch.where(feas_seed, obj_of(sel_seed), INF)
+    carry = (lam_init, sel_seed, obj_seed, feas_seed, lb_seed, sel_seed,
+             torch.zeros((), dtype=torch.int64, device=dev))
+    it = 0
+    while it < iters and sync.flag(go_on(carry)):
+        carry = step(it, carry)
+        it += 1
+    lam, best_sel, best_obj, best_feas, best_lb, _, _ = carry
+
+    if with_clusters:
+        labels, n_clusters = cluster(state, shapes)
+    else:
+        labels = torch.zeros((T,), dtype=torch.int32, device=dev)
+        n_clusters = torch.full((), -1, dtype=torch.int32, device=dev)
+    return SelectionResult(sel=best_sel.int(), feasible=best_feas,
+                           obj=best_obj, bound=best_lb, labels=labels,
+                           n_clusters=n_clusters, lam=lam)
 
 
 # ----------------------------------------------------------------------
@@ -691,27 +950,33 @@ def _selection_feasible(state: TrackerState, shapes: TrackerShapes, sel):
 
 
 def select(state: TrackerState, shapes: TrackerShapes,
-           params: TrackerParams, method: str = 'lagrangian',
+           params: TrackerParams, method: str = 'ipm',
            fast_path: bool = True, compute_clusters: bool = True,
            **kw) -> SelectionResult:
-    """Global hypothesis selection.  ``'lagrangian'`` is the tiered
-    hybrid; ``'greedy'`` is the per-target independent best with its
-    feasibility reported honestly."""
-    if method in ('ipm', 'lagrangian_pure'):
-        raise NotImplementedError(f"select: method {method!r} is not "
-                                  f"ported yet")
-    if method not in ('lagrangian', 'greedy'):
+    """Global hypothesis selection.  ``'ipm'`` (the default, as in the
+    JAX package) is the dense interior-point solve with truncated
+    branch-and-bound, ``'lagrangian'`` the tiered hybrid (what the
+    benchmark and production run), ``'lagrangian_pure'`` the
+    gather/scatter Lagrangian on the whole forest, ``'greedy'`` the
+    per-target independent best with its feasibility reported honestly.
+    With ``fast_path`` no solver runs when the independent optima are
+    conflict-free (they are then the global optimum)."""
+    solver = {'ipm': select_ipm, 'lagrangian': select_hybrid,
+              'lagrangian_pure': select_lagrangian}
+    if method not in solver and method != 'greedy':
         raise ValueError(f"unknown selection method {method!r}")
-    if not fast_path and method == 'lagrangian':
-        return select_hybrid(state, shapes, params, **kw)
+    if not fast_path and method != 'greedy':
+        return solver[method](state, shapes, params, **kw)
 
     sel0, obj0, feas0 = _independent_best(state, shapes, params)
     T = state.tgt_mask.shape[0]
     dev = state.tgt_mask.device
     if compute_clusters:
         labels, n_clusters = cluster(state, shapes)
-        kw = dict(kw, labels_in=(labels, n_clusters))
+        if method == 'lagrangian':
+            kw = dict(kw, labels_in=(labels, n_clusters))
     else:
+        # cluster labels are observability, not needed for selection
         labels = torch.zeros((T,), dtype=torch.int32, device=dev)
         n_clusters = torch.full((), -1, dtype=torch.int32, device=dev)
     fast = SelectionResult(sel=sel0.int(), feasible=feas0, obj=obj0,
@@ -721,4 +986,7 @@ def select(state: TrackerState, shapes: TrackerShapes,
         return fast
     if sync.flag(feas0):
         return fast._replace(feasible=torch.ones_like(feas0))
-    return select_hybrid(state, shapes, params, **kw)
+    res = solver[method](state, shapes, params, **kw)
+    if method != 'lagrangian':
+        res = res._replace(labels=labels, n_clusters=n_clusters)
+    return res

@@ -65,7 +65,7 @@ class StepOutputs(NamedTuple):
 
 def scan_step(state: TrackerState, init_state, scan: Scan,
               ais: Optional[AisBatch], shapes: TrackerShapes,
-              params: TrackerParams, method: str = 'lagrangian',
+              params: TrackerParams, method: str = 'ipm',
               use_ais: bool = True, ais_initialization: bool = True,
               prune_similar: bool = False, compute_clusters: bool = True,
               dynamic_window: bool = False,
@@ -238,20 +238,25 @@ def _to_device(host: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def outputs_to_host(out: StepOutputs) -> StepOutputs:
-    """All step outputs (of one scan, or stacked over a chunk of scans)
-    copied to the host in ONE transfer: the fields' bytes are packed into
-    one uint8 tensor, fetched, and split into numpy arrays of the
-    original dtypes and shapes."""
-    parts = [t.reshape(-1).view(torch.uint8) for t in out]
+def tensors_to_host(tensors) -> list:
+    """Device tensors (f32, i32 or bool) copied to the host in ONE
+    transfer: their bytes are packed into one uint8 tensor, fetched, and
+    split into numpy arrays of the original dtypes and shapes."""
+    parts = [t.reshape(-1).view(torch.uint8) for t in tensors]
     host = sync.fetch(torch.cat(parts)).numpy()
     fields, o = [], 0
-    for t, p in zip(out, parts):
+    for t, p in zip(tensors, parts):
         n = p.numel()
         fields.append(host[o:o + n].view(_NP_DTYPE[t.dtype])
                       .reshape(tuple(t.shape)))
         o += n
-    return StepOutputs(*fields)
+    return fields
+
+
+def outputs_to_host(out: StepOutputs) -> StepOutputs:
+    """All step outputs (of one scan, or stacked over a chunk of scans)
+    as numpy, after one transfer."""
+    return StepOutputs(*tensors_to_host(out))
 
 
 @dataclasses.dataclass
@@ -296,9 +301,12 @@ class Tracker:
             tracker.add_measurement_list(t, z)   # z: [n, 2] numpy
         tracks = tracker.get_tracks()
 
-    ``method`` defaults to ``'lagrangian'`` (the tiered hybrid, what the
-    benchmark and production run); the JAX Tracker's default ``'ipm'``
-    is not ported.  ``use_ais`` (default on, as in the JAX class) runs
+    ``method`` defaults to ``'ipm'``, as in the JAX class: the dense
+    interior-point solve with truncated branch-and-bound, a cross-check
+    solver of thousands of small device operations per conflicted scan.
+    The benchmark and production run ``method='lagrangian'`` (the tiered
+    hybrid); ``'lagrangian_pure'`` and ``'greedy'`` are the other two
+    (core/select.py).  ``use_ais`` (default on, as in the JAX class) runs
     grow's AIS branch every scan, on an empty batch when a scan brings
     no ``ais_messages``; ``ais_initialization`` lets unclaimed messages
     seed preliminary tracks.  ``prune_similar`` merges near-identical
@@ -315,7 +323,7 @@ class Tracker:
 
     def __init__(self, shapes: TrackerShapes = TrackerShapes(),
                  params: TrackerParams = TrackerParams(),
-                 method: str = 'lagrangian', use_ais: bool = True,
+                 method: str = 'ipm', use_ais: bool = True,
                  ais_initialization: bool = True,
                  pipeline_outputs: bool = False,
                  prune_similar: bool = False,

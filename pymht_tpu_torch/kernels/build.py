@@ -1,12 +1,14 @@
-"""Build the port's CUDA C++ kernels at first use.
+"""Build the port's native sources at first use.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, which is loaded with
-``ctypes``.  Libraries land in ``build/pymht_tpu_torch/`` at the root of
-the checkout (listed in ``.gitignore``), named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused.  nvcc's ``-Xptxas -v`` report (registers, shared memory, spills)
-is kept beside each library as ``.log``.
+``ctypes``; each ``csrc/<name>.cpp`` is host C++ (the exact solvers of
+``pymht_tpu_torch.native``) and is compiled by the host's C++ compiler.
+Libraries land in ``build/pymht_tpu_torch/`` at the root of the checkout
+(listed in ``.gitignore``), named by a hash of the source and the flags,
+so an edited source is rebuilt and an unchanged one is reused.  The
+compiler's report (for nvcc ``-Xptxas -v``: registers, shared memory,
+spills) is kept beside each library as ``.log``.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pymht_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -40,34 +43,61 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
 
 
+def host_compiler() -> list:
+    """The command that compiles host C++: g++ (or another C++ compiler
+    on PATH), else nvcc driving its own host compiler."""
+    for cxx in ("g++", "c++", "clang++"):
+        found = shutil.which(cxx)
+        if found:
+            return [found, *HOST_FLAGS]
+    return [find_nvcc(), "-O3", "-std=c++17", "-shared", "-Xcompiler",
+            "-fPIC"]
+
+
+def _source(name: str) -> Path:
+    for ext in (".cu", ".cpp"):
+        if (CSRC / (name + ext)).is_file():
+            return CSRC / (name + ext)
+    raise FileNotFoundError(f"no source for {name!r} under {CSRC}")
+
+
+def _flags(src: Path) -> tuple:
+    return NVCC_FLAGS if src.suffix == ".cu" else HOST_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = _source(name)
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(_flags(src)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
-    Raises RuntimeError with nvcc's stderr when the build fails."""
+    """Compile ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.cpp`` (the host
+    compiler) unless an up-to-date library exists.  Raises RuntimeError
+    with the compiler's stderr when the build fails."""
     so = library_path(name)
     if so.is_file():
         return so
+    src = _source(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = ([find_nvcc(), *NVCC_FLAGS] if src.suffix == ".cu"
+           else host_compiler()) + ["-o", tmp, str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed with code {res.returncode} "
-                           f"building {name}.cu:\n{res.stderr}")
+        raise RuntimeError(f"{Path(cmd[0]).name} failed with code "
+                           f"{res.returncode} building {src.name}:\n"
+                           f"{res.stderr}")
     so.with_suffix(".log").write_text(res.stdout + res.stderr)
     os.replace(tmp, so)   # atomic: a concurrent build sees no torn file
     return so
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>``; cached per process."""
     lib = _loaded.get(name)
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(str(build(name)))

@@ -4,11 +4,13 @@
     python -m pymht_tpu_torch.profile_step --ais  # the AIS-fusion scene
     python -m pymht_tpu_torch.profile_step --ais --pregate 64
     python -m pymht_tpu_torch.profile_step --prune-similar --dynamic-window
+    python -m pymht_tpu_torch.profile_step --method ipm
 
 Runs the radar-only bench scene (``Tracker(use_ais=False)``) or, with
 ``--ais``, the AIS-fusion scene (``Tracker(use_ais=True)``, A=32, G=2;
 utils/scenes.py) through the port's Tracker on the card; ``--pregate Km``
-sets ``radar_cand_width``; ``--prune-similar`` and ``--dynamic-window``
+sets ``radar_cand_width``; ``--method`` names the selection solver
+(default ``'lagrangian'``, the production hybrid); ``--prune-similar`` and ``--dynamic-window``
 turn on ``scan_step``'s arguments of those names (the stepped Tracker
 hands the step only the first; the second is streaming's, given to the
 step here so that its device work can be read beside the rest).  Over the
@@ -82,6 +84,10 @@ def main(argv=None):
                     help="the AIS-fusion scene through Tracker(use_ais=True)")
     ap.add_argument("--pregate", type=int, default=0, metavar="Km",
                     help="radar_cand_width (0: no spatial pre-gate)")
+    ap.add_argument("--method", default="lagrangian",
+                    choices=("lagrangian", "ipm", "lagrangian_pure",
+                             "greedy"),
+                    help="the selection solver (default: lagrangian)")
     ap.add_argument("--prune-similar", action="store_true",
                     help="merge similar sibling hypotheses after grow")
     ap.add_argument("--dynamic-window", action="store_true",
@@ -102,8 +108,8 @@ def main(argv=None):
         return groups[i] if i < len(groups) else []
 
     def new_tracker():
-        tr = Tracker(shapes, params, use_ais=args.ais, device="cuda",
-                     prune_similar=args.prune_similar)
+        tr = Tracker(shapes, params, method=args.method, use_ais=args.ais,
+                     device="cuda", prune_similar=args.prune_similar)
         tr.pre_initialize(scans[0].time - params.radar_period, seeds,
                           mmsi=mmsi)
         if args.dynamic_window:
@@ -146,6 +152,7 @@ def main(argv=None):
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scene": "ais" if args.ais else "radar",
+        "method": args.method,
         "radar_cand_width": args.pregate,
         "prune_similar": args.prune_similar,
         "dynamic_window": args.dynamic_window,

@@ -72,3 +72,67 @@ def bench_scene_ais(n_targets: int = 100, n_scans: int = 12,
     seeds = [F_inv @ t.state for t in targets]
     return (shapes, params, scans, ais_groups, sim_list, seeds,
             [t.mmsi for t in targets])
+
+
+def demo_scene(n_targets: int = 6, n_scans: int = 20, seed: int = 42,
+               clutter: float = 2e-6):
+    """examples/demo_tracking.py's scene at its defaults: T=32, L=32,
+    M=64, A=8, W=7, N=5; six seeded targets with transponders in a 1 km
+    radar, 20 scans, no pre-initialisation (the initiator starts every
+    track).  What the demo runs ``Tracker(method='ipm', use_ais=True)``
+    on.
+
+    Returns (shapes, params, scans, ais_groups, sim_list):
+    ``ais_groups[i]`` are the messages handed over with ``scans[i]``."""
+    period, radar_range = 2.5, 1000.0
+    shapes = TrackerShapes(max_targets=32, max_leaves=32, max_meas=64,
+                           max_ais=8, window=7, max_prelim=32,
+                           max_initiators=64)
+    params = TrackerParams(radar_period=period, P_d=0.9, lambda_phi=clutter,
+                           lambda_nu=1e-5, N=5, radar_range=radar_range)
+    rng = np.random.default_rng(seed)
+    targets = sim.generate_initial_targets(rng, n_targets, (0., 0.),
+                                           radar_range * 0.7, 0.9, 0.1,
+                                           assign_mmsi=True)
+    sim_list = sim.simulate_targets(rng, targets, sim_time=n_scans * period,
+                                    dt=period)
+    scans = sim.simulate_scans(rng, sim_list, period, sigma_R=2.5,
+                               lambda_phi=clutter, radar_range=radar_range,
+                               p0=(0., 0.))
+    groups = sim.simulate_ais(rng, sim_list, period, sim_list[0][0].time)
+    by_scan = {}
+    for g in groups:
+        tmax = max(m.time for m in g)
+        for s in scans:
+            if s.time > tmax:
+                by_scan.setdefault(s.time, []).extend(g)
+                break
+    ais_groups = [[m for m in by_scan.get(s.time, [])
+                   if s.time - period < m.time < s.time] for s in scans]
+    return shapes, params, scans, ais_groups, sim_list
+
+
+def xcheck_scene(n_targets: int = 10, n_scans: int = 16, seed: int = 7,
+                 clutter: float = 2e-6):
+    """eval_configs.py's ``2_ipm_xcheck`` scene (its ``build_scene`` at
+    the ``small`` shapes): T=16, L=32, M=64, A=4, W=7, N=5; ten seeded
+    targets in clutter at P_d = 0.9, radar only, no pre-initialisation.
+
+    Returns (shapes, params, scans, sim_list)."""
+    period, radar_range, P_d = 2.5, 1000.0, 0.9
+    shapes = TrackerShapes(max_targets=16, max_leaves=32, max_meas=64,
+                           max_ais=4, window=7, max_prelim=16,
+                           max_initiators=64)
+    params = TrackerParams(radar_period=period, P_d=P_d, lambda_phi=clutter,
+                           lambda_nu=1e-5, N=5, radar_range=radar_range)
+    rng = np.random.default_rng(seed)
+    targets = sim.generate_initial_targets(rng, n_targets, (0., 0.),
+                                           radar_range * 0.6, P_d, 0.1,
+                                           assign_mmsi=False)
+    sim_list = sim.simulate_targets(rng, targets, sim_time=n_scans * period,
+                                    dt=period)
+    scans = sim.simulate_scans(rng, sim_list, period, sigma_R=2.5,
+                               lambda_phi=clutter, radar_range=radar_range,
+                               p0=(0., 0.), P_d=P_d, local_clutter=True,
+                               global_clutter=True)
+    return shapes, params, scans, sim_list

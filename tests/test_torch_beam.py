@@ -145,7 +145,8 @@ def test_tracking_continues_alike_after_degrade():
                   window=7, max_prelim=8, max_initiators=16)
     jt = JTracker(JShapes(**shapes), jparams, method='lagrangian',
                   use_ais=False)
-    tt = Tracker(TrackerShapes(**shapes), params, use_ais=False, device='cpu')
+    tt = Tracker(TrackerShapes(**shapes), params, method='lagrangian',
+                 use_ais=False, device='cpu')
     for tr in (jt, tt):
         tr.pre_initialize(scans[0].time - params.radar_period, seeds)
     for i, s in enumerate(scans):

@@ -3,7 +3,9 @@ interpreter in which importing jax or pymht_tpu raises runs the port's
 Tracker for a few scans, radar only and then with AIS fusion, AIS
 initiation and the spatial pre-gate, and then streams a run with
 ``prune_similar`` and the on-device window, degrades the beam, checks the
-forest and smooths the tracks."""
+forest and smooths the tracks; then runs the default ``'ipm'`` and
+``'lagrangian_pure'``, both exact oracles, a checkpoint round trip and
+the XML export."""
 import os
 import subprocess
 import sys
@@ -32,7 +34,7 @@ targets = sim.generate_initial_targets(rng, 3, (0.0, 0.0), 200.0, 0.9, 0.1)
 sim_list = sim.simulate_targets(rng, targets, sim_time=10.0, dt=2.5)
 scans = sim.simulate_scans(rng, sim_list, 2.5, sigma_R=2.5, lambda_phi=1e-5,
                            radar_range=500.0, p0=(0.0, 0.0))
-tr = Tracker(shapes, params, device='cpu')
+tr = Tracker(shapes, params, method='lagrangian', device='cpu')
 for s in scans:
     tr.add_measurement_list(s.time, s.measurements)
 assert len(tr.get_tracks()) >= 1
@@ -49,7 +51,7 @@ scans = sim.simulate_scans(rng, sim_list, 2.5, sigma_R=2.5, lambda_phi=1e-5,
 fine = sim.simulate_targets(rng, targets, sim_time=12.5, dt=0.5)
 stream = AisMessageStream(sim.simulate_ais(rng, fine, 2.5, init_time=0.0))
 tr = Tracker(dataclasses.replace(shapes, max_ais=4, radar_cand_width=6),
-             params, device='cpu')
+             params, method='lagrangian', device='cpu')
 assert tr.use_ais and tr.ais_initialization
 F_inv = np.eye(4)
 F_inv[0, 2] = F_inv[1, 3] = -2.5
@@ -66,8 +68,9 @@ assert any(any(t['confirmed_mmsi'] + t['window_mmsi'])
            for t in tr.get_tracks().values())
 # the streaming slice: stream, prune_similar, the on-device window,
 # degrade, check_integrity, the runtime log and the smoother
-tr = Tracker(dataclasses.replace(shapes, max_ais=4), params, device='cpu',
-             prune_similar=True, degrade_on_overload=True)
+tr = Tracker(dataclasses.replace(shapes, max_ais=4), params,
+             method='lagrangian', device='cpu', prune_similar=True,
+             degrade_on_overload=True)
 tr.pre_initialize(scans[0].time - 2.5, [F_inv @ t.state for t in targets[:2]],
                   mmsi=[t.mmsi for t in targets[:2]])
 stream = AisMessageStream(sim.simulate_ais(rng, fine, 2.5, init_time=0.0))
@@ -83,6 +86,40 @@ assert len(tr.runtime_log) == len(scans) and tr.get_runtime_average()['Total'] >
 smooth = tr.get_smooth_tracks(em_iters=2, em_mode='full')
 assert len(smooth) >= 2 and any(ok for _, _, ok in smooth.values())
 assert len(tr.profile_phases(scans[-1].time + 2.5, scans[-1].measurements)) == 6
+# the solver and persistence slice: the default method, the pure
+# Lagrangian, the oracles, checkpoint/resume and the XML export
+import os, tempfile
+import xml.etree.ElementTree as ET
+import torch
+torch.set_num_threads(1)     # thousands of tiny ops: no thread pool
+from pymht_tpu_torch import native
+from pymht_tpu_torch.utils import checkpoint, oracle, xml_io
+for method in ('ipm', 'lagrangian_pure'):
+    tr = Tracker(dataclasses.replace(shapes, max_ais=4), params, device='cpu',
+                 **({} if method == 'ipm' else dict(method=method)))
+    assert tr.method == method
+    tr.pre_initialize(scans[0].time - 2.5, [F_inv @ t.state for t in targets],
+                      mmsi=[t.mmsi for t in targets])
+    for s, g in zip(scans[:4], groups):
+        assert bool(tr.add_measurement_list(s.time, s.measurements,
+                                            ais_messages=g).sel_feasible)
+gap = oracle.selection_gap(tr.state, tr.shapes, tr.params)
+assert gap is not None and gap <= 1e-3, gap
+assert oracle.native_select_oracle(tr.state, tr.shapes, tr.params)[2]
+assert native.solve_lap_jv(np.array([[1.0, 2.0], [0.0, 5.0]]))[1] == 2.0
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save(tr, os.path.join(d, 'ck'))
+    back = checkpoint.load(os.path.join(d, 'ck'), device='cpu')
+    assert back.scan_times == tr.scan_times and back.method == tr.method
+    a = tr.add_measurement_list(scans[4].time, scans[4].measurements, groups[4])
+    b = back.add_measurement_list(scans[4].time, scans[4].measurements,
+                                  groups[4])
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    root = ET.Element(xml_io.SCENARIO)
+    xml_io.store_run(root, tr, smooth=True)
+    xml_io.write_element_to_file(os.path.join(d, 'run.xml'), root)
+    run = ET.parse(os.path.join(d, 'run.xml')).getroot().find(xml_io.RUN)
+    assert len(run.findall(xml_io.TRACK)) >= 2
 loaded = sorted(m for m in sys.modules
                 if (m in ('jax', 'pymht_tpu')
                     or m.startswith(('jax.', 'jaxlib', 'flax', 'pymht_tpu.')))

@@ -136,9 +136,14 @@ def test_selection_gap_vs_exact_oracle(forests):
 
 
 def test_select_refuses_unported_methods(forests):
-    tst = state_from_numpy(_np_fields(forests[0]), "cpu")
+    """Nothing is left unported: 'ipm' and 'lagrangian_pure' run, and
+    only an unknown method is refused."""
+    tst = state_from_numpy(_np_fields(forests[2]), "cpu")
+    want = tsel.select(tst, TSHAPES, TPARAMS, method='lagrangian')
     for method in ("ipm", "lagrangian_pure"):
-        with pytest.raises(NotImplementedError):
-            tsel.select(tst, TSHAPES, TPARAMS, method=method)
+        res = tsel.select(tst, TSHAPES, TPARAMS, method=method)
+        assert bool(res.feasible)
+        assert abs(float(res.obj) - float(want.obj)) \
+            <= 1e-3 * (1.0 + abs(float(want.obj)))
     with pytest.raises(ValueError):
         tsel.select(tst, TSHAPES, TPARAMS, method="simplex")

@@ -273,10 +273,11 @@ def test_select_on_grown_ais_forests_with_scatter_builds(forests, scatter):
     shapes, params = port(AIS_JSHAPES), port(AIS_JPARAMS)
     sel_j = jax.jit(lambda st: jsel.select(st, AIS_JSHAPES, AIS_JPARAMS,
                                            method='lagrangian'))
-    dense = [tsel.select(to_port(j), shapes, params) for j in forests]
+    dense = [tsel.select(to_port(j), shapes, params, method='lagrangian')
+             for j in forests]
     scatter()
     for jst, d in zip(forests, dense):
-        s = tsel.select(to_port(jst), shapes, params)
+        s = tsel.select(to_port(jst), shapes, params, method='lagrangian')
         _assert_results_equal(s, d, exact_floats=True)
         _assert_results_equal(s, jax.device_get(sel_j(jst)),
                               exact_floats=False)

@@ -137,7 +137,8 @@ def test_get_smooth_tracks_matches_jax_tracker(em_iters, em_mode):
                   window=7, max_prelim=8, max_initiators=16)
     jt = JTracker(JShapes(**shapes), jparams, method='lagrangian',
                   use_ais=False)
-    tt = Tracker(TrackerShapes(**shapes), params, use_ais=False, device='cpu')
+    tt = Tracker(TrackerShapes(**shapes), params, method='lagrangian',
+                 use_ais=False, device='cpu')
     for tr in (jt, tt):
         tr.pre_initialize(scans[0].time - params.radar_period, seeds)
         for s in scans:

@@ -3,7 +3,12 @@
 its own copies of the host modules (config, simulator, metrics, helpers,
 containers, ais_io, timing, integrity and the polar model's constants)
 agree with the JAX package's on the same seeded inputs — bit for bit,
-since both are the same numpy arithmetic.
+since both are the same numpy arithmetic.  The copies of the exact
+solvers' C++ source and of the XML writer differ from their originals
+only where stated (utils/oracle.py, utils/checkpoint.py and
+utils/xml_io.py are held to the JAX package's in
+tests/test_torch_oracle.py, test_torch_checkpoint.py and
+test_torch_xml_io.py).
 """
 import dataclasses
 import pathlib
@@ -46,6 +51,47 @@ DROPPED_FIELDS = {"TrackerShapes": {"pregate_approx"}, "TrackerParams": set()}
 def test_no_import_of_jax_or_the_jax_package(path):
     hits = FORBIDDEN.findall(path.read_text())
     assert not hits, f"{path}: {hits}"
+
+
+def test_port_files_cover_the_solver_and_persistence_modules():
+    names = {str(p.relative_to(REPO_ROOT)) for p in PORT_FILES}
+    for want in ("ops/lp.py", "utils/oracle.py", "utils/checkpoint.py",
+                 "utils/xml_io.py", "native/__init__.py"):
+        assert f"pymht_tpu_torch/{want}" in names, want
+
+
+def _code_lines(path, comment):
+    """The lines of a source file below its leading comment block."""
+    lines = path.read_text().splitlines()
+    start = next(i for i, l in enumerate(lines)
+                 if l.strip() and not l.startswith(comment))
+    return lines[start:]
+
+
+def test_exact_solver_source_is_the_jax_packages():
+    """csrc/exact_solver.cpp: the JAX package's native/exact_solver.cpp
+    line for line below the header comment."""
+    ours = _code_lines(REPO_ROOT / "pymht_tpu_torch/csrc/exact_solver.cpp",
+                       "//")
+    theirs = _code_lines(REPO_ROOT / "pymht_tpu/native/exact_solver.cpp",
+                         "//")
+    assert ours == theirs and len(ours) > 100
+
+
+def test_xml_io_source_differs_only_in_the_model_matrices():
+    """utils/xml_io.py: the JAX package's file but for the docstring's
+    head and the five lines of ``_sinv_sequence`` that build the model
+    matrices (numpy on the host from the port's torch constructors)."""
+    import difflib
+    ours = (REPO_ROOT / "pymht_tpu_torch/utils/xml_io.py").read_text()
+    theirs = (REPO_ROOT / "pymht_tpu/utils/xml_io.py").read_text()
+    changed = [l for l in difflib.unified_diff(
+        theirs.splitlines(), ours.splitlines(), lineterm="", n=0)
+        if l[:1] in "+-" and l[:3] not in ("+++", "---")]
+    assert 0 < len(changed) <= 16, changed
+    assert all("pv." in l or "XML" in l or "counterpart" in l
+               or "vocabulary" in l or "standard library" in l
+               for l in changed), changed
 
 
 def test_scan_finds_a_forbidden_import():
@@ -326,7 +372,8 @@ def _grown_tracker():
     params = tconfig.TrackerParams(radar_period=2.5, P_d=0.9,
                                    lambda_phi=1e-5, lambda_nu=1e-6, N=3,
                                    radar_range=1e4)
-    tr = Tracker(shapes, params, use_ais=False, device='cpu')
+    tr = Tracker(shapes, params, method='lagrangian', use_ais=False,
+                 device='cpu')
     x0 = [np.array([0.0, 0.0, 5.0, 0.0]), np.array([0.0, 6.0, 5.0, 0.0]),
           np.array([300.0, 0.0, 0.0, -4.0])]
     tr.pre_initialize(0.0, x0)

@@ -73,7 +73,8 @@ SCENES = {"radar": (radar_scene, 4), "ais": (ais_scene, 4)}
 
 
 def new_tracker(sc, **kw):
-    tr = Tracker(sc["shapes"], sc["params"], device='cpu', **sc["kw"], **kw)
+    tr = Tracker(sc["shapes"], sc["params"], method='lagrangian',
+                 device='cpu', **sc["kw"], **kw)
     tr.pre_initialize(sc["t_init"], sc["seeds"], mmsi=sc["mmsi"])
     return tr
 
@@ -266,7 +267,7 @@ def window_pair(degrade_on_overload=False, max_target_time=0.2):
               degrade_on_overload=degrade_on_overload)
     jt = JTracker(JShapes(**shapes), JParams(**params), **kw)
     tt = Tracker(TrackerShapes(**shapes), TrackerParams(**params),
-                 device='cpu', **kw)
+                 method='lagrangian', device='cpu', **kw)
     x0 = [np.array([0.0, 0.0, 1.0, 0.0]), np.array([50.0, 50.0, -1.0, 0.0])]
     for tr in (jt, tt):
         tr.pre_initialize(0.0, x0)

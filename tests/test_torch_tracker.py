@@ -66,7 +66,8 @@ def cluttered_scene():
 def test_tracker_matches_jax(scene):
     params, jparams, scans, seeds = scene()
     jt = JTracker(JSHAPES, jparams, method='lagrangian', use_ais=False)
-    tt = Tracker(SHAPES, params, use_ais=False, device='cpu')
+    tt = Tracker(SHAPES, params, method='lagrangian', use_ais=False,
+                 device='cpu')
     if seeds is not None:
         jt.pre_initialize(scans[0].time - params.radar_period, seeds)
         tt.pre_initialize(scans[0].time - params.radar_period, seeds)
@@ -95,9 +96,10 @@ def test_tracker_matches_jax(scene):
 
 def test_pipelined_outputs_match_stepped():
     params, _, scans, seeds = cluttered_scene()
-    a = Tracker(SHAPES, params, use_ais=False, device='cpu')
-    b = Tracker(SHAPES, params, use_ais=False, pipeline_outputs=True,
+    a = Tracker(SHAPES, params, method='lagrangian', use_ais=False,
                 device='cpu')
+    b = Tracker(SHAPES, params, method='lagrangian', use_ais=False,
+                pipeline_outputs=True, device='cpu')
     for tr in (a, b):
         tr.pre_initialize(scans[0].time - params.radar_period, seeds)
         for s in scans:
@@ -113,7 +115,8 @@ def test_scan_many_matches_stepping():
     """scan_many (a loop of scan_step over stacked scans) gives the
     stepped Tracker's selected labels."""
     params, _, scans, seeds = cluttered_scene()
-    tr = Tracker(SHAPES, params, use_ais=False, device='cpu')
+    tr = Tracker(SHAPES, params, method='lagrangian', use_ais=False,
+                 device='cpu')
     tr.pre_initialize(scans[0].time - params.radar_period, seeds)
     st0, ist0 = tr.state, tr.init_state
     M = SHAPES.max_meas
@@ -135,25 +138,43 @@ def test_scan_many_matches_stepping():
 
 
 def test_tracker_refuses_unported_options():
-    """What is still refused: the selection methods that are not ported
-    and a step without its AisBatch.  The options and entry points of the
-    streaming and degradation slice are accepted."""
+    """Nothing of Tracker's surface raises NotImplementedError any more:
+    every selection method runs, the options and entry points of the
+    streaming and degradation slice are accepted.  What is refused: an
+    unknown method (ValueError) and a step without its AisBatch."""
     params = TrackerParams()
     tr = Tracker(SHAPES, params, device='cpu', prune_similar=True,
                  dynamic_window=True, degrade_on_overload=True)
     assert tr.use_ais and tr.ais_initialization     # the JAX class's defaults
+    assert tr.method == 'ipm'
     assert tr.stream([]) == [] and tr.get_smooth_tracks() == {}
     assert tr.degrade() and tr.shapes.max_leaves == SHAPES.max_leaves // 2
     assert tr.state.leaf_mask.shape[1] == SHAPES.max_leaves // 2
     tr.check_integrity()
-    _, _, scans, _ = cluttered_scene()
-    for method in ("ipm", "lagrangian_pure"):
-        with pytest.raises(NotImplementedError):
-            Tracker(SHAPES, params, method=method, device='cpu') \
-                .add_measurement_list(scans[0].time, scans[0].measurements)
+    cparams, _, scans, seeds = cluttered_scene()
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)      # thousands of tiny ops: no thread pool
+    try:
+        for method in ("ipm", "lagrangian_pure", "lagrangian", "greedy"):
+            t2 = Tracker(SHAPES, cparams, method=method, device='cpu')
+            t2.pre_initialize(scans[0].time - cparams.radar_period, seeds)
+            for s in scans[:3]:
+                out = t2.add_measurement_list(s.time, s.measurements)
+            assert out.track_mask.sum() >= len(seeds)
+            assert method == 'greedy' or bool(out.sel_feasible)
+    finally:
+        torch.set_num_threads(n_threads)
+    with pytest.raises(ValueError, match="unknown selection method"):
+        Tracker(SHAPES, params, method="simplex", device='cpu') \
+            .add_measurement_list(scans[0].time, scans[0].measurements)
     with pytest.raises(TypeError, match="AisBatch"):
         ttracker.scan_step(tr.state, tr.init_state, None, None, SHAPES,
                            params)
+    import pathlib
+    port = pathlib.Path(ttracker.__file__).resolve().parents[1]
+    hits = [str(f) for f in port.rglob("*.py")
+            if "NotImplementedError" in f.read_text()]
+    assert not hits, hits
 
 
 def test_tracker_defaults_to_the_card(monkeypatch):
@@ -170,7 +191,7 @@ def test_tracker_runs_on_the_cpu_when_asked():
     """Also the default ``use_ais=True`` with no messages: the AIS branch
     runs on an empty batch."""
     params, _, scans, seeds = cluttered_scene()
-    tr = Tracker(SHAPES, params, device='cpu')
+    tr = Tracker(SHAPES, params, method='lagrangian', device='cpu')
     assert tr.device == torch.device('cpu')
     tr.pre_initialize(scans[0].time - params.radar_period, seeds)
     out = tr.add_measurement_list(scans[0].time, scans[0].measurements)

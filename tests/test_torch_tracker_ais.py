@@ -75,8 +75,8 @@ def test_tracker_ais_matches_jax(name):
     jshapes = dataclasses.replace(SHAPES, **shape_kw)
     jt = JTracker(jshapes, PARAMS, method='lagrangian', use_ais=True,
                   ais_initialization=False)
-    tt = Tracker(port(jshapes), port(PARAMS), use_ais=True,
-                 ais_initialization=False, device='cpu')
+    tt = Tracker(port(jshapes), port(PARAMS), method='lagrangian',
+                 use_ais=True, ais_initialization=False, device='cpu')
     jt.pre_initialize(0.0, x0, mmsi=mmsi)
     tt.pre_initialize(0.0, x0, mmsi=mmsi)
     fused = pure = 0
@@ -174,7 +174,7 @@ def test_scan_many_with_ais_matches_stepping():
     batches gives the stepped Tracker's outputs."""
     x0, mmsi, scans = _ais_scenario(n_scans=5)
     shapes, params = port(SHAPES), port(PARAMS)
-    tr = Tracker(shapes, params, device='cpu')
+    tr = Tracker(shapes, params, method='lagrangian', device='cpu')
     tr.pre_initialize(0.0, x0, mmsi=mmsi)
     st0, ist0 = tr.state, tr.init_state
     packed = [tr._unpack_inputs(tr._pack_inputs(t - tr.t0, z,
