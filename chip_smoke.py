@@ -80,7 +80,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     on both: states bitwise equal; the same file loaded on the CPU
     against the CPU stream;
 16. xml: ``store_run(smooth=True)`` of the demo run, written and parsed
-    back.
+    back;
+17. mc: eval_configs.py's Monte-Carlo configuration (T=8, L=16, M=28,
+    W=6, 4 targets, 10 scans, an 800 m radar, sigma_Q 0.05) at BASELINE
+    config 4's B=256 scenarios (``utils/scenes.mc_scene``, drawn on a CPU
+    generator and moved to the card) through ``parallel.montecarlo.
+    run_batch``: K1 launched once per batched scan (its per-target entry
+    point, one "target" per scenario), batched grow without a host sync;
+    the card against the port's batched run on the CPU and against
+    scenarios 0 and 255 stepped alone on the card through ``scan_step``
+    (track masks and integer state equal, floats within STATE_RTOL /
+    STATE_ATOL); ``tracks_alive`` / ``expected`` / ``median_err`` as
+    eval_configs.py prints them; K1 against its twin at the batched shape
+    (seeded, and on two real scans' tensors), with its times and bound;
+    ms per batched scan, scenario-scans per second and host reads;
+18. mc-bench: B=32 scenarios at bench.py's shapes and parameters (T=128,
+    L=32, M=512, W=7, 100 targets, a 2 km radar, 13 scans;
+    ``scenes.mc_bench_scene``) the same way, against scenarios 0 and 31
+    stepped alone on the card (the CPU is too slow at this size), with
+    the run's peak device memory.
 
 The line before the last is one JSON object describing each kernel of
 the path; the last line is ``{"ok": true, "device": {...}}``.  There is
@@ -303,13 +321,15 @@ def k1_bound(N, M):
                 bound_by="bytes" if t_bytes >= t_flops else "operations")
 
 
-def k1_sub_bound(T, L, Km, M):
-    """The same for the per-target entry point: it reads the leaves, dt
+def k1_sub_bound(T, L, Km, M, n_dt=1):
+    """The same for the per-target entry point: it reads the leaves,
+    ``n_dt`` time steps (one, or one per target for a batch of scenarios)
     and the per-target z_sub, zmask_sub and zidx (not the scan's z and
     zmask), and writes the [N, 1 + Km] plane, the per-leaf outputs and
     the used mask of the real M measurements."""
     N = T * L
-    bytes_in = N * (16 + 64 + 4 + 4 + 1) + 4 + T * Km * (8 + 1 + 4)
+    bytes_in = (N * (16 + 64 + 4 + 4 + 1) + 4 * n_dt
+                + T * Km * (8 + 1 + 4))
     bytes_out = N * (4 * (Km + 1) + 16 + 64 + 32 + 64 + 4) + M
     t_bytes = 1e3 * (bytes_in + bytes_out) / HBM_BYTES_PER_S
     t_flops = 1e3 * (15.0 * N * Km + 150.0 * N) / F32_FLOP_PER_S
@@ -1469,6 +1489,214 @@ def xml_phase(tracker):
           f"bytes) and parsed back: {len(tracks)} tracks with their lengths, "
           f"{n_smooth} with smoothed states, a runtime element")
 
+# ----------------------------------------------------------------------
+# scenario batches: the Monte-Carlo runner
+# ----------------------------------------------------------------------
+
+MC_BATCH = 256               # BASELINE config 4
+MC_BENCH_BATCH = 32
+
+
+def k1_batch_inputs(seed, B, TL, M, device):
+    """K1's inputs as grow hands them over for a batch of B scenarios: TL
+    leaves per scenario against that scenario's own M measurements (half
+    of them where a leaf will be) at its own time step; one "target" per
+    scenario.  Returns (the seven tensors, dt [B], the per-target
+    arguments)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 100, (B, TL, 4)).astype(np.float32)
+    P = (np.diag([6.25, 6.25, 1.875, 1.875])
+         + rng.uniform(0, 1, (B, TL, 1, 1)) * np.eye(4)).astype(np.float32)
+    cnllr = rng.normal(0, 1, (B, TL)).astype(np.float32)
+    pd = np.full((B, TL), 0.9, np.float32)
+    mask = rng.uniform(size=(B, TL)) < 0.9
+    dt = rng.uniform(2.0, 3.0, B).astype(np.float32)
+    z = rng.normal(0, 100, (B, M, 2)).astype(np.float32)
+    k = min(M, TL) // 2
+    z[:, :k] = (x[:, :k, :2] + dt[:, None, None] * x[:, :k, 2:]
+                + rng.normal(0, 2.0, (B, k, 2)))
+    zmask = rng.uniform(size=(B, M)) < 0.95
+
+    def dev(a, shape):
+        return torch.from_numpy(np.ascontiguousarray(a).reshape(shape)) \
+            .to(device)
+
+    inp = [dev(x, (-1, 4)), dev(P, (-1, 4, 4)), dev(cnllr, (-1,)),
+           dev(pd, (-1,)), dev(mask, (-1,)), dev(z, (-1, 2)),
+           dev(zmask, (-1,))]
+    sub = dict(z_sub=dev(z, (B, M, 2)), zmask_sub=dev(zmask, (B, M)),
+               zidx=dev(np.arange(B * M, dtype=np.int32), (B, M)),
+               leaves_per_target=TL)
+    return inp, dev(dt, (B,)), sub
+
+
+def one_scenario(tree, b):
+    """Scenario ``b`` of a batched state or initiator state."""
+    import dataclasses
+    return tree.replace(**{f.name: getattr(tree, f.name)[b]
+                           for f in dataclasses.fields(tree)})
+
+
+def check_batched_state(a, b, what):
+    """Integer and boolean fields equal, floats within STATE_RTOL /
+    STATE_ATOL (two states as numpy dicts)."""
+    for name, x in a.items():
+        y = b[name]
+        if np.issubdtype(x.dtype, np.floating):
+            check(np.allclose(x, y, rtol=STATE_RTOL, atol=STATE_ATOL),
+                  f"{what}: {name} differs (max |err| "
+                  f"{float(np.abs(x - y).max()):.3g})")
+        else:
+            check(np.array_equal(x, y), f"{what}: {name} differs")
+
+
+def stepped_alone(sc, shapes, params, picks, state_b, xs, ms, what):
+    """Scenarios ``picks`` of the batch stepped alone on the card through
+    ``scan_step`` (the unbatched step, launches not counted), against
+    the batched card run: track masks equal on every scan, states within
+    tolerance, final states field by field."""
+    import torch
+    from pymht_tpu_torch.core.grow import Scan
+    from pymht_tpu_torch.core.state import state_to_numpy
+    from pymht_tpu_torch.core.tracker import scan_step
+    from pymht_tpu_torch.parallel import montecarlo as mc
+    st0, ist0 = mc.initial_states(sc, shapes, params)
+    for b in picks:
+        st, ist = one_scenario(st0, b), one_scenario(ist0, b)
+        for s in range(sc.z.shape[1]):
+            st, ist, out = scan_step(
+                st, ist, Scan(sc.z[b, s], sc.z_mask[b, s], sc.times[s]),
+                None, shapes, params, method="lagrangian", use_ais=False)
+            check(torch.equal(out.track_mask, ms[s, b]),
+                  f"{what}: scenario {b} alone, scan {s}: track masks "
+                  f"differ from the batch's")
+            check(torch.allclose(out.track_x, xs[s, b], rtol=STATE_RTOL,
+                                 atol=STATE_ATOL),
+                  f"{what}: scenario {b} alone, scan {s}: track states "
+                  f"differ from the batch's")
+        check_batched_state(state_to_numpy(st),
+                            state_to_numpy(one_scenario(state_b, b)),
+                            f"{what}: scenario {b} alone, final state")
+    print(f"{what}: scenarios {list(picks)} stepped alone on the card = "
+          f"the batch's on every scan")
+
+
+def mc_quality(sc, xs, ms, what):
+    """eval_configs.py's run_montecarlo numbers."""
+    K = sc.truth.shape[2]
+    msk, x = ms.cpu().numpy(), xs.cpu().numpy()
+    truth = sc.truth.cpu().numpy()
+    errs = [float(np.linalg.norm(x[-1, b, k, :2] - truth[b, -1, k, :2]))
+            for b in range(msk.shape[1]) for k in range(K) if msk[-1, b, k]]
+    out = {"tracks_alive": int(msk[-1, :, :K].sum()),
+           "expected": msk.shape[1] * K,
+           "median_err": round(float(np.median(errs)), 2) if errs else None}
+    print(f"{what}: {json.dumps(out)}")
+    return out
+
+
+def batched_grow_makes_no_host_sync(state_b, scan_b, shapes, params):
+    import torch
+    from pymht_tpu_torch.core.grow import grow
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = grow(state_b, scan_b, None, shapes, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(bool(g.state.leaf_mask.any()), "batched grow under sync debug: "
+          "no leaf")
+
+
+def batched_phase(what, scene, batch, picks, on_cpu):
+    """One batched configuration: the counted card run of ``run_batch``
+    (K1's launches noted), a second card run timed, the checks, and K1
+    against its twin and timed at the batched shape."""
+    import torch
+    from pymht_tpu_torch import sync
+    from pymht_tpu_torch.core.state import state_to_numpy
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.parallel import montecarlo as mc
+    shapes, params, sc_cpu = scene(batch=batch)
+    sc = mc.McScenario(*(a.to("cuda") for a in sc_cpu))
+    B, S = sc.z.shape[:2]
+    T, L, M = shapes.max_targets, shapes.max_leaves, shapes.max_meas
+
+    gk.launches = gk.launches_pregate = 0
+    n_sync = sync.count
+    with noting_k1_launches(gk) as noted:
+        state_b, xs, ms = mc.run_batch(sc, shapes, params)
+    launches, launches_p = gk.launches, gk.launches_pregate
+    torch.cuda.synchronize()
+    reads = sync.count - n_sync
+    check(launches == S and launches_p == S,
+          f"{what}: K1 launched {launches} times ({launches_p} through the "
+          f"per-target entry point) over {S} batched scans")
+    check(not xs.isnan().any() and bool(ms[-1].any()),
+          f"{what}: NaN or no track")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_2, xs_2, ms_2 = mc.run_batch(sc, shapes, params)
+    torch.cuda.synchronize()
+    ms_per_scan = 1e3 * (time.perf_counter() - t0) / S
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(torch.equal(ms_2, ms), f"{what}: a second card run differs")
+
+    batched_grow_makes_no_host_sync(mc.initial_states(sc, shapes, params)[0],
+                                    mc.scan_batch(sc, 0), shapes, params)
+    if on_cpu:
+        st_c, xs_c, ms_c = mc.run_batch(sc_cpu, shapes, params)
+        check(torch.equal(ms.cpu(), ms_c),
+              f"{what}: track masks differ from the CPU run")
+        check(torch.allclose(xs.cpu(), xs_c, rtol=STATE_RTOL,
+                             atol=STATE_ATOL),
+              f"{what}: track states differ from the CPU run")
+        check_batched_state(state_to_numpy(state_b), state_to_numpy(st_c),
+                            f"{what}: card against CPU, final states")
+        print(f"{what}: card = CPU run (masks on all {S} scans, states "
+              f"within tolerance)")
+    stepped_alone(sc, shapes, params, picks, state_b, xs, ms, what)
+    q = mc_quality(sc, xs, ms, what)
+
+    args = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
+    inp, dt, sub = k1_batch_inputs(17, B, T * L, M, "cuda")
+    err, g_r = check_against_twin(gk, f"{what}, seeded", inp, dt, args, sub)
+    check(bool(g_r[:, 1:].any()), f"K1 {what}: nothing gated")
+    err = max(err, check_noted_launches(gk, noted, what, (B * T * L, B * M),
+                                        (1, S - 1)))
+    times = kernel_times(gk, inp, dt, args, sub)
+    bound = k1_sub_bound(B, T * L, M, B * M, n_dt=B)
+    print(f"{what}: B={B}, {S} batched scans, {ms_per_scan:.2f} ms per "
+          f"batched scan ({1e3 * B / ms_per_scan:.1f} scenario-scans/s; "
+          f"second run, wall clock), {reads / S:.2f} host reads per batched "
+          f"scan, peak device memory {peak_gib:.3f} GiB; K1 launches "
+          f"{launches}; K1 at N={B * T * L}, Km={M}: kernel alone "
+          f"{1e3 * times['kernel_ms']:.3f} us hot, "
+          f"{1e3 * times['kernel_flushed_ms']:.3f} us flushed, wrapper "
+          f"{1e3 * times['ms']:.3f} us, twin {1e3 * times['plain_ms']:.3f} "
+          f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
+          f"bytes, by {bound['bound_by']}); max |err| {err:.3g}")
+    return dict(launches=launches, n_scans=S, ms_per_scan=ms_per_scan,
+                reads_per_scan=reads / S, peak_gib=peak_gib, max_err=err,
+                quality=q, **times, bound_ms=bound["bound_ms"],
+                bound_bytes=bound["bytes"])
+
+
+def mc_phase():
+    from pymht_tpu_torch.utils.scenes import mc_scene
+    return batched_phase("mc", mc_scene, MC_BATCH, (0, MC_BATCH - 1),
+                         on_cpu=True)
+
+
+def mc_bench_phase():
+    from pymht_tpu_torch.utils.scenes import mc_bench_scene
+    return batched_phase("mc-bench", mc_bench_scene, MC_BENCH_BATCH,
+                         (0, MC_BENCH_BATCH - 1), on_cpu=False)
+
 
 def main():
     import torch
@@ -1538,6 +1766,8 @@ def main():
     gaps = gap_phase(res, ais, ipm)
     ckpt = checkpoint_phase(stream)
     xml_phase(ipm["gpu"])
+    mc = mc_phase()
+    mcb = mc_bench_phase()
     for what, r in (("slice (radar only)", res), ("AIS scene", ais)):
         syncs = r["syncs"]
         print(f"{what} on the card: {r['ms_per_scan']:.2f} ms/scan (median "
@@ -1578,10 +1808,12 @@ def main():
         # AIS scene, the dynamic-window-and-degrade run and the roof run,
         # then the 'ipm' runs (demo scene, 2_ipm_xcheck beside
         # 'lagrangian'), the 'lagrangian_pure' run and the checkpointed
-        # streams
+        # streams, then the two Monte-Carlo batches (per-target entry
+        # point, one launch per batched scan)
         "launches": res["launches"] + ais["launches"] + stream["launches"]
         + deg["launches"] + roof["launches"] + ipm["launches"]
-        + ipm["launches_xcheck"] + pure["launches"] + ckpt["launches"],
+        + ipm["launches_xcheck"] + pure["launches"] + ckpt["launches"]
+        + mc["launches"] + mcb["launches"],
         "launches_slice": res["launches"],
         "launches_ais": ais["launches"],
         "launches_pregate": ais["launches_pregate"],
@@ -1593,20 +1825,29 @@ def main():
         "launches_xcheck": ipm["launches_xcheck"],
         "launches_pure": pure["launches"],
         "launches_checkpoint": ckpt["launches"],
+        "launches_mc": mc["launches"],
+        "launches_mc_bench": mcb["launches"],
+        # a batched scan counts as one scan
         "launches_per_scan": (res["launches"] + ais["launches"]
                               + stream["launches"] + deg["launches"]
                               + roof["launches"] + ipm["launches"]
                               + ipm["launches_xcheck"] + pure["launches"]
-                              + ckpt["launches"])
+                              + ckpt["launches"] + mc["launches"]
+                              + mcb["launches"])
         / (res["n_scans"] + ais["n_scans"] + stream["n_scans"]
            + deg["n_scans"] + roof["n_scans"] + ipm["n_scans"]
-           + ipm["n_scans_xcheck"] + pure["n_scans"] + ckpt["n_scans"]),
+           + ipm["n_scans_xcheck"] + pure["n_scans"] + ckpt["n_scans"]
+           + mc["n_scans"] + mcb["n_scans"]),
         "oracle_gaps": gaps,
-        # over every comparison with the twin: the kernel phase's shapes
-        # and the real scans' tensors of the 'ipm' runs
-        "max_abs_err": max(k1["max_err_all"], ipm["k1_max_err"]),
+        # over every comparison with the twin: the kernel phase's shapes,
+        # the real scans' tensors of the 'ipm' runs and the two batches
+        # (seeded and real scans)
+        "max_abs_err": max(k1["max_err_all"], ipm["k1_max_err"],
+                           mc["max_err"], mcb["max_err"]),
         "seeded_max_abs_err": k1["max_err_all"],
         "real_scans_max_abs_err": ipm["k1_max_err"],
+        "mc_max_abs_err": mc["max_err"],
+        "mc_bench_max_abs_err": mcb["max_err"],
         "half_beam_kernel_ms": k1h["kernel_ms"],
         "half_beam_bound_ms": k1h["bound_ms"],
         "ms": k1["ms"],
@@ -1622,7 +1863,17 @@ def main():
         "pregate_plain_ms": k1p["plain_ms"],
         "pregate_bound_ms": k1p["bound_ms"],
         "pregate_bound_by": k1p["bound_by"],
-        "pregate_max_abs_err": k1p["max_err"]}]}))
+        "pregate_max_abs_err": k1p["max_err"],
+        "mc_ms": mc["ms"],
+        "mc_kernel_ms": mc["kernel_ms"],
+        "mc_kernel_flushed_ms": mc["kernel_flushed_ms"],
+        "mc_plain_ms": mc["plain_ms"],
+        "mc_bound_ms": mc["bound_ms"],
+        "mc_bench_ms": mcb["ms"],
+        "mc_bench_kernel_ms": mcb["kernel_ms"],
+        "mc_bench_kernel_flushed_ms": mcb["kernel_flushed_ms"],
+        "mc_bench_plain_ms": mcb["plain_ms"],
+        "mc_bench_bound_ms": mcb["bound_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -22,13 +22,21 @@ every target's candidates run over its Km nearest measurements only (by
 distance to the selected leaf's prediction): M above becomes Km, K1 takes
 the per-target ``z_sub [T, Km, 2]``, and compressed indices map back to
 scan indices through ``zidx`` after the beam.
+
+The radar branch without the pre-gate also takes a batch of scenarios:
+leading axes B on the state and on the scan (``z [B, M, 2]``, ``time
+[B]``).  K1 then runs once for the whole batch through its per-target
+entry point, one "target" per scenario (its T * L leaves against its own
+scan and time step).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..batch import lead_index
 from ..models.constants import sigmaQ_tracker, sigmaR_RADAR_tracker
 from ..ops.ais_fused import ais_candidates
 from ..ops.gate_kernel import BIG, radar_candidates
@@ -78,17 +86,34 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
     if ais is not None and not isinstance(ais, AisBatch):
         raise TypeError(f"grow: ais must be an AisBatch or None, got "
                         f"{type(ais).__name__}")
-    T, L, W = state.hist_meas.shape
+    *lead, T, L, W = state.hist_meas.shape
+    lead = tuple(lead)
     M = shapes.max_meas
     dev = state.leaf_x.device
-    tb = torch.arange(T, device=dev)
+    ix1 = lead_index(lead + (T,), dev, extra=1)
+    ix = tuple(a[..., 0] for a in ix1)                 # (tb,) unbatched
+    tb = ix[-1]
     dt = scan.time - state.time
 
     # --- spatial pre-gate: each target's Km nearest measurements ------
     Km = shapes.radar_cand_width
     pregate = 0 < Km < M
+    if lead and (pregate or ais is not None):
+        raise ValueError("grow: the pre-gate and the AIS branch take one "
+                         "scenario, not a batch")
     sub = {}
     z_sub = zmask_sub = zidx = None
+    z_k1, zmask_k1, dt_k1 = scan.z, scan.mask, dt
+    if lead:         # one K1 "target" per scenario, on a flat [B*M] axis
+        nb = math.prod(lead)
+        z_k1 = scan.z.reshape(nb, M, 2).contiguous()
+        zmask_k1 = scan.mask.reshape(nb, M).contiguous()
+        sub = dict(z_sub=z_k1, zmask_sub=zmask_k1,
+                   zidx=torch.arange(nb * M, dtype=torch.int32,
+                                     device=dev).view(nb, M),
+                   leaves_per_target=T * L)
+        z_k1, zmask_k1 = z_k1.view(nb * M, 2), zmask_k1.view(nb * M)
+        dt_k1 = dt.reshape(nb).contiguous()
     if pregate:
         xr = state.leaf_x[tb, state.sel_leaf.long().clamp(0, L - 1)]  # [T,4]
         px = xr[:, 0] + dt * xr[:, 2]
@@ -104,26 +129,28 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
     M_eff = Km if pregate else M
 
     # --- K1: predict + gate + score every (leaf, measurement) pair ----
-    pd_leaf = state.tgt_pd[:, None].expand(T, L)
+    N = math.prod(lead) * T * L
+    pd_leaf = state.tgt_pd[..., None].expand(*lead, T, L)
     cand = radar_candidates(
-        state.leaf_x.reshape(T * L, 4),
-        state.leaf_P.reshape(T * L, 4, 4),
-        state.leaf_cnllr.reshape(T * L),
-        pd_leaf.reshape(T * L),
-        state.leaf_mask.reshape(T * L),
-        scan.z, scan.mask, dt, sigmaQ_tracker,
+        state.leaf_x.reshape(N, 4),
+        state.leaf_P.reshape(N, 4, 4),
+        state.leaf_cnllr.reshape(N),
+        pd_leaf.reshape(N),
+        state.leaf_mask.reshape(N),
+        z_k1, zmask_k1, dt_k1, sigmaQ_tracker,
         float(sigmaR_RADAR_tracker) ** 2,
         params.eta2, params.lambda_ex, **sub)
     Cn_r = 1 + M_eff
-    cand_scores = cand.scores.reshape(T, L, Cn_r)
-    x_bar = cand.x_bar.reshape(T, L, 4)
-    P_bar = cand.P_bar.reshape(T, L, 4, 4)
-    K = cand.K.reshape(T, L, 4, 2)
-    P_hat = cand.P_hat.reshape(T, L, 4, 4)
-    zero_score = cand_scores[:, :, 0]                              # [T,L]
+    cand_scores = cand.scores.reshape(*lead, T, L, Cn_r)
+    x_bar = cand.x_bar.reshape(*lead, T, L, 4)
+    P_bar = cand.P_bar.reshape(*lead, T, L, 4, 4)
+    K = cand.K.reshape(*lead, T, L, 4, 2)
+    P_hat = cand.P_hat.reshape(*lead, T, L, 4, 4)
+    zero_score = cand_scores[..., 0]                               # [T,L]
 
     # --- beam: the best L candidates per target -----------------------
-    top_scores, top_idx = smallest_k(cand_scores.reshape(T, L * Cn_r), L)
+    top_scores, top_idx = smallest_k(
+        cand_scores.reshape(*lead, T, L * Cn_r), L)
     Cn = Cn_r
     if ais is not None:
         G = min(shapes.ais_fuse_width, shapes.max_ais)
@@ -153,16 +180,16 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
     # previously selected leaf into the beam, so the previous selection
     # plus a missed detection is always a feasible global assignment.
     zero_parent = state.sel_leaf.long().clamp(0, L - 1)
-    has_zero = state.leaf_mask[tb, zero_parent]
+    has_zero = state.leaf_mask[(*ix, zero_parent)]
     zcand = zero_parent * Cn
-    hit = top_idx == zcand[:, None]
-    beam_pos = hit.int().argmax(dim=1)
-    force = has_zero & ~hit.any(dim=1)
+    hit = top_idx == zcand[..., None]
+    beam_pos = hit.int().argmax(dim=-1)
+    force = has_zero & ~hit.any(dim=-1)
     top_idx = top_idx.clone()
     top_scores = top_scores.clone()
-    top_idx[:, L - 1] = torch.where(force, zcand, top_idx[:, L - 1])
-    top_scores[:, L - 1] = torch.where(force, zero_score[tb, zero_parent],
-                                       top_scores[:, L - 1])
+    top_idx[..., L - 1] = torch.where(force, zcand, top_idx[..., L - 1])
+    top_scores[..., L - 1] = torch.where(
+        force, zero_score[(*ix, zero_parent)], top_scores[..., L - 1])
     spine_leaf = torch.where(has_zero,
                              torch.where(force, L - 1, beam_pos), 0)
 
@@ -184,15 +211,16 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
             ais_m = torch.gather(zidx, 1, ais_m)
 
     # --- gather the parents' payloads, apply the radar update ---------
-    tp = (tb[:, None], parent)
+    tp = (*ix1, parent)
     x_bar_p, P_bar_p = x_bar[tp], P_bar[tp]
     K_p, P_radar = K[tp], P_hat[tp]
-    zt_p = scan.z[radar_m] - x_bar_p[..., :2]                      # [T,L,2]
-    x_radar = x_bar_p + torch.einsum('tlij,tlj->tli', K_p, zt_p)
+    zt_p = (scan.z[(*lead_index(lead, dev, extra=2), radar_m)]
+            - x_bar_p[..., :2])                                    # [T,L,2]
+    x_radar = x_bar_p + torch.einsum('...ij,...j->...i', K_p, zt_p)
     new_x = torch.where(is_zero[..., None], x_bar_p, x_radar)
     new_P = torch.where(is_zero[..., None, None], P_bar_p, P_radar)
     new_meas_label = torch.where(is_zero, 0, radar_m + 1)
-    new_ais_label = torch.zeros((T, L), dtype=torch.int32, device=dev)
+    new_ais_label = torch.zeros((*lead, T, L), dtype=torch.int32, device=dev)
     new_mmsi_label = new_ais_label
 
     if ais is not None:
@@ -216,39 +244,41 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
     new_meas_label = torch.where(new_mask, new_meas_label, -1).int()
 
     # --- roll the history one column left, write the new column ------
-    keep3 = new_mask[:, :, None]
+    keep3 = new_mask[..., None]
 
     def shift_append(hist, col, fill):
-        rolled = torch.cat([hist[tp][:, :, 1:], col[:, :, None]], dim=2)
+        rolled = torch.cat([hist[tp][..., 1:], col[..., None]], dim=-1)
         return torch.where(keep3, rolled, fill)
 
-    hx = torch.cat([state.hist_x[tp][:, :, 1:], new_x[:, :, None]], dim=2)
+    hx = torch.cat([state.hist_x[tp][..., 1:, :], new_x[..., None, :]],
+                   dim=-2)
 
     # Roll the warm-started selection duals with the window: prices of
     # the oldest scan's slots retire, the new scan's start at 0.
     per_col = M + shapes.max_ais
-    lam = torch.roll(state.lam.reshape(W, per_col), -1, dims=0)
-    lam[-1] = 0.0
+    lam = torch.roll(state.lam.reshape(*lead, W, per_col), -1, dims=-2)
+    lam[..., -1, :] = 0.0
 
     new_state = state.replace(
-        lam=lam.reshape(-1),
+        lam=lam.reshape(*lead, -1),
         spine_leaf=spine_leaf.int(),
         leaf_x=torch.where(new_mask[..., None], new_x, 0.0),
         leaf_P=torch.where(new_mask[..., None, None], new_P, 0.0),
         leaf_cnllr=torch.where(new_mask, top_scores, 0.0),
-        leaf_mask=new_mask & state.tgt_mask[:, None],
+        leaf_mask=new_mask & state.tgt_mask[..., None],
         hist_meas=shift_append(state.hist_meas, new_meas_label, -1),
         hist_ais=shift_append(state.hist_ais, new_ais_label, 0),
         hist_mmsi=shift_append(state.hist_mmsi, new_mmsi_label, 0),
         hist_cnllr=shift_append(state.hist_cnllr, top_scores, 0.0),
-        hist_x=torch.where(new_mask[:, :, None, None], hx, 0.0),
+        hist_x=torch.where(new_mask[..., None, None], hx, 0.0),
         tgt_depth=torch.where(state.tgt_mask,
                               torch.clamp(state.tgt_depth + 1, max=W),
                               state.tgt_depth),
         scan_idx=state.scan_idx + 1,
         time=scan.time,
     )
-    gated_counts = cand.gated_counts.view(T, L).sum(
-        dim=1, dtype=torch.int32)                                  # [T]
-    return GrowOutputs(state=new_state, used_meas=cand.used_meas,
+    gated_counts = cand.gated_counts.view(*lead, T, L).sum(
+        dim=-1, dtype=torch.int32)                                 # [T]
+    used = cand.used_meas.view(*lead, M) if lead else cand.used_meas
+    return GrowOutputs(state=new_state, used_meas=used,
                        gated_counts=gated_counts)

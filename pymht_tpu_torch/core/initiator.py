@@ -10,6 +10,9 @@
    one-point initiators (distance GNN, gate v_max dt) and spawn new
    prelims with two-point velocity initialisation and NIS dedup;
 3. everything still unclaimed becomes the next scan's initiators.
+
+The radar-only step (``ais=None``) also takes a batch of scenarios:
+leading axes on the state and on ``z``, ``z_mask`` and ``time``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..batch import lead_index
 from ..models import pv, ais as ais_model
 from ..ops import kalman as k
 from ..ops.assignment import auction_assign
@@ -51,16 +55,21 @@ class InitiatorOutputs(NamedTuple):
     new_mmsi: torch.Tensor  # [P] i32
 
 
-def empty_initiator(shapes: TrackerShapes, device) -> InitiatorState:
+def empty_initiator(shapes: TrackerShapes, device,
+                    batch: tuple = ()) -> InitiatorState:
+    """No prelims and no initiators; ``batch`` leading scenario axes."""
     P, I = shapes.max_prelim, shapes.max_initiators
+    batch = tuple(batch)
+
     def z(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return torch.zeros(batch + shape, dtype=dt, device=device)
 
     return InitiatorState(
         p_x=z((P, 4), torch.float32), p_P=z((P, 4, 4), torch.float32),
         p_m=z((P,), torch.int32), p_n=z((P,), torch.int32),
         p_mask=z((P,), torch.bool), p_mmsi=z((P,), torch.int32),
-        p_meas_idx=torch.full((P,), -1, dtype=torch.int32, device=device),
+        p_meas_idx=torch.full(batch + (P,), -1, dtype=torch.int32,
+                              device=device),
         i_pos=z((I, 2), torch.float32), i_mask=z((I,), torch.bool),
         last_time=z((), torch.float32), has_time=z((), torch.bool))
 
@@ -69,11 +78,11 @@ def _insert_rows(dst_mask, src_mask):
     """Map the k-th valid source row to the k-th free destination slot.
     Returns (take [D] bool, src_idx [D])."""
     free = ~dst_mask
-    slot_rank = torch.cumsum(free.int(), 0) - 1
-    src_rank = torch.cumsum(src_mask.int(), 0) - 1
-    match = (free[:, None] & src_mask[None, :]
-             & (slot_rank[:, None] == src_rank[None, :]))
-    return match.any(dim=1), match.int().argmax(dim=1)
+    slot_rank = torch.cumsum(free.int(), -1) - 1
+    src_rank = torch.cumsum(src_mask.int(), -1) - 1
+    match = (free[..., :, None] & src_mask[..., None, :]
+             & (slot_rank[..., :, None] == src_rank[..., None, :]))
+    return match.any(dim=-1), match.int().argmax(dim=-1)
 
 
 def _nis_dedup(cand_x, cand_mask, pool_x, pool_P, pool_mask,
@@ -81,18 +90,19 @@ def _nis_dedup(cand_x, cand_mask, pool_x, pool_P, pool_mask,
     """Drop candidates whose NIS to an existing prelim (S = P + R_ais(low))
     is within ``threshold``."""
     S_inv = k.inv_psd(pool_P + ais_model.R(False, pool_P.device))
-    d = cand_x[:, None, :] - pool_x[None, :, :]                      # [K,P,4]
-    nis = torch.einsum('kpi,pij,kpj->kp', d, S_inv, d)
-    close = (nis <= threshold) & pool_mask[None, :]
-    return cand_mask & ~close.any(dim=1)
+    d = cand_x[..., :, None, :] - pool_x[..., None, :, :]            # [K,P,4]
+    nis = torch.einsum('...kpi,...pij,...kpj->...kp', d, S_inv, d)
+    close = (nis <= threshold) & pool_mask[..., None, :]
+    return cand_mask & ~close.any(dim=-1)
 
 
 def _claim(mask, idx, ok):
     """``mask`` with entries ``idx[ok]`` set (a copy)."""
-    M = mask.shape[0]
-    out = torch.cat([mask, mask.new_zeros((1,))])
-    out[torch.where(ok, idx.long(), M)] = True
-    return out[:M]
+    *lead, M = mask.shape
+    out = torch.cat([mask, mask.new_zeros((*lead, 1))], dim=-1)
+    out[(*lead_index(lead, mask.device, extra=1),
+         torch.where(ok, idx.long(), M))] = True
+    return out[..., :M]
 
 
 def step(state: InitiatorState, z, z_mask, time, ais: Optional[AisBatch],
@@ -106,17 +116,23 @@ def step(state: InitiatorState, z, z_mask, time, ais: Optional[AisBatch],
         raise TypeError(f"initiator.step: ais must be an AisBatch or None, "
                         f"got {type(ais).__name__}")
     P = shapes.max_prelim
-    M = z.shape[0]
+    *lead, M = z.shape[:-1]
+    lead = tuple(lead)
+    if lead and ais is not None:
+        raise ValueError("initiator.step: AIS seeding takes one scenario, "
+                         "not a batch")
     dev = z.device
     gamma = params.gamma_initiator
+    bi = lead_index(lead, dev, extra=1)        # () unbatched
 
     # -- 1a. predict preliminary tracks --------------------------------
     dt = torch.where(state.has_time, time - state.last_time,
                      float(params.radar_period))
     F, Q = pv.Phi(dt, dev), pv.Q(dt, device=dev)
-    p_x = torch.einsum('ij,pj->pi', F, state.p_x)
-    p_P = torch.einsum('ij,pjk,lk->pil', F, state.p_P, F) + Q
-    pm1, pm2 = state.p_mask[:, None], state.p_mask[:, None, None]
+    p_x = torch.einsum('...ij,...pj->...pi', F, state.p_x)
+    p_P = torch.einsum('...ij,...pjk,...lk->...pil', F, state.p_P, F) \
+        + Q[..., None, :, :]
+    pm1, pm2 = state.p_mask[..., None], state.p_mask[..., None, None]
     st = state.replace(p_x=torch.where(pm1, p_x, 0.0),
                        p_P=torch.where(pm2, p_P, 0.0))
 
@@ -144,27 +160,27 @@ def step(state: InitiatorState, z, z_mask, time, ais: Optional[AisBatch],
     # -- 1c. gate + GNN assign measurements to prelims -----------------
     z_hat, _, S_inv, K, P_hat = k.precalc(pv.C_RADAR(dev), pv.R_RADAR(dev),
                                           st.p_x, st.p_P)
-    zt = k.residuals(z, z_hat)                                       # [P,M,2]
+    zt = z[..., None, :, :] - z_hat[..., None, :]                    # [P,M,2]
     nis = k.nis(zt, S_inv)
-    dist = torch.linalg.vector_norm(zt, dim=2)
-    gate = (nis <= gamma) & z_mask[None, :] & st.p_mask[:, None]
+    dist = torch.linalg.vector_norm(zt, dim=-1)
+    gate = (nis <= gamma) & z_mask[..., None, :] & st.p_mask[..., None]
     assign = auction_assign(dist, gate, max_iters=48)                # [P]
     assigned = assign >= 0
     am = assign.long().clamp(0, M - 1)
-    pidx = torch.arange(P, device=dev)
-    x_upd = st.p_x + torch.einsum('pij,pj->pi', K, zt[pidx, am])
+    pidx = lead_index((*lead, P), dev)
+    x_upd = st.p_x + torch.einsum('...ij,...j->...i', K, zt[(*pidx, am)])
     st = st.replace(
-        p_x=torch.where(assigned[:, None], x_upd, st.p_x),
-        p_P=torch.where(assigned[:, None, None], P_hat, st.p_P),
+        p_x=torch.where(assigned[..., None], x_upd, st.p_x),
+        p_P=torch.where(assigned[..., None, None], P_hat, st.p_P),
         p_m=st.p_m + assigned.int(),
         p_n=st.p_n + st.p_mask.int(),
         p_meas_idx=torch.where(assigned, assign, -1).int(),
     )
-    meas_claimed = _claim(torch.zeros((M,), dtype=torch.bool, device=dev),
-                          assign, assigned)
+    meas_claimed = _claim(torch.zeros((*lead, M), dtype=torch.bool,
+                                      device=dev), assign, assigned)
 
     # -- 1d. m/n analysis ----------------------------------------------
-    speed = torch.linalg.vector_norm(st.p_x[:, 2:4], dim=1)
+    speed = torch.linalg.vector_norm(st.p_x[..., 2:4], dim=-1)
     too_fast = speed > params.max_speed * 1.5
     confirmed = st.p_mask & (st.p_m >= params.M_required) & ~too_fast
     dead = st.p_mask & (too_fast | ((st.p_n >= params.N_checks)
@@ -175,20 +191,21 @@ def step(state: InitiatorState, z, z_mask, time, ais: Optional[AisBatch],
 
     # -- 2. pair unclaimed measurements with previous initiators -------
     un1 = z_mask & ~meas_claimed
-    d_init = torch.linalg.vector_norm(z[None, :, :] - st.i_pos[:, None, :],
-                                      dim=2)
-    gate2 = ((d_init <= params.max_speed * dt) & un1[None, :]
-             & st.i_mask[:, None] & state.has_time)
+    d_init = torch.linalg.vector_norm(
+        z[..., None, :, :] - st.i_pos[..., :, None, :], dim=-1)
+    gate2 = ((d_init <= (params.max_speed * dt)[..., None, None])
+             & un1[..., None, :] & st.i_mask[..., None]
+             & state.has_time[..., None, None])
     assign2 = auction_assign(d_init, gate2, max_iters=48)           # [I]
     paired = assign2 >= 0
-    zp = z[assign2.long().clamp(0, M - 1)]
-    vel = (zp - st.i_pos) / torch.clamp(dt, min=1e-6)
-    cand_x = torch.cat([zp, vel], dim=1)                             # [I, 4]
+    zp = z[(*bi, assign2.long().clamp(0, M - 1))]
+    vel = (zp - st.i_pos) / torch.clamp(dt, min=1e-6)[..., None, None]
+    cand_x = torch.cat([zp, vel], dim=-1)                            # [I, 4]
     cand_ok = _nis_dedup(cand_x, paired, st.p_x, st.p_P, st.p_mask)
     take2, src2 = _insert_rows(st.p_mask, cand_ok)
     st = st.replace(
-        p_x=torch.where(take2[:, None], cand_x[src2], st.p_x),
-        p_P=torch.where(take2[:, None, None], pv.P0(dev), st.p_P),
+        p_x=torch.where(take2[..., None], cand_x[(*bi, src2)], st.p_x),
+        p_P=torch.where(take2[..., None, None], pv.P0(dev), st.p_P),
         p_m=torch.where(take2, 0, st.p_m),
         p_n=torch.where(take2, 0, st.p_n),
         p_mmsi=torch.where(take2, 0, st.p_mmsi),
@@ -201,7 +218,7 @@ def step(state: InitiatorState, z, z_mask, time, ais: Optional[AisBatch],
     un2 = z_mask & ~meas_claimed
     take3, src3 = _insert_rows(torch.zeros_like(st.i_mask), un2)
     st = st.replace(
-        i_pos=torch.where(take3[:, None], z[src3], 0.0),
+        i_pos=torch.where(take3[..., None], z[(*bi, src3)], 0.0),
         i_mask=take3,
         last_time=time.to(torch.float32),
         has_time=torch.ones_like(st.has_time),

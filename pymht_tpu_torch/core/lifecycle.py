@@ -9,6 +9,8 @@ labels are emitted as the newly confirmed track segment.
 Termination: a selected track dies when it leaves radar range, its
 windowed score rate exceeds the limit, or its cumulative NLLR exceeds
 the hard limit.
+
+Both take a state with leading scenario axes too.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..batch import lead_index
 from .config import TrackerShapes, TrackerParams
 from .state import TrackerState
 
@@ -33,37 +36,37 @@ class PruneOutputs(NamedTuple):
 
 def n_scan_prune(state: TrackerState, shapes: TrackerShapes,
                  params: TrackerParams) -> PruneOutputs:
-    T, L, W = state.hist_meas.shape
+    *lead, T, L, W = state.hist_meas.shape
     dev = state.hist_meas.device
     sel = state.sel_leaf.long()
-    tb = torch.arange(T, device=dev)
+    ix = lead_index((*lead, T), dev)
 
     depth = state.tgt_depth
     ncut = torch.clamp(depth - state.tgt_window, min=0)             # [T]
     w_ids = torch.arange(W, device=dev)[None, :]
-    col_valid = w_ids >= (W - depth)[:, None]
-    col_cut = col_valid & (w_ids < (W - depth + ncut)[:, None])      # [T, W]
+    col_valid = w_ids >= (W - depth)[..., None]
+    col_cut = col_valid & (w_ids < (W - depth + ncut)[..., None])    # [T, W]
 
-    sel_meas = state.hist_meas[tb, sel]                              # [T, W]
-    sel_ais = state.hist_ais[tb, sel]
-    sel_mmsi = state.hist_mmsi[tb, sel]
-    sel_cnllr = state.hist_cnllr[tb, sel]
-    sel_x = state.hist_x[tb, sel]                                  # [T, W, 4]
+    sel_meas = state.hist_meas[(*ix, sel)]                           # [T, W]
+    sel_ais = state.hist_ais[(*ix, sel)]
+    sel_mmsi = state.hist_mmsi[(*ix, sel)]
+    sel_cnllr = state.hist_cnllr[(*ix, sel)]
+    sel_x = state.hist_x[(*ix, sel)]                               # [T, W, 4]
 
     # A leaf survives iff it matches the selected leaf's labels on every
     # confirmed column (it descends from the new root).
-    agree = ((state.hist_meas == sel_meas[:, None, :])
-             & (state.hist_ais == sel_ais[:, None, :])
-             & (state.hist_mmsi == sel_mmsi[:, None, :]))
-    keep = (agree | ~col_cut[:, None, :]).all(dim=2)
+    agree = ((state.hist_meas == sel_meas[..., None, :])
+             & (state.hist_ais == sel_ais[..., None, :])
+             & (state.hist_mmsi == sel_mmsi[..., None, :]))
+    keep = (agree | ~col_cut[..., None, :]).all(dim=-1)
 
     last_cut = (W - depth + ncut - 1).long().clamp(0, W - 1)
-    new_root_cnllr = torch.where(ncut > 0, sel_cnllr[tb, last_cut],
+    new_root_cnllr = torch.where(ncut > 0, sel_cnllr[(*ix, last_cut)],
                                  state.tgt_root_cnllr)
     cut_mmsi = torch.where(col_cut, sel_mmsi, 0)
-    new_tgt_mmsi = torch.maximum(state.tgt_mmsi, cut_mmsi.amax(dim=1))
+    new_tgt_mmsi = torch.maximum(state.tgt_mmsi, cut_mmsi.amax(dim=-1))
 
-    cut3 = col_cut[:, None, :]
+    cut3 = col_cut[..., None, :]
     new_state = state.replace(
         leaf_mask=state.leaf_mask & keep,
         hist_meas=torch.where(cut3, -1, state.hist_meas),
@@ -77,7 +80,7 @@ def n_scan_prune(state: TrackerState, shapes: TrackerShapes,
     )
     return PruneOutputs(
         state=new_state,
-        confirmed_mask=col_cut & state.tgt_mask[:, None],
+        confirmed_mask=col_cut & state.tgt_mask[..., None],
         confirmed_x=sel_x, confirmed_meas=sel_meas, confirmed_ais=sel_ais,
         confirmed_mmsi=sel_mmsi, confirmed_cnllr=sel_cnllr)
 
@@ -90,20 +93,20 @@ class TerminateOutputs(NamedTuple):
 
 def terminate(state: TrackerState, shapes: TrackerShapes,
               params: TrackerParams) -> TerminateOutputs:
-    T = state.tgt_mask.shape[0]
     dev = state.tgt_mask.device
-    tb = torch.arange(T, device=dev)
+    ix = lead_index(state.tgt_mask.shape, dev)
     sel = state.sel_leaf.long()
-    sel_x = state.leaf_x[tb, sel]
-    sel_cnllr = state.leaf_cnllr[tb, sel]
+    sel_x = state.leaf_x[(*ix, sel)]
+    sel_cnllr = state.leaf_cnllr[(*ix, sel)]
 
     rng = params.radar_range
     if math.isfinite(rng):
-        dx = sel_x[:, 0] - float(params.position[0])
-        dy = sel_x[:, 1] - float(params.position[1])
+        dx = sel_x[..., 0] - float(params.position[0])
+        dy = sel_x[..., 1] - float(params.position[1])
         out_of_range = torch.sqrt(dx * dx + dy * dy) > rng
     else:
-        out_of_range = torch.zeros((T,), dtype=torch.bool, device=dev)
+        out_of_range = torch.zeros(state.tgt_mask.shape, dtype=torch.bool,
+                                   device=dev)
 
     score = (sel_cnllr - state.tgt_root_cnllr) / (params.N + 1)
     bad_score = score > params.score_upper_limit
@@ -115,7 +118,7 @@ def terminate(state: TrackerState, shapes: TrackerShapes,
     reason = torch.where(dead, reason, 0).int()
     new_state = state.replace(
         tgt_mask=state.tgt_mask & ~dead,
-        leaf_mask=state.leaf_mask & ~dead[:, None],
+        leaf_mask=state.leaf_mask & ~dead[..., None],
         tgt_id=torch.where(dead, -1, state.tgt_id),
     )
     return TerminateOutputs(state=new_state, dead=dead, reason=reason)

@@ -29,11 +29,13 @@ host (``sync.flag``); loop bodies are functions from carry to carry.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from .. import sync
+from ..batch import lead_index
 from ..ops import lp as lp_ops
 from .config import TrackerShapes, TrackerParams
 from .grow import smallest_k
@@ -73,11 +75,21 @@ class SelectionResult(NamedTuple):
 # Usage encoding
 # ----------------------------------------------------------------------
 
+def _batch_offset(idx, lead, stride):
+    """Flat indices of one scenario per leading position moved to that
+    scenario's block of ``stride`` entries (no-op without batch axes)."""
+    if not lead:
+        return idx
+    off = torch.arange(math.prod(lead), device=idx.device).reshape(
+        *lead, *(1,) * (idx.dim() - len(lead)))
+    return idx + off * stride
+
+
 def _slot_index(state: TrackerState, shapes: TrackerShapes):
     """Global single-use slot id of each (leaf, window column): radar
     measurement m at column w -> w*(M+A) + m, AIS message a ->
     w*(M+A) + M + a, none -> n_slots.  Returns ([T,L,W,2], n_slots)."""
-    T, L, W = state.hist_meas.shape
+    W = state.hist_meas.shape[-1]
     M, A = shapes.max_meas, shapes.max_ais
     per_col = M + A
     n_slots = W * per_col
@@ -94,44 +106,46 @@ def _hist_usage(state: TrackerState, shapes: TrackerShapes, tgt_filter=None):
     measurement m (block [0, M)) or AIS message a (block [M, M+A)) at
     window column w?  Dense compares up to _USAGE_DENSE_LIMIT virtual
     elements, one scatter of the T*L*W labels per family above."""
-    T, L, W = state.hist_meas.shape
+    *lead, T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
     dev = state.hist_meas.device
     live = state.leaf_mask
     if tgt_filter is not None:
-        live = live & tgt_filter[:, None]
+        live = live & tgt_filter[..., None]
     if T * L * W * (M + A) <= _USAGE_DENSE_LIMIT:
-        live4 = live[:, :, None, None]
+        live4 = live[..., None, None]
         um = ((state.hist_meas[..., None]
-               == torch.arange(1, M + 1, device=dev)) & live4).any(dim=1)
+               == torch.arange(1, M + 1, device=dev)) & live4).any(dim=-3)
         ua = ((state.hist_ais[..., None]
-               == torch.arange(1, A + 1, device=dev)) & live4).any(dim=1)
-        return torch.cat([um, ua], dim=2)
+               == torch.arange(1, A + 1, device=dev)) & live4).any(dim=-3)
+        return torch.cat([um, ua], dim=-1)
     P = M + A
     n = T * W * P
     base = ((torch.arange(T, device=dev)[:, None, None] * W
              + torch.arange(W, device=dev)[None, None, :]) * P)    # [T,1,W]
-    live3 = live[:, :, None]
+    live3 = live[..., None]
     mi = torch.where((state.hist_meas >= 1) & live3,
                      base + state.hist_meas - 1, n)                # [T,L,W]
     ai = torch.where((state.hist_ais >= 1) & live3,
                      base + M + state.hist_ais - 1, n)
-    out = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
-    out[mi.reshape(-1)] = True       # int64 indices: n cannot overflow
-    out[ai.reshape(-1)] = True
-    return out[:n].reshape(T, W, P)
+    out = torch.zeros((math.prod(lead) * (n + 1),), dtype=torch.bool,
+                      device=dev)
+    # int64 indices: n cannot overflow
+    out[_batch_offset(mi, lead, n + 1).reshape(-1)] = True
+    out[_batch_offset(ai, lead, n + 1).reshape(-1)] = True
+    return out.view(*lead, n + 1)[..., :n].reshape(*lead, T, W, P)
 
 
 def _slot_flat_labels(state: TrackerState, shapes: TrackerShapes):
     """Flat slot id per (leaf, window column) for radar and AIS labels:
     w*(M+A) + (m-1) and w*(M+A) + M + (a-1); no label or dead leaf -> n
     (= W*(M+A)).  Small [T, L, W] int64 tensors, never [T, n_slots]."""
-    T, L, W = state.hist_meas.shape
+    W = state.hist_meas.shape[-1]
     M, A = shapes.max_meas, shapes.max_ais
     P = M + A
     n = W * P
     base = torch.arange(W, device=state.hist_meas.device)[None, None, :] * P
-    live3 = state.leaf_mask[:, :, None]
+    live3 = state.leaf_mask[..., None]
     mi = torch.where((state.hist_meas >= 1) & live3,
                      base + state.hist_meas - 1, n)                # [T,L,W]
     ai = torch.where((state.hist_ais >= 1) & live3,
@@ -142,7 +156,7 @@ def _slot_flat_labels(state: TrackerState, shapes: TrackerShapes):
 def _filtered_flat_labels(state, shapes, tgt_filter):
     mi, ai, n = _slot_flat_labels(state, shapes)
     if tgt_filter is not None:
-        keep = tgt_filter[:, None, None]
+        keep = tgt_filter[..., None, None]
         mi = torch.where(keep, mi, n)
         ai = torch.where(keep, ai, n)
     return mi, ai, n
@@ -155,26 +169,30 @@ def _contested_minmax(state: TrackerState, shapes: TrackerShapes,
     buffers; a slot is used by two distinct targets iff min < max.  Masked
     entries go to the dump index n.  Returns (contested, used), both
     [n_slots] bool."""
-    T = state.hist_meas.shape[0]
+    *lead, T = state.hist_meas.shape[:-2]
     mi, ai, n = _filtered_flat_labels(state, shapes, tgt_filter)
     dev = mi.device
     tid = torch.arange(T, dtype=torch.int32, device=dev)[:, None, None] \
         .expand(mi.shape).reshape(-1)
-    mn = torch.full((n + 1,), T, dtype=torch.int32, device=dev)
-    mx = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    nb = math.prod(lead)
+    mn = torch.full((nb * (n + 1),), T, dtype=torch.int32, device=dev)
+    mx = torch.full((nb * (n + 1),), -1, dtype=torch.int32, device=dev)
     for idx in (mi, ai):
-        f = idx.reshape(-1)
+        f = _batch_offset(idx, lead, n + 1).reshape(-1)
         mn.scatter_reduce_(0, f, tid, 'amin', include_self=True)
         mx.scatter_reduce_(0, f, tid, 'amax', include_self=True)
-    return mn[:n] < mx[:n], mx[:n] >= 0
+    mn = mn.view(*lead, n + 1)[..., :n]
+    mx = mx.view(*lead, n + 1)[..., :n]
+    return mn < mx, mx >= 0
 
 
 def _compact_rank(contested, cap):
     """[S+1] map: flat slot id -> compact column (< cap), or the dump
     column ``cap`` (uncontested, beyond the cap, or the invalid id S)."""
-    r = torch.cumsum(contested.int(), 0) - 1
+    r = torch.cumsum(contested.int(), -1) - 1
     rank = torch.where(contested & (r < cap), r, cap)
-    return torch.cat([rank, rank.new_full((1,), cap)])
+    return torch.cat([rank, rank.new_full((*rank.shape[:-1], 1), cap)],
+                     dim=-1)
 
 
 def _compact_usage(state: TrackerState, shapes: TrackerShapes, rank_pad,
@@ -182,15 +200,16 @@ def _compact_usage(state: TrackerState, shapes: TrackerShapes, rank_pad,
     """[T, cap] f32: does any live leaf of target t use compact contested
     column c?  One 2-D scatter of a constant per label family (duplicate
     writes of the same value), never a [T, n_slots] tensor."""
-    T = state.hist_meas.shape[0]
+    *lead, T = state.hist_meas.shape[:-2]
     mi, ai, _ = _filtered_flat_labels(state, shapes, tgt_filter)
     dev = mi.device
+    bi = lead_index(lead, dev, extra=1)
     tids = torch.arange(T, device=dev)[:, None, None].expand(mi.shape) \
-        .reshape(-1)
-    uc = torch.zeros((T, cap + 1), dtype=torch.float32, device=dev)
+        .reshape(*lead, -1)
+    uc = torch.zeros((*lead, T, cap + 1), dtype=torch.float32, device=dev)
     for idx in (mi, ai):
-        uc[tids, rank_pad[idx.reshape(-1)]] = 1.0
-    return uc[:, :cap]
+        uc[(*bi, tids, rank_pad[(*bi, idx.reshape(*lead, -1))])] = 1.0
+    return uc[..., :cap]
 
 
 # ----------------------------------------------------------------------
@@ -200,12 +219,14 @@ def _compact_usage(state: TrackerState, shapes: TrackerShapes, rank_pad,
 def _propagate_labels(adj, carry):
     """One round of min-label propagation with pointer jumping."""
     labels, _ = carry
-    T = labels.shape[0]
-    neigh = torch.where(adj, labels[None, :], T)
-    new = torch.minimum(labels, neigh.amin(dim=1))
-    lab_pad = torch.cat([new, new.new_full((1,), T)])
-    new = torch.minimum(new, lab_pad[new.clamp(0, T)])
-    return new, (new != labels).any()
+    *lead, T = labels.shape
+    neigh = torch.where(adj, labels[..., None, :], T)
+    new = torch.minimum(labels, neigh.amin(dim=-1))
+    lab_pad = torch.cat([new, new.new_full((*lead, 1), T)], dim=-1)
+    new = torch.minimum(
+        new, lab_pad[(*lead_index(lead, adj.device, extra=1),
+                      new.clamp(0, T))])
+    return new, (new != labels).any(dim=-1)
 
 
 def cluster(state: TrackerState, shapes: TrackerShapes, usage=None):
@@ -217,52 +238,55 @@ def cluster(state: TrackerState, shapes: TrackerShapes, usage=None):
     min/max-target-id scatters, truncated to the first
     CLUSTER_COMPACT_CAP contested slots (clusters can then split, never
     merge)."""
-    T, L, W = state.hist_meas.shape
+    *lead, T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
     S = W * (M + A)
     dev = state.hist_meas.device
     CAPc = min(CLUSTER_COMPACT_CAP, S)
     if T * S < _INT32_WALL:
         use = _hist_usage(state, shapes) if usage is None else usage
-        useb = use.reshape(T, -1)                             # [T, S]
-        contested = useb.sum(dim=0) >= 2
-        n_cont = contested.sum()
+        useb = use.reshape(*lead, T, -1)                      # [T, S]
+        contested = useb.sum(dim=-2) >= 2
+        n_cont = contested.sum(dim=-1)
         slot_ids = torch.where(contested, torch.arange(S, device=dev), S)
-        idx = torch.sort(slot_ids).values[:CAPc]
-        uc = (useb[:, idx.clamp(0, S - 1)] & (idx < S)[None, :]).float()
-        if sync.flag(n_cont <= CAPc):
-            adj = (uc @ uc.T) > 0
-        else:
+        idx = torch.sort(slot_ids).values[..., :CAPc]
+        uc = (torch.gather(useb, -1, idx.clamp(0, S - 1)[..., None, :]
+                           .expand(*lead, T, CAPc))
+              & (idx < S)[..., None, :]).float()
+
+        def dense_full():
             usef = useb.float()
-            adj = (usef @ usef.T) > 0
+            return (usef @ usef.mT) > 0
+
+        adj = sync.cond(n_cont <= CAPc, lambda: (uc @ uc.mT) > 0, dense_full)
     else:
         contested, _ = _contested_minmax(state, shapes)
         uc = _compact_usage(state, shapes, _compact_rank(contested, CAPc),
                             CAPc)                             # [T, CAPc]
-        adj = (uc @ uc.T) > 0
+        adj = (uc @ uc.mT) > 0
     tm = state.tgt_mask
-    adj = adj & tm[:, None] & tm[None, :]
-    adj = adj | (torch.eye(T, dtype=torch.bool, device=dev) & tm[:, None])
+    adj = adj & tm[..., :, None] & tm[..., None, :]
+    adj = adj | (torch.eye(T, dtype=torch.bool, device=dev)
+                 & tm[..., :, None])
 
     tids = torch.arange(T, device=dev)
-    carry = (torch.where(tm, tids, T), None)
-    while True:      # the JAX loop's first test is always true
-        carry = _propagate_labels(adj, carry)
-        if not sync.flag(carry[1]):
-            break
-    labels = carry[0]
+    # the JAX loop's first test is always true
+    labels, _ = sync.while_loop(
+        lambda c: c[1], lambda c, _: _propagate_labels(adj, c),
+        (torch.where(tm, tids, T), None), test_first=False)
     is_root = tm & (labels == tids)
-    return labels.int(), is_root.sum().int()
+    return labels.int(), is_root.sum(dim=-1).int()
 
 
 def cluster_sizes(labels, tgt_mask):
     """[T] member count of each target's cluster (0 for inactive)."""
-    same = (labels[:, None] == labels[None, :]) & tgt_mask[None, :]
-    return torch.where(tgt_mask, same.sum(dim=1).int(), 0)
+    same = ((labels[..., :, None] == labels[..., None, :])
+            & tgt_mask[..., None, :])
+    return torch.where(tgt_mask, same.sum(dim=-1).int(), 0)
 
 
 def leaf_scores(state: TrackerState, params: TrackerParams):
-    f = (state.leaf_cnllr - state.tgt_root_cnllr[:, None]) / params.N
+    f = (state.leaf_cnllr - state.tgt_root_cnllr[..., None]) / params.N
     return torch.where(state.leaf_mask, f, BIG)
 
 
@@ -324,41 +348,41 @@ def _candidate_sets(state: TrackerState, f, C: int):
     """Top-C leaves per target by score (JAX top_k tie order), with the
     spine leaf forced into the set, and ``excl_lb`` [T]: a lower bound on
     the score of every leaf outside the set (+inf without truncation)."""
-    T, L = f.shape
+    L = f.shape[-1]
     topv, topi = smallest_k(f, C)
     spine = state.spine_leaf.long().clamp(0, L - 1)
-    in_set = (topi == spine[:, None]).any(dim=1)
+    in_set = (topi == spine[..., None]).any(dim=-1)
     topi = topi.clone()
-    topi[:, C - 1] = torch.where(in_set, topi[:, C - 1], spine)
-    n_live = state.leaf_mask.sum(dim=1)
-    excl_lb = torch.where(n_live > C, topv[:, C - 1], INF)
+    topi[..., C - 1] = torch.where(in_set, topi[..., C - 1], spine)
+    n_live = state.leaf_mask.sum(dim=-1)
+    excl_lb = torch.where(n_live > C, topv[..., C - 1], INF)
     return topi, excl_lb
 
 
 def _enum_buckets(bf, bs, n_slots):
     """Exhaustive C^K enumeration for a block of buckets (K = 4).
     bf [b,K,C], bs [b,K,C,W2] -> (best combo index [b], value [b])."""
-    C = bf.shape[2]
+    C = bf.shape[-1]
     K = K_ENUM
     conf = {}
     for i in range(K):
         for j in range(i + 1, K):
-            a, b = bs[:, i], bs[:, j]                          # [b,C,W2]
-            eq = a[:, :, None, :, None] == b[:, None, :, None, :]
-            valid = a[:, :, None, :, None] < n_slots
-            conf[(i, j)] = (eq & valid).flatten(3).any(dim=3)  # [b,C,C]
-    score = (bf[:, 0][:, :, None, None, None]
-             + bf[:, 1][:, None, :, None, None]
-             + bf[:, 2][:, None, None, :, None]
-             + bf[:, 3][:, None, None, None, :])
-    ok = (~conf[(0, 1)][:, :, :, None, None]
-          & ~conf[(0, 2)][:, :, None, :, None]
-          & ~conf[(0, 3)][:, :, None, None, :]
-          & ~conf[(1, 2)][:, None, :, :, None]
-          & ~conf[(1, 3)][:, None, :, None, :]
-          & ~conf[(2, 3)][:, None, None, :, :])
-    total = torch.where(ok, score, INF).reshape(-1, C ** K)
-    return total.argmin(dim=1), total.amin(dim=1)
+            a, b = bs[..., i, :, :], bs[..., j, :, :]          # [b,C,W2]
+            eq = a[..., :, None, :, None] == b[..., None, :, None, :]
+            valid = a[..., :, None, :, None] < n_slots
+            conf[(i, j)] = (eq & valid).flatten(-2).any(dim=-1)  # [b,C,C]
+    score = (bf[..., 0, :][..., :, None, None, None]
+             + bf[..., 1, :][..., None, :, None, None]
+             + bf[..., 2, :][..., None, None, :, None]
+             + bf[..., 3, :][..., None, None, None, :])
+    ok = (~conf[(0, 1)][..., :, :, None, None]
+          & ~conf[(0, 2)][..., :, None, :, None]
+          & ~conf[(0, 3)][..., :, None, None, :]
+          & ~conf[(1, 2)][..., None, :, :, None]
+          & ~conf[(1, 3)][..., None, :, None, :]
+          & ~conf[(2, 3)][..., None, None, :, :])
+    total = torch.where(ok, score, INF).flatten(-4)             # [b, C^K]
+    return total.argmin(dim=-1), total.amin(dim=-1)
 
 
 def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
@@ -366,57 +390,65 @@ def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
     """Exact batched solve of all clusters with 2..K_ENUM members over
     each member's top-C leaves.  Returns (sel_enum [T], obj_small [],
     bound_small []), the bound sound under candidate truncation."""
-    T, L, W2 = slots_flat.shape
+    *lead, T, L, W2 = slots_flat.shape
+    lead = tuple(lead)
     C = min(C, L)
     K = K_ENUM
     B = max(T // 2, 1)
     dev = f.device
     tidx = torch.arange(T, device=dev)
+    bi1 = lead_index(lead, dev, extra=1)
+    bi2 = lead_index(lead, dev, extra=2)
 
-    same = small[None, :] & (labels[:, None] == labels[None, :])
-    rank = (same & (tidx[None, :] < tidx[:, None])).sum(dim=1)      # [T]
+    same = small[..., None, :] & (labels[..., :, None] == labels[..., None, :])
+    rank = (same & (tidx[None, :] < tidx[:, None])).sum(dim=-1)     # [T]
     is_root = small & (labels == tidx)
-    bid_of_root = torch.cumsum(is_root.int(), 0) - 1
-    bucket_of = torch.where(small, bid_of_root[labels.long().clamp(0, T - 1)],
-                            B)
-    hit = (small[None, None, :]
-           & (bucket_of[None, None, :]
+    bid_of_root = torch.cumsum(is_root.int(), -1) - 1
+    bucket_of = torch.where(
+        small, bid_of_root[(*bi1, labels.long().clamp(0, T - 1))], B)
+    hit = (small[..., None, None, :]
+           & (bucket_of[..., None, None, :]
               == torch.arange(B, device=dev)[:, None, None])
-           & (rank[None, None, :]
+           & (rank[..., None, None, :]
               == torch.arange(K, device=dev)[None, :, None]))
-    members = torch.where(hit.any(dim=2), hit.int().argmax(dim=2), T)  # [B,K]
+    members = torch.where(hit.any(dim=-1), hit.int().argmax(dim=-1),
+                          T)                                        # [B,K]
 
     cand_idx, excl_lb = _candidate_sets(state, f, C)
-    cand_f = torch.gather(f, 1, cand_idx)                             # [T,C]
+    cand_f = torch.gather(f, -1, cand_idx)                            # [T,C]
     cand_slots = torch.gather(
-        slots_flat, 1, cand_idx[:, :, None].expand(T, C, W2))      # [T,C,W2]
-    cand_f = torch.cat([cand_f, cand_f.new_zeros((1, C))], 0)
+        slots_flat, -2, cand_idx[..., None].expand(*lead, T, C, W2))
+    cand_f = torch.cat([cand_f, cand_f.new_zeros((*lead, 1, C))], -2)
     cand_slots = torch.cat(
-        [cand_slots, cand_slots.new_full((1, C, W2), n_slots)], 0)
-    bf = cand_f[members]                                              # [B,K,C]
-    bs = cand_slots[members]                                       # [B,K,C,W2]
+        [cand_slots, cand_slots.new_full((*lead, 1, C, W2), n_slots)], -3)
+    bf = cand_f[(*bi2, members)]                                      # [B,K,C]
+    bs = cand_slots[(*bi2, members)]                               # [B,K,C,W2]
 
-    # Chunk buckets so the [b, C^K] tensor stays <= B_CHUNK * C^K floats.
-    B_CHUNK = 256
-    parts = [_enum_buckets(bf[i:i + B_CHUNK], bs[i:i + B_CHUNK], n_slots)
-             for i in range(0, B, B_CHUNK)]
-    best = torch.cat([p[0] for p in parts])
-    best_val = torch.cat([p[1] for p in parts])
+    # Chunk buckets so the [b, C^K] tensor stays <= B_CHUNK * C^K floats
+    # (over all scenarios).
+    chunk = max(256 // math.prod(lead), 1)
+    parts = [_enum_buckets(bf[..., i:i + chunk, :, :],
+                           bs[..., i:i + chunk, :, :, :], n_slots)
+             for i in range(0, B, chunk)]
+    best = torch.cat([p[0] for p in parts], -1)
+    best_val = torch.cat([p[1] for p in parts], -1)
     c_of = torch.stack([best // C ** 3, (best // C ** 2) % C,
-                        (best // C) % C, best % C], dim=1)            # [B,K]
-    chosen = c_of[bucket_of.clamp(0, B - 1), rank.clamp(0, K - 1)]
-    sel_enum = cand_idx[tidx, chosen]
+                        (best // C) % C, best % C], dim=-1)           # [B,K]
+    chosen = c_of[(*bi1, bucket_of.clamp(0, B - 1), rank.clamp(0, K - 1))]
+    sel_enum = cand_idx[(*bi1, tidx, chosen)]
     finite = torch.isfinite(best_val)
-    obj_small = torch.where(finite, best_val, 0.0).sum()
+    obj_small = torch.where(finite, best_val, 0.0).sum(dim=-1)
 
-    min_incl = torch.cat([cand_f[:T].amin(dim=1), f.new_zeros((1,))])
-    excl_pad = torch.cat([excl_lb, excl_lb.new_full((1,), INF)])
-    b_min, b_excl = min_incl[members], excl_pad[members]
-    indep = b_min.sum(dim=1)
-    swap_pen = (b_excl - b_min).amin(dim=1)
+    min_incl = torch.cat([cand_f[..., :T, :].amin(dim=-1),
+                          f.new_zeros((*lead, 1))], -1)
+    excl_pad = torch.cat([excl_lb, excl_lb.new_full((*lead, 1), INF)], -1)
+    b_min, b_excl = min_incl[(*bi2, members)], excl_pad[(*bi2, members)]
+    indep = b_min.sum(dim=-1)
+    swap_pen = (b_excl - b_min).amin(dim=-1)
     lb_outside = torch.where(torch.isfinite(swap_pen), indep + swap_pen, INF)
     lb_bucket = torch.minimum(torch.where(finite, best_val, INF), lb_outside)
-    bound_small = torch.where(torch.isfinite(lb_bucket), lb_bucket, 0.0).sum()
+    bound_small = torch.where(torch.isfinite(lb_bucket), lb_bucket,
+                              0.0).sum(dim=-1)
     return sel_enum, obj_small, bound_small
 
 
@@ -635,25 +667,29 @@ class _Compact(NamedTuple):
 
 
 def _rc_of(cp: _Compact, lam):
-    return cp.f + torch.einsum('tlc,c->tl', cp.Uc, lam)
+    return cp.f + torch.einsum('...tlc,...c->...tl', cp.Uc, lam)
 
 
 def _usel_of(cp: _Compact, sel):
-    T = sel.shape[0]
-    return cp.Uc[torch.arange(T, device=sel.device), sel]             # [T,CAP]
+    ix = lead_index(sel.shape, sel.device)
+    return cp.Uc[(*ix, sel)]                                          # [T,CAP]
 
 
 def _decode(cp: _Compact, lam):
     rc = _rc_of(cp, lam)
-    lb = torch.where(cp.eff_tgt, rc.amin(dim=1), 0.0).sum() - lam.sum()
-    return rc.argmin(dim=1), lb
+    lb = (torch.where(cp.eff_tgt, rc.amin(dim=-1), 0.0).sum(dim=-1)
+          - lam.sum(dim=-1))
+    return rc.argmin(dim=-1), lb
 
 
 def _obj_of(cp: _Compact, sel):
-    T = sel.shape[0]
-    return torch.where(cp.eff_tgt,
-                       cp.f[torch.arange(T, device=sel.device), sel],
-                       0.0).sum()
+    ix = lead_index(sel.shape, sel.device)
+    return torch.where(cp.eff_tgt, cp.f[(*ix, sel)], 0.0).sum(dim=-1)
+
+
+def _sq_norm(g):
+    """g . g over the last axis (``torch.dot`` for one problem)."""
+    return torch.dot(g, g) if g.dim() == 1 else (g * g).sum(dim=-1)
 
 
 def _repair_round(cp: _Compact, rc, carry):
@@ -662,41 +698,45 @@ def _repair_round(cp: _Compact, rc, carry):
     then score; lowest index within tolerance); the others ban their
     current leaf and repick by reduced cost plus a contested penalty."""
     sel, banned, _ = carry
-    T, L = cp.f.shape
+    *lead, T, L = cp.f.shape
     dev = sel.device
     tb = torch.arange(T, device=dev)
     usel = _usel_of(cp, sel)
-    over = usel.sum(dim=0) > 1.5                                      # [CAP]
+    over = usel.sum(dim=-2) > 1.5                                    # [CAP]
     on_spine = (sel == cp.spine).float()
-    keyc = (cp.f[tb, sel][:, None] - 5e7 * on_spine[:, None]
-            - 1e8 * cp.unavoid.float())
-    claiming = (usel > 0.5) & over[None, :]
-    slot_min = torch.where(claiming, keyc, INF).amin(dim=0)
-    in_conf = claiming.any(dim=1) & cp.eff_tgt
+    keyc = (cp.f[(*lead_index(lead, dev, extra=1), tb, sel)][..., None]
+            - 5e7 * on_spine[..., None] - 1e8 * cp.unavoid.float())
+    claiming = (usel > 0.5) & over[..., None, :]
+    slot_min = torch.where(claiming, keyc, INF).amin(dim=-2)
+    in_conf = claiming.any(dim=-1) & cp.eff_tgt
     tol = 1e-5 * (1.0 + slot_min.abs())
-    is_min = claiming & (keyc <= (slot_min + tol)[None, :])
-    owner = torch.where(is_min, tb[:, None], T).amin(dim=0)
-    keeper = (~claiming | (owner[None, :] == tb[:, None])).all(dim=1)
+    is_min = claiming & (keyc <= (slot_min + tol)[..., None, :])
+    owner = torch.where(is_min, tb[:, None], T).amin(dim=-2)
+    keeper = (~claiming | (owner[..., None, :] == tb[:, None])).all(dim=-1)
     loser = in_conf & ~keeper
-    banned = banned | (loser[:, None]
+    banned = banned | (loser[..., None]
                        & (torch.arange(L, device=dev)[None, :]
-                          == sel[:, None]))
-    pen = torch.einsum('tlc,c->tl', cp.Uc, over.float())
+                          == sel[..., None]))
+    pen = torch.einsum('...tlc,...c->...tl', cp.Uc, over.float())
     rcb = torch.where(banned, INF, rc + 1e3 * pen)
-    sel = torch.where(loser, rcb.argmin(dim=1), sel)
-    return sel, banned, in_conf.any()
+    sel = torch.where(loser, rcb.argmin(dim=-1), sel)
+    return sel, banned, in_conf.any(dim=-1)
 
 
-def _repair(cp: _Compact, sel, lam, repair_rounds):
+def _repair(cp: _Compact, sel, lam, repair_rounds, active=None):
+    """Repair rounds until no target is in conflict (of the ``active``
+    scenarios); the JAX loop starts with had_conf = True, so round 0 is
+    not tested."""
     rc = _rc_of(cp, lam)
-    carry = (sel, torch.zeros_like(cp.f, dtype=torch.bool), None)
-    for it in range(repair_rounds):
-        # the JAX loop starts with had_conf = True: no read on round 0
-        if it > 0 and not sync.flag(carry[2]):
-            break
-        carry = _repair_round(cp, rc, carry)
-    sel = carry[0]
-    return sel, ~(_usel_of(cp, sel).sum(dim=0) > 1.5).any()
+
+    def go_on(carry):
+        return carry[2] if active is None else carry[2] & active
+
+    sel = sync.while_loop(
+        go_on, lambda c, _: _repair_round(cp, rc, c),
+        (sel, torch.zeros_like(cp.f, dtype=torch.bool), None),
+        max_iters=repair_rounds, test_first=False)[0]
+    return sel, ~(_usel_of(cp, sel).sum(dim=-2) > 1.5).any(dim=-1)
 
 
 class _LagCarry(NamedTuple):
@@ -712,25 +752,29 @@ class _LagCarry(NamedTuple):
 
 
 def _lagrangian_step(cp: _Compact, repair_rounds, repair_cadence,
-                     c: _LagCarry) -> _LagCarry:
+                     c: _LagCarry, active=None) -> _LagCarry:
     """One subgradient iteration: decode, (on cadence) repair into a
-    feasible incumbent, Held-Karp step-size halving, dual update."""
+    feasible incumbent, Held-Karp step-size halving, dual update.
+    ``active``: the scenarios whose loop still runs (None: all)."""
     sel, lb = _decode(cp, c.lam)
     lb_up = lb > c.best_lb + 1e-6 * (1.0 + c.best_lb.abs())
     best_lb = torch.maximum(c.best_lb, lb)
-    cnt = _usel_of(cp, sel).sum(dim=0)
+    cnt = _usel_of(cp, sel).sum(dim=-2)
     g = torch.where((cnt > 0) | (c.lam > 0), cnt - 1.0, 0.0)
-    feas = ~(cnt > 1.5).any()
-    if c.it % repair_cadence == 0 and sync.flag(~feas):
-        sel_c, feas_c = _repair(cp, sel, c.lam, repair_rounds)
-    else:
-        sel_c, feas_c = sel, feas
+    feas = ~(cnt > 1.5).any(dim=-1)
+    sel_c, feas_c = sel, feas
+    if c.it % repair_cadence == 0:
+        need = ~feas if active is None else ~feas & active
+        sel_c, feas_c = sync.cond(
+            need, lambda: _repair(cp, sel, c.lam, repair_rounds,
+                                  need if need.dim() else None),
+            lambda: (sel, feas))
     obj = torch.where(feas_c, _obj_of(cp, sel_c), INF)
     better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
     material = feas_c & ((obj < c.best_obj
                           - 1e-4 * (1.0 + c.best_obj.abs()))
                          | ~c.best_feas)
-    best_sel = torch.where(better, sel_c, c.best_sel)
+    best_sel = torch.where(better[..., None], sel_c, c.best_sel)
     best_obj = torch.where(better, obj, c.best_obj)
     best_feas = c.best_feas | feas_c
     stale = torch.where(material, 0, c.stale + 1)
@@ -738,13 +782,14 @@ def _lagrangian_step(cp: _Compact, repair_rounds, repair_cadence,
     halve = lb_stale >= 3
     th = torch.where(halve, torch.clamp(c.th * 0.5, min=0.05), c.th)
     lb_stale = torch.where(halve, 0, lb_stale)
-    gnorm2 = torch.clamp(torch.dot(g, g), min=1e-6)
+    gnorm2 = torch.clamp(_sq_norm(g), min=1e-6)
     gap_est = torch.where(
         best_feas,
         torch.minimum(torch.clamp(best_obj - lb, min=1e-3),
                       1.0 + 0.25 * best_obj.abs()),
         1.0)
-    lam = torch.clamp(c.lam + th * gap_est / gnorm2 * g, min=0.0)
+    lam = torch.clamp(c.lam + (th * gap_est / gnorm2)[..., None] * g,
+                      min=0.0)
     return _LagCarry(c.it + 1, lam, best_sel, best_obj, best_feas, best_lb,
                      stale, th, lb_stale)
 
@@ -765,21 +810,24 @@ def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
     leaf (t, l), masked to live leaves of participating targets.
     Returns (sel, feasible, obj, lower bound, lam)."""
     dev = f.device
-    n_live = eff_leaf.sum(dim=1).float()
-    unavoid = ((Uc.sum(dim=1) >= n_live[:, None] - 0.5)
-               & (n_live[:, None] > 0.5))
+    lead = f.shape[:-2]
+    n_live = eff_leaf.sum(dim=-1).float()
+    unavoid = ((Uc.sum(dim=-2) >= n_live[..., None] - 0.5)
+               & (n_live[..., None] > 0.5))
     cp = _Compact(f, Uc, spine.long(), eff_tgt, unavoid)
 
     sel_seed, lb_seed = _decode(cp, lam0)
     sel_seed, feas_seed = _repair(cp, sel_seed, lam0, repair_rounds)
     obj_seed = torch.where(feas_seed, _obj_of(cp, sel_seed), INF)
-    zero_i = torch.zeros((), dtype=torch.int64, device=dev)
+    zero_i = torch.zeros(lead, dtype=torch.int64, device=dev)
     c = _LagCarry(0, lam0, sel_seed, obj_seed, feas_seed, lb_seed, zero_i,
-                  torch.full((), theta, dtype=torch.float32, device=dev),
+                  torch.full(lead, theta, dtype=torch.float32, device=dev),
                   zero_i)
-    while c.it < iters and sync.flag(
-            _lagrangian_continue(c, obj_offset, patience)):
-        c = _lagrangian_step(cp, repair_rounds, repair_cadence, c)
+    c = sync.while_loop(
+        lambda c: _lagrangian_continue(c, obj_offset, patience),
+        lambda c, active: _lagrangian_step(cp, repair_rounds,
+                                           repair_cadence, c, active),
+        c, max_iters=iters)
     return c.best_sel, c.best_feas, c.best_obj, c.best_lb, c.lam
 
 
@@ -792,20 +840,21 @@ def _contested_leaf_usage(state: TrackerState, shapes: TrackerShapes, big,
     scatter of each leaf's labels (no [T, n_slots] tensor).  Returns
     (Uc [T, L, CAP] f32, col_slot [CAP], col_ok [CAP], n_cont [],
     eff_leaf [T, L]: the live leaves of the ``big`` targets)."""
-    T, L, W = state.hist_meas.shape
+    *lead, T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
     P = M + A
     S = W * P
     dev = state.hist_meas.device
     if usage is not None:
-        contested = ((usage & big[:, None, None]).sum(dim=0) >= 2).reshape(S)
+        contested = ((usage & big[..., None, None]).sum(dim=-3)
+                     >= 2).reshape(*lead, S)
     else:
         contested, _ = _contested_minmax(state, shapes, tgt_filter=big)
-    n_cont = contested.sum()
+    n_cont = contested.sum(dim=-1)
     s_ids = torch.where(contested, torch.arange(S, device=dev), S)
-    col_slot = torch.sort(s_ids).values[:CAP]
+    col_slot = torch.sort(s_ids).values[..., :CAP]
     col_ok = col_slot < S
-    eff_leaf = state.leaf_mask & big[:, None]
+    eff_leaf = state.leaf_mask & big[..., None]
     if usage is not None:
         cs = torch.where(col_ok, col_slot, 0)
         cw = torch.where(col_ok, cs // P, 0)
@@ -815,20 +864,28 @@ def _contested_leaf_usage(state: TrackerState, shapes: TrackerShapes, big,
         # zero-hypothesis code, not a slot.
         cval = torch.where(col_ok,
                            torch.where(off >= M, off - M + 1, off + 1), 0)
+
+        def per_leaf(v):          # [CAP] against [T, L, W, CAP]
+            return v[..., None, None, None, :]
+
         wids = torch.arange(W, device=dev)[None, None, :, None]
-        m_match = (state.hist_meas[..., None] == cval) & ~cais & (cval > 0)
-        a_match = (state.hist_ais[..., None] == cval) & cais
-        use_c = ((m_match | a_match) & (wids == cw)).any(dim=2)
+        m_match = ((state.hist_meas[..., None] == per_leaf(cval))
+                   & ~per_leaf(cais) & per_leaf(cval > 0))
+        a_match = ((state.hist_ais[..., None] == per_leaf(cval))
+                   & per_leaf(cais))
+        use_c = ((m_match | a_match) & (wids == per_leaf(cw))).any(dim=-2)
         Uc = (use_c & eff_leaf[..., None]).float()                  # [T,L,CAP]
     else:
         rank_pad = _compact_rank(contested, CAP)                    # [S+1]
         mi, ai, _ = _filtered_flat_labels(state, shapes, big)
-        tlids = torch.arange(T * L, device=dev)[:, None].expand(T * L, W) \
-            .reshape(-1)
-        Uc2 = torch.zeros((T * L, CAP + 1), dtype=torch.float32, device=dev)
+        bi = lead_index(lead, dev, extra=1)
+        tlids = torch.arange(T * L, device=dev)[:, None] \
+            .expand(*lead, T * L, W).reshape(*lead, -1)
+        Uc2 = torch.zeros((*lead, T * L, CAP + 1), dtype=torch.float32,
+                          device=dev)
         for idx in (mi, ai):
-            Uc2[tlids, rank_pad[idx.reshape(-1)]] = 1.0
-        Uc = Uc2[:, :CAP].reshape(T, L, CAP)
+            Uc2[(*bi, tlids, rank_pad[(*bi, idx.reshape(*lead, -1))])] = 1.0
+        Uc = Uc2[..., :CAP].reshape(*lead, T, L, CAP)
     return Uc, col_slot, col_ok, n_cont, eff_leaf
 
 
@@ -842,15 +899,21 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
                   patience: int = 4, contested_cap: int = 256,
                   labels_in=None) -> SelectionResult:
     """Cluster-decomposed selection: exact tiers 1-2 for clusters of up
-    to K_ENUM targets, compact contested-slot Lagrangian for the rest."""
-    T, L, W = state.hist_meas.shape
+    to K_ENUM targets, compact contested-slot Lagrangian for the rest.
+    Takes a batch of forests too (leading scenario axes): tier 3 then
+    runs where any scenario has a big cluster and is selected per
+    scenario, and the dense/scatter switches decide on one scenario's
+    size, as under ``jax.vmap``."""
+    *lead, T, L, W = state.hist_meas.shape
+    lead = tuple(lead)
     M, A = shapes.max_meas, shapes.max_ais
     S = W * (M + A)
     dev = state.hist_meas.device
     slots, n_slots = _slot_index(state, shapes)
-    slots_flat = slots.reshape(T, L, W * 2)
+    slots_flat = slots.reshape(*lead, T, L, W * 2)
     f = leaf_scores(state, params)
     tb = torch.arange(T, device=dev)
+    bi = lead_index(lead, dev, extra=1)
 
     dense_ok = T * S < _INT32_WALL
     usage = _hist_usage(state, shapes) if dense_ok else None
@@ -862,8 +925,8 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
     small = tm & (csize >= 2) & (csize <= K_ENUM)
     big = tm & (csize > K_ENUM)
 
-    sel0 = f.argmin(dim=1)
-    obj_single = torch.where(singleton, f.amin(dim=1), 0.0).sum()
+    sel0 = f.argmin(dim=-1)
+    obj_single = torch.where(singleton, f.amin(dim=-1), 0.0).sum(dim=-1)
     sel_enum, obj_small, bound_small = _enum_small_clusters(
         state, f, slots_flat, n_slots, labels, small, C=enum_cands)
     exact_obj = obj_single + obj_small
@@ -873,23 +936,25 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
     CAP = min(contested_cap, S)
     Uc, col_slot, col_ok, n_cont, eff_leaf = _contested_leaf_usage(
         state, shapes, big, CAP, usage)
-    lam_pad0 = torch.cat([state.lam, state.lam.new_zeros((1,))])
-    lam_c0 = torch.where(col_ok, lam_pad0[col_slot.clamp(0, S)], 0.0)
+    lam_pad0 = torch.cat([state.lam, state.lam.new_zeros((*lead, 1))], -1)
+    lam_c0 = torch.where(col_ok, lam_pad0[(*bi, col_slot.clamp(0, S))], 0.0)
 
-    if sync.flag(big.any()):
+    def tier3():
         sel_big, feas_big, obj_big, bound_big, lam_out = _compact_lagrangian(
             f, Uc, lam_c0, state.spine_leaf, big, eff_leaf, exact_obj,
             iters=iters, theta=theta, patience=patience)
-        lam = torch.zeros((S + 1,), dtype=torch.float32, device=dev)
-        lam.index_add_(0, torch.where(col_ok, col_slot, S),
-                       torch.where(col_ok, lam_out, 0.0))
-        lam = lam[:S]
-    else:
-        sel_big = sel0
-        feas_big = torch.ones((), dtype=torch.bool, device=dev)
-        obj_big = bound_big = torch.zeros((), dtype=torch.float32,
-                                          device=dev)
-        lam = torch.zeros_like(state.lam)
+        lam = torch.zeros((*lead, S + 1), dtype=torch.float32, device=dev)
+        lam.scatter_add_(-1, torch.where(col_ok, col_slot, S),
+                         torch.where(col_ok, lam_out, 0.0))
+        return sel_big, feas_big, obj_big, bound_big, lam[..., :S]
+
+    def no_tier3():
+        zero = torch.zeros(lead, dtype=torch.float32, device=dev)
+        return (sel0, torch.ones(lead, dtype=torch.bool, device=dev), zero,
+                zero, torch.zeros_like(state.lam))
+
+    sel_big, feas_big, obj_big, bound_big, lam = sync.cond(
+        big.any(dim=-1), tier3, no_tier3)
 
     sel = torch.where(singleton, sel0, torch.where(small, sel_enum, sel_big))
 
@@ -899,8 +964,8 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
     ok = _selection_feasible(state, shapes, sel)
     need_fb = (n_cont > CAP) & ~ok
     spine = state.spine_leaf.long().clamp(0, L - 1)
-    sel = torch.where(need_fb & big, spine, sel)
-    obj_fb = torch.where(big, f[tb, spine], 0.0).sum()
+    sel = torch.where(need_fb[..., None] & big, spine, sel)
+    obj_fb = torch.where(big, f[(*bi, tb, spine)], 0.0).sum(dim=-1)
     obj_big = torch.where(need_fb, obj_fb, obj_big)
     feas = torch.where(need_fb, _selection_feasible(state, shapes, sel),
                        feas_big & ok)
@@ -915,8 +980,8 @@ def _independent_best(state: TrackerState, shapes: TrackerShapes,
     """Per-target best leaf, its objective, and whether that joint
     choice is conflict-free (then it is the global optimum)."""
     f = leaf_scores(state, params)
-    sel = f.argmin(dim=1)
-    obj = torch.where(state.tgt_mask, f.amin(dim=1), 0.0).sum()
+    sel = f.argmin(dim=-1)
+    obj = torch.where(state.tgt_mask, f.amin(dim=-1), 0.0).sum(dim=-1)
     return sel, obj, _selection_feasible(state, shapes, sel)
 
 
@@ -925,17 +990,21 @@ def _selection_feasible(state: TrackerState, shapes: TrackerShapes, sel):
     at most once.  Dense compares up to _USAGE_DENSE_LIMIT virtual
     elements, scatter-add counts above (T*W writes against T*W*(M+A)
     compares)."""
-    T, L, W = state.hist_meas.shape
+    *lead, T, L, W = state.hist_meas.shape
+    lead = tuple(lead)
     M, A = shapes.max_meas, shapes.max_ais
     dev = state.hist_meas.device
-    tb = torch.arange(T, device=dev)
-    act = state.tgt_mask[:, None]
-    sm = torch.where(act, state.hist_meas[tb, sel.long()], -1)       # [T,W]
-    sa = torch.where(act, state.hist_ais[tb, sel.long()], 0)
+    ix = (*lead_index(lead, dev, extra=1), torch.arange(T, device=dev))
+    act = state.tgt_mask[..., None]
+    sm = torch.where(act, state.hist_meas[(*ix, sel.long())], -1)    # [T,W]
+    sa = torch.where(act, state.hist_ais[(*ix, sel.long())], 0)
     if T * W * (M + A) <= _USAGE_DENSE_LIMIT:
-        cm = (sm[:, :, None] == torch.arange(1, M + 1, device=dev)).sum(dim=0)
-        ca = (sa[:, :, None] == torch.arange(1, A + 1, device=dev)).sum(dim=0)
-        return ~((cm > 1).any() | (ca > 1).any())
+        cm = (sm[..., None] == torch.arange(1, M + 1, device=dev)) \
+            .sum(dim=-3)
+        ca = (sa[..., None] == torch.arange(1, A + 1, device=dev)) \
+            .sum(dim=-3)
+        return ~((cm > 1).flatten(-2).any(dim=-1)
+                 | (ca > 1).flatten(-2).any(dim=-1))
     P = M + A
     n = W * P
     base_w = torch.arange(W, device=dev)[None, :] * P                # [1,W]
@@ -943,10 +1012,12 @@ def _selection_feasible(state: TrackerState, shapes: TrackerShapes, sel):
     sai = torch.where(sa >= 1, base_w + M + sa - 1, n)
     # index_add_, not bincount: on a CUDA tensor bincount reads the
     # largest index on the host
-    idx = torch.cat([smi.reshape(-1), sai.reshape(-1)])
-    cnt = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+    idx = _batch_offset(torch.cat([smi.flatten(-2), sai.flatten(-2)], -1),
+                        lead, n + 1).reshape(-1)
+    cnt = torch.zeros((math.prod(lead) * (n + 1),), dtype=torch.int32,
+                      device=dev)
     cnt.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-    return ~(cnt[:n] > 1).any()
+    return ~(cnt.view(*lead, n + 1)[..., :n] > 1).any(dim=-1)
 
 
 def select(state: TrackerState, shapes: TrackerShapes,
@@ -960,16 +1031,24 @@ def select(state: TrackerState, shapes: TrackerShapes,
     gather/scatter Lagrangian on the whole forest, ``'greedy'`` the
     per-target independent best with its feasibility reported honestly.
     With ``fast_path`` no solver runs when the independent optima are
-    conflict-free (they are then the global optimum)."""
+    conflict-free (they are then the global optimum).  ``'lagrangian'``
+    and ``'greedy'`` also take a batch of forests (leading scenario
+    axes): the solver then runs when any scenario conflicts, and the
+    fast result is kept where a scenario's independent optima are
+    conflict-free."""
     solver = {'ipm': select_ipm, 'lagrangian': select_hybrid,
               'lagrangian_pure': select_lagrangian}
     if method not in solver and method != 'greedy':
         raise ValueError(f"unknown selection method {method!r}")
+    *lead, T = state.tgt_mask.shape
+    lead = tuple(lead)
+    if lead and method not in ('lagrangian', 'greedy'):
+        raise ValueError(f"select: method {method!r} takes one forest, not "
+                         f"a batch")
     if not fast_path and method != 'greedy':
         return solver[method](state, shapes, params, **kw)
 
     sel0, obj0, feas0 = _independent_best(state, shapes, params)
-    T = state.tgt_mask.shape[0]
     dev = state.tgt_mask.device
     if compute_clusters:
         labels, n_clusters = cluster(state, shapes)
@@ -977,16 +1056,20 @@ def select(state: TrackerState, shapes: TrackerShapes,
             kw = dict(kw, labels_in=(labels, n_clusters))
     else:
         # cluster labels are observability, not needed for selection
-        labels = torch.zeros((T,), dtype=torch.int32, device=dev)
-        n_clusters = torch.full((), -1, dtype=torch.int32, device=dev)
+        labels = torch.zeros((*lead, T), dtype=torch.int32, device=dev)
+        n_clusters = torch.full(lead, -1, dtype=torch.int32, device=dev)
     fast = SelectionResult(sel=sel0.int(), feasible=feas0, obj=obj0,
                            bound=obj0, labels=labels, n_clusters=n_clusters,
                            lam=state.lam)
     if method == 'greedy':
         return fast
-    if sync.flag(feas0):
-        return fast._replace(feasible=torch.ones_like(feas0))
-    res = solver[method](state, shapes, params, **kw)
-    if method != 'lagrangian':
-        res = res._replace(labels=labels, n_clusters=n_clusters)
-    return res
+
+    def solve():
+        res = solver[method](state, shapes, params, **kw)
+        if method != 'lagrangian':
+            res = res._replace(labels=labels, n_clusters=n_clusters)
+        return res
+
+    return sync.cond(feas0,
+                     lambda: fast._replace(feasible=torch.ones_like(feas0)),
+                     solve)

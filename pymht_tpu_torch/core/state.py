@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..batch import lead_index
 from ..ops.topk import smallest_k
 from .config import TrackerShapes, TrackerParams
 
@@ -69,14 +70,17 @@ class TrackerState(_Tensors):
 
 
 def empty_state(shapes: TrackerShapes, params: TrackerParams,
-                device) -> TrackerState:
+                device, batch: tuple = ()) -> TrackerState:
+    """The empty forest; ``batch`` leading scenario axes on every field
+    (``parallel/scenario.batch_states``)."""
     T, L, W = shapes.max_targets, shapes.max_leaves, shapes.window
+    batch = tuple(batch)
 
     def z(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return torch.zeros(batch + shape, dtype=dt, device=device)
 
     def full(shape, v, dt):
-        return torch.full(shape, v, dtype=dt, device=device)
+        return torch.full(batch + shape, v, dtype=dt, device=device)
 
     return TrackerState(
         leaf_x=z((T, L, 4), f32),
@@ -163,27 +167,32 @@ def insert_targets(state: TrackerState, new_x, new_P, new_mask, new_mmsi,
                    time, params: TrackerParams) -> TrackerState:
     """Initiate up to K new targets into free slots (masked, fixed shape):
     the k-th new target takes the k-th free slot as a single root leaf
-    with cnllr 0 and the next free id.  ``time`` (a 0-d tensor) advances
-    the forest clock."""
-    T, L = state.leaf_mask.shape
+    with cnllr 0 and the next free id.  ``time`` (a 0-d tensor, or one
+    per scenario) advances the forest clock.  Leading scenario axes on
+    the state and on the new targets' tensors are allowed."""
+    lead = state.leaf_mask.shape[:-2]
     free = ~state.tgt_mask
-    slot_rank = torch.cumsum(free.int(), 0) - 1                   # [T]
-    new_rank = torch.cumsum(new_mask.int(), 0) - 1                # [K]
-    match = (free[:, None] & new_mask[None, :]
-             & (slot_rank[:, None] == new_rank[None, :]))         # [T, K]
-    take = match.any(dim=1)
-    src = match.int().argmax(dim=1)
+    slot_rank = torch.cumsum(free.int(), -1) - 1                  # [T]
+    new_rank = torch.cumsum(new_mask.int(), -1) - 1               # [K]
+    match = (free[..., :, None] & new_mask[..., None, :]
+             & (slot_rank[..., :, None] == new_rank[..., None, :]))  # [T, K]
+    take = match.any(dim=-1)
+    src = match.int().argmax(dim=-1)
 
-    x_in, P_in, mmsi_in = new_x[src], new_P[src], new_mmsi[src]
-    t1, t2, t3 = take[:, None], take[:, None, None], take[:, None, None, None]
+    bi = lead_index(lead, src.device, extra=1)
+    x_in, P_in, mmsi_in = (new_x[(*bi, src)], new_P[(*bi, src)],
+                           new_mmsi[(*bi, src)])
+    t1, t2, t3 = (take[..., None], take[..., None, None],
+                  take[..., None, None, None])
     root_x = torch.zeros_like(state.leaf_x)
-    root_x[:, 0] = x_in
+    root_x[..., 0, :] = x_in
     root_P = torch.zeros_like(state.leaf_P)
-    root_P[:, 0] = P_in
+    root_P[..., 0, :, :] = P_in
     first = torch.zeros_like(state.leaf_mask)
-    first[:, 0] = True
+    first[..., 0] = True
 
-    ids = torch.where(take, state.next_id + slot_rank, state.tgt_id)
+    ids = torch.where(take, state.next_id[..., None] + slot_rank,
+                      state.tgt_id)
     return state.replace(
         time=torch.maximum(state.time, time.to(f32)),
         leaf_x=torch.where(t2, root_x, state.leaf_x),
@@ -204,13 +213,14 @@ def insert_targets(state: TrackerState, new_x, new_P, new_mask, new_mmsi,
         tgt_mmsi=torch.where(take, mmsi_in, state.tgt_mmsi),
         sel_leaf=torch.where(take, 0, state.sel_leaf),
         spine_leaf=torch.where(take, 0, state.spine_leaf),
-        next_id=state.next_id + new_mask.sum().to(i32),
+        next_id=state.next_id + new_mask.sum(dim=-1).to(i32),
     )
 
 
 def state_from_numpy(d: dict, device) -> TrackerState:
     """A TrackerState from a dict of numpy arrays named like its fields
-    (e.g. the fields of a JAX state after ``jax.device_get``)."""
+    (e.g. the fields of a JAX state after ``jax.device_get``, batched by
+    ``jax.vmap`` or not)."""
     return _from_numpy(TrackerState, d, device)
 
 

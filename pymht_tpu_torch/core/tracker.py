@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import sync
+from ..batch import lead_index
 from ..models import pv
 from .config import TrackerShapes, TrackerParams
 from ..utils.timing import RuntimeLog
@@ -75,13 +76,16 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
     None).  ``prune_similar`` merges near-identical sibling hypotheses
     after grow; ``dynamic_window`` shrinks the N-scan window of targets
     that are over budget (``shrink_windows``).  Neither reads a value on
-    the host."""
+    the host.  The radar-only step with the ``'lagrangian'`` or
+    ``'greedy'`` selection also takes a batch of scenarios: leading axes
+    on the states, the scan and every output
+    (``parallel/scenario.make_batched_step``)."""
     if use_ais and not isinstance(ais, AisBatch):
         raise TypeError("scan_step: use_ais=True needs an AisBatch "
                         "(grow.empty_ais for a scan with no messages)")
-    T, L, W = state.hist_meas.shape
+    *lead, T, L, W = state.hist_meas.shape
     dev = state.leaf_x.device
-    tb = torch.arange(T, device=dev)
+    ix = lead_index((*lead, T), dev)
 
     # 1. grow
     g = grow(state, scan, ais if use_ais else None, shapes, params)
@@ -94,14 +98,14 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
                      compute_clusters=compute_clusters, **(select_kw or {}))
     state = state.replace(sel_leaf=sel_res.sel, lam=sel_res.lam)
     sel = sel_res.sel.long()
-    track_x = state.leaf_x[tb, sel]
-    track_cnllr = state.leaf_cnllr[tb, sel]
+    track_x = state.leaf_x[(*ix, sel)]
+    track_cnllr = state.leaf_cnllr[(*ix, sel)]
     sel_hist_valid = ((torch.arange(W, device=dev)[None, :]
-                       >= (W - state.tgt_depth)[:, None])
-                      & state.tgt_mask[:, None])
-    sel_hist_x = state.hist_x[tb, sel]
-    sel_hist_meas = state.hist_meas[tb, sel]
-    sel_hist_mmsi = state.hist_mmsi[tb, sel]
+                       >= (W - state.tgt_depth)[..., None])
+                      & state.tgt_mask[..., None])
+    sel_hist_x = state.hist_x[(*ix, sel)]
+    sel_hist_meas = state.hist_meas[(*ix, sel)]
+    sel_hist_mmsi = state.hist_mmsi[(*ix, sel)]
     track_mask, track_id = state.tgt_mask, state.tgt_id
 
     # 6. terminate, 7. N-scan prune
@@ -126,12 +130,12 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
         init_out.new_x, init_out.new_mask, init_out.new_mmsi,
         params.merge_threshold)
     # reject new targets neighbouring an existing track's leaf
-    leaf_pos = state.leaf_x[..., :2].reshape(-1, 2)
-    d = torch.linalg.vector_norm(new_x[:, None, :2] - leaf_pos[None, :, :],
-                                 dim=2)
+    leaf_pos = state.leaf_x[..., :2].reshape(*lead, -1, 2)
+    d = torch.linalg.vector_norm(
+        new_x[..., :, None, :2] - leaf_pos[..., None, :, :], dim=-1)
     near = ((d < params.merge_threshold)
-            & state.leaf_mask.reshape(-1)[None, :])
-    new_mask = new_mask & ~near.any(dim=1)
+            & state.leaf_mask.reshape(*lead, -1)[..., None, :])
+    new_mask = new_mask & ~near.any(dim=-1)
     prev_mask = state.tgt_mask
     state = insert_targets(state, new_x, init_out.new_P, new_mask, new_mmsi,
                            scan.time, params)
@@ -151,10 +155,11 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
         confirmed_mask=pr.confirmed_mask, confirmed_x=pr.confirmed_x,
         confirmed_meas=pr.confirmed_meas, confirmed_mmsi=pr.confirmed_mmsi,
         inserted_mask=inserted, inserted_id=state.tgt_id,
-        inserted_P=state.leaf_P[:, 0],
+        inserted_P=state.leaf_P[..., 0, :, :],
         n_clusters=sel_res.n_clusters, sel_obj=sel_res.obj,
         sel_bound=sel_res.bound, sel_feasible=sel_res.feasible,
-        n_leaves=live.sum().int(), leaf_counts=live.sum(dim=1).int(),
+        n_leaves=live.flatten(-2).sum(dim=-1).int(),
+        leaf_counts=live.sum(dim=-1).int(),
         gated_counts=g.gated_counts, used_meas=g.used_meas)
     return state, init_state, outputs
 
@@ -169,14 +174,14 @@ def shrink_windows(state: TrackerState, gated_counts, inserted,
     exceeds max_target_time / radar_period with its beam at least half
     full.  Shapes are static, so this changes no arithmetic: it makes
     the N-scan pruning of that target more aggressive.  No host read."""
-    L = state.leaf_mask.shape[1]
-    lc = state.leaf_mask.sum(dim=1)                                  # [T]
+    L = state.leaf_mask.shape[-1]
+    lc = state.leaf_mask.sum(dim=-1)                                 # [T]
     proxy = lc.float() * (1.0 + gated_counts.float())
-    total = torch.where(state.tgt_mask, proxy, 0.0).sum()
+    total = torch.where(state.tgt_mask, proxy, 0.0).sum(dim=-1)
     share = params.max_target_time / params.radar_period
     sat = state.tgt_mask & (lc >= L)
     over = (state.tgt_mask & (lc >= L // 2)
-            & (proxy > share * torch.clamp(total, min=1.0)))
+            & (proxy > (share * torch.clamp(total, min=1.0))[..., None]))
     shrink = (sat | over) & ~inserted
     return state.replace(tgt_window=torch.where(
         shrink, torch.clamp(state.tgt_window - 1, min=1), state.tgt_window))
@@ -184,19 +189,25 @@ def shrink_windows(state: TrackerState, gated_counts, inserted,
 
 def _merge_new_targets(new_x, new_mask, new_mmsi, threshold):
     """Greedy group-by-proximity merge: each candidate joins the first
-    candidate within ``threshold``; representatives take the mean state."""
-    K = new_x.shape[0]
-    d = torch.linalg.vector_norm(new_x[:, None, :2] - new_x[None, :, :2],
-                                 dim=2)
-    close = (d < threshold) & new_mask[:, None] & new_mask[None, :]
-    first = close.int().argmax(dim=1)
+    candidate within ``threshold``; representatives take the mean state.
+    With leading scenario axes the product is a broadcast multiply and
+    sum (a batched product of these sizes is one slow cuBLAS call)."""
+    K = new_x.shape[-2]
+    d = torch.linalg.vector_norm(
+        new_x[..., :, None, :2] - new_x[..., None, :, :2], dim=-1)
+    close = (d < threshold) & new_mask[..., :, None] & new_mask[..., None, :]
+    first = close.int().argmax(dim=-1)
     rep = first == torch.arange(K, device=new_x.device)
     member_of = (torch.nn.functional.one_hot(first, K).float()
-                 * new_mask[:, None])
-    counts = member_of.sum(dim=0)
-    mean_x = (member_of.T @ new_x) / torch.clamp(counts[:, None], min=1.0)
+                 * new_mask[..., None])
+    counts = member_of.sum(dim=-2)
+    if member_of.dim() == 2:
+        summed = member_of.T @ new_x
+    else:
+        summed = (member_of[..., None] * new_x[..., None, :]).sum(dim=-3)
+    mean_x = summed / torch.clamp(counts[..., None], min=1.0)
     keep = new_mask & rep
-    return (torch.where(keep[:, None], mean_x, new_x), keep,
+    return (torch.where(keep[..., None], mean_x, new_x), keep,
             torch.where(keep, new_mmsi, 0))
 
 
@@ -274,7 +285,7 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, who: str = "Tracker") -> torch.device:
     """``None`` means the GPU.  The CPU (the plain twins of the kernels)
     is taken only when the caller asks for it: without a CUDA device
     ``None`` raises instead of carrying on on the CPU."""
@@ -282,7 +293,7 @@ def _resolve_device(device) -> torch.device:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "Tracker: no CUDA device is available and none was named; "
+            f"{who}: no CUDA device is available and none was named; "
             "pass device='cpu' to run on the CPU (plain torch twins of "
             "the kernels)")
     return torch.device('cuda')

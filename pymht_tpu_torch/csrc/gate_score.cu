@@ -77,6 +77,17 @@
 //    Km of a block's threads walk rows, so it moves ~2.3 MB at the bench
 //    shape (Km = 64) and is a launch and a prologue, not a stream of
 //    stores (4.3 us against a bound of 0.68 us on an H100).
+// 7. A batch of scenarios (parallel/scenario.py) goes through the same
+//    entry point with one "target" per scenario: L = T_s * L_s leaves of
+//    scenario b meet its own scan, z_sub[b] = z[b] ([B, M, 2]), and
+//    zidx[b, m] = b * M + m keeps `used` per scenario on a flat [B * M]
+//    axis.  Scenarios are stepped to their own scan times, so dt is an
+//    array with one entry per target, read at dt[t * dt_step]: the batch
+//    passes dt_step = 1, the pre-gate its one dt with dt_step = 0 (the
+//    scalar expanded, no copy).  Offsets into the plane and into z_sub
+//    are size_t; the
+//    leaf index n and zidx are int, and the wrapper refuses a call whose
+//    16 * N or M does not fit (ops/gate_kernel.py).
 #include <cuda_runtime.h>
 
 namespace {
@@ -283,7 +294,7 @@ gate_score_sub_kernel(const float* __restrict__ x,       // [T * L, 4]
                       const float* __restrict__ z_sub,   // [T, Km, 2]
                       const bool* __restrict__ zmask_sub,  // [T, Km]
                       const int* __restrict__ zidx,      // [T, Km] in [0, M)
-                      const float* __restrict__ dt,      // [] time step
+                      const float* __restrict__ dt,      // [T] time steps
                       float q, float r_var, float eta2, float log_lam,
                       float* __restrict__ scores,        // [T * L, 1 + Km]
                       float* __restrict__ xbar,          // [T * L, 4]
@@ -292,7 +303,7 @@ gate_score_sub_kernel(const float* __restrict__ x,       // [T * L, 4]
                       float* __restrict__ phat,          // [T * L, 16]
                       int* __restrict__ counts,          // [T * L]
                       unsigned char* __restrict__ used,  // [M], zero on entry
-                      int L, int Km, int M, int tiles) {
+                      int L, int Km, int M, int tiles, int dt_step) {
   __shared__ Row s_row[TILE_N];
   __shared__ int s_cnt[TILE_N];
 
@@ -316,8 +327,9 @@ gate_score_sub_kernel(const float* __restrict__ x,       // [T * L, 4]
 
   if (threadIdx.x < rows) {
     const int r = threadIdx.x;
-    const Row row = leaf_prologue(n0 + r, __ldg(dt), q, r_var, log_lam, x, P,
-                                  cnllr, pd, mask, xbar, pbar, kgain, phat);
+    const Row row = leaf_prologue(n0 + r, __ldg(dt + (size_t)t * dt_step), q,
+                                  r_var, log_lam, x, P, cnllr, pd, mask, xbar,
+                                  pbar, kgain, phat);
     s_row[r] = row;
     s_cnt[r] = 0;
     scores[(size_t)(n0 + r) * stride] = row.zero;
@@ -394,14 +406,15 @@ extern "C" int gate_score_launch(
 }
 
 // The per-target entry point: leaf n of target n / L against z_sub[n / L]
-// ([T, Km, 2]), scores [T * L, 1 + Km], used [M] through zidx [T, Km].
+// ([T, Km, 2]) at time step dt[(n / L) * dt_step], scores [T * L, 1 + Km],
+// used [M] through zidx [T, Km].
 extern "C" int gate_score_sub_launch(
     const void* x, const void* P, const void* cnllr, const void* pd,
     const void* mask, const void* z_sub, const void* zmask_sub,
     const void* zidx, const void* dt, float q, float r_var, float eta2,
     float log_lam, void* scores, void* xbar, void* pbar, void* kgain,
     void* phat, void* counts, void* used, int T, int L, int Km, int M,
-    void* stream) {
+    int dt_step, void* stream) {
   if (T <= 0 || L <= 0) return 0;
   const int tiles = (L + TILE_N - 1) / TILE_N;
   gate_score_sub_kernel<<<T * tiles, THREADS, 0, (cudaStream_t)stream>>>(
@@ -410,6 +423,6 @@ extern "C" int gate_score_sub_launch(
       (const bool*)zmask_sub, (const int*)zidx, (const float*)dt, q, r_var,
       eta2, log_lam, (float*)scores, (float*)xbar, (float*)pbar,
       (float*)kgain, (float*)phat, (int*)counts, (unsigned char*)used, L, Km,
-      M, tiles);
+      M, tiles, dt_step);
   return (int)cudaGetLastError();
 }

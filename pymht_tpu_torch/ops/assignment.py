@@ -8,15 +8,18 @@ so cardinality always equals the Hungarian oracle's and cost is within
 n*eps on instances the auction resolves inside its cap.
 
 Every loop keeps JAX's ``lax.while_loop`` semantics by reading its exit
-condition on the host (``sync.flag``).  Each body is a function from
-carry to carry, so a fixed-trip device loop can replace the host loop
-without touching the arithmetic.
+condition on the host (``sync.while_loop``).  Each body is a function
+from carry to carry, so a fixed-trip device loop can replace the host
+loop without touching the arithmetic.  Cost matrices may carry leading
+scenario axes ([..., R, C]): each scenario's loops then run as under
+``jax.vmap``, a scenario that is done waiting unchanged for the others.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import sync
+from ..batch import lead_index
 
 NEG = -1e9
 INF = 1e9
@@ -27,29 +30,31 @@ def _auction_round(value, eps, carry):
     column bids for its best column; each column goes to its highest
     bidder and displaces its previous owner."""
     price, owner, row_of = carry
-    R, C = value.shape
+    R, C = value.shape[-2:]
     rows = torch.arange(R, device=value.device)
     cols = torch.arange(C, device=value.device)
     unassigned = row_of < 0
-    net = value - price[None, :]
-    best_col = net.argmax(dim=1)
-    best_val = net.amax(dim=1)
-    onehot_best = cols[None, :] == best_col[:, None]
+    net = value - price[..., None, :]
+    best_col = net.argmax(dim=-1)
+    best_val = net.amax(dim=-1)
+    onehot_best = cols == best_col[..., None]
     second_val = torch.clamp(
-        torch.where(onehot_best, NEG, net).amax(dim=1), min=0.0)
+        torch.where(onehot_best, NEG, net).amax(dim=-1), min=0.0)
     wants = unassigned & (best_val > 0.0)
-    bid_price = price[best_col] + best_val - second_val + eps
-    bid_matrix = torch.where(wants[:, None] & onehot_best,
-                             bid_price[:, None], NEG)
-    col_best_bid = bid_matrix.amax(dim=0)
-    col_winner = bid_matrix.argmax(dim=0)
+    bi = lead_index(value.shape[:-2], value.device, extra=1)
+    bid_price = price[(*bi, best_col)] + best_val - second_val + eps
+    bid_matrix = torch.where(wants[..., None] & onehot_best,
+                             bid_price[..., None], NEG)
+    col_best_bid = bid_matrix.amax(dim=-2)
+    col_winner = bid_matrix.argmax(dim=-2)
     col_has_bid = col_best_bid > NEG * 0.5
     displaced = col_has_bid & (owner >= 0)
-    row_displaced = ((rows[:, None] == owner[None, :])
-                     & displaced[None, :]).any(dim=1)
-    win_matrix = (rows[:, None] == col_winner[None, :]) & col_has_bid[None, :]
-    row_won = win_matrix.any(dim=1)
-    row_new_col = win_matrix.int().argmax(dim=1)
+    row_displaced = ((rows[:, None] == owner[..., None, :])
+                     & displaced[..., None, :]).any(dim=-1)
+    win_matrix = ((rows[:, None] == col_winner[..., None, :])
+                  & col_has_bid[..., None, :])
+    row_won = win_matrix.any(dim=-1)
+    row_new_col = win_matrix.int().argmax(dim=-1)
     row_of = torch.where(row_won, row_new_col,
                          torch.where(row_displaced, -1, row_of))
     owner = torch.where(col_has_bid, col_winner, owner)
@@ -59,127 +64,143 @@ def _auction_round(value, eps, carry):
 
 def _can_bid(value, carry):
     price, _, row_of = carry
-    net = value - price[None, :]
-    return ((row_of < 0) & (net.amax(dim=1) > 0.0)).any()
+    net = value - price[..., None, :]
+    return ((row_of < 0) & (net.amax(dim=-1) > 0.0)).any(dim=-1)
 
 
 def _greedy_round(c, carry):
     """Unassigned rows claim their cheapest FREE valid column (no
     displacement); ties between rows go to the cheaper bid."""
     row_of, owner = carry
-    R, C = c.shape
+    R, C = c.shape[-2:]
     rows = torch.arange(R, device=c.device)
     cols = torch.arange(C, device=c.device)
-    cc = torch.where((owner >= 0)[None, :], INF, c)
-    best_c = cc.argmin(dim=1)
-    best_v = cc.amin(dim=1)
+    cc = torch.where((owner >= 0)[..., None, :], INF, c)
+    best_c = cc.argmin(dim=-1)
+    best_v = cc.amin(dim=-1)
     wants = (row_of < 0) & (best_v < INF * 0.5)
-    bid = torch.where(wants[:, None] & (cols[None, :] == best_c[:, None]),
+    bid = torch.where(wants[..., None] & (cols == best_c[..., None]),
                       c, INF)
-    win_r = bid.argmin(dim=0)
-    has = bid.amin(dim=0) < INF * 0.5
-    win_matrix = (rows[:, None] == win_r[None, :]) & has[None, :]
-    row_won = win_matrix.any(dim=1)
-    row_of = torch.where(row_won, win_matrix.int().argmax(dim=1), row_of)
+    win_r = bid.argmin(dim=-2)
+    has = bid.amin(dim=-2) < INF * 0.5
+    win_matrix = (rows[:, None] == win_r[..., None, :]) & has[..., None, :]
+    row_won = win_matrix.any(dim=-1)
+    row_of = torch.where(row_won, win_matrix.int().argmax(dim=-1), row_of)
     owner = torch.where(has, win_r, owner)
     return row_of, owner
 
 
 def _greedy_open(c, carry):
     row_of, owner = carry
-    return ((~(owner >= 0))[None, :] & (c < INF * 0.5)
-            & (row_of < 0)[:, None]).any()
+    return ((~(owner >= 0))[..., None, :] & (c < INF * 0.5)
+            & (row_of < 0)[..., None]).flatten(-2).any(dim=-1)
 
 
 def auction_assign(cost, valid, max_iters: int = 4000):
     """Min-cost bipartite matching with unassignment allowed.
 
-    cost: [R, C] f32; valid: [R, C] bool (gated pairs).
-    Returns row_to_col [R] int32 (-1 = unassigned)."""
-    R, C = cost.shape
+    cost: [..., R, C] f32; valid: [..., R, C] bool (gated pairs).
+    Returns row_to_col [..., R] int32 (-1 = unassigned)."""
+    R, C = cost.shape[-2:]
+    lead = cost.shape[:-2]
     dev = cost.device
-    cmax = torch.where(valid, cost, 0.0).amax()
-    cmin = torch.where(valid, cost, cmax).amin()
+    cmax = torch.where(valid, cost, 0.0).flatten(-2).amax(dim=-1)
+    cmin = torch.where(valid, cost, cmax[..., None, None]) \
+        .flatten(-2).amin(dim=-1)
     span = torch.clamp(cmax - cmin, min=1.0)
     K = cmax + span * (R + 1)
-    value = torch.where(valid, K - cost, NEG)
+    value = torch.where(valid, K[..., None, None] - cost, NEG)
     n = max(R, C)
     eps = span / float(2.0 * (n + 1) * (n + 1))
 
-    carry = (torch.zeros((C,), dtype=torch.float32, device=dev),
-             torch.full((C,), -1, dtype=torch.int64, device=dev),
-             torch.full((R,), -1, dtype=torch.int64, device=dev))
-    it = 0
-    while it < max_iters and sync.flag(_can_bid(value, carry)):
-        carry = _auction_round(value, eps, carry)
-        it += 1
-    _, _, row_of = carry
+    carry = (torch.zeros((*lead, C), dtype=torch.float32, device=dev),
+             torch.full((*lead, C), -1, dtype=torch.int64, device=dev),
+             torch.full((*lead, R), -1, dtype=torch.int64, device=dev))
+    _, _, row_of = sync.while_loop(
+        lambda c: _can_bid(value, c),
+        lambda c, _: _auction_round(value, eps[..., None], c), carry,
+        max_iters=max_iters)
 
     # Safety: never return an invalid pair (possible only at iteration
     # caps with pathological ties).
     rows = torch.arange(R, device=dev)
-    ok = valid[rows, row_of.clamp(0, max(C - 1, 0))] & (row_of >= 0)
+    bi = lead_index(lead, dev, extra=1)
+    ok = valid[(*bi, rows, row_of.clamp(0, max(C - 1, 0)))] & (row_of >= 0)
     row_of = torch.where(ok, row_of, -1)
-    owner = torch.full((C + 1,), -1, dtype=torch.int64, device=dev)
-    owner[torch.where(row_of >= 0, row_of, C)] = rows
-    owner = owner[:C]
+    owner = torch.full((*lead, C + 1), -1, dtype=torch.int64, device=dev)
+    owner[(*bi, torch.where(row_of >= 0, row_of, C))] = rows
+    owner = owner[..., :C]
 
     c = torch.where(valid, cost, INF)
-    carry = (row_of, owner)
-    it = 0
-    while it < R and sync.flag(_greedy_open(c, carry)):
-        carry = _greedy_round(c, carry)
-        it += 1
-    row_of, owner = carry
+    row_of, owner = sync.while_loop(
+        lambda cr: _greedy_open(c, cr),
+        lambda cr, _: _greedy_round(c, cr), (row_of, owner), max_iters=R)
     return _augment_to_max_cardinality(valid, row_of, owner).int()
 
 
 def _bfs_layer(valid, owner, carry):
     """Expand the BFS frontier one (valid edge -> matched edge) layer."""
     vis_rows, vis_cols, col_parent, frontier = carry
-    R = valid.shape[0]
-    fv = frontier[:, None] & valid
-    new_cols = fv.any(dim=0) & ~vis_cols
-    col_parent = torch.where(new_cols, fv.int().argmax(dim=0), col_parent)
+    R = valid.shape[-2]
+    fv = frontier[..., None] & valid
+    new_cols = fv.any(dim=-2) & ~vis_cols
+    col_parent = torch.where(new_cols, fv.int().argmax(dim=-2), col_parent)
     vis_cols = vis_cols | new_cols
     rows = torch.arange(R, device=valid.device)
-    nr = ((rows[:, None] == owner[None, :])
-          & (new_cols & (owner >= 0))[None, :]).any(dim=1)
+    nr = ((rows[:, None] == owner[..., None, :])
+          & (new_cols & (owner >= 0))[..., None, :]).any(dim=-1)
     new_rows = nr & ~vis_rows
     return vis_rows | new_rows, vis_cols, col_parent, new_rows
 
 
-def _bfs(valid, row_of, owner, max_layers):
-    """One BFS from every unassigned row.  Returns
-    (found, free_col, col_parent)."""
-    C = valid.shape[1]
+def _bfs(valid, row_of, owner, max_layers, active=None):
+    """One BFS from every unassigned row (of the ``active`` scenarios).
+    Returns (found, free_col, col_parent)."""
+    C = valid.shape[-1]
+    lead = valid.shape[:-2]
     dev = valid.device
     vis_rows = row_of < 0
-    carry = (vis_rows, torch.zeros((C,), dtype=torch.bool, device=dev),
-             torch.full((C,), -1, dtype=torch.int64, device=dev), vis_rows)
-    it = 0
-    while it < max_layers:
+    carry = (vis_rows, torch.zeros((*lead, C), dtype=torch.bool, device=dev),
+             torch.full((*lead, C), -1, dtype=torch.int64, device=dev),
+             vis_rows)
+
+    def go_on(carry):
         _, vis_cols, _, frontier = carry
-        free_hit = (vis_cols & (owner < 0)).any()
-        if not sync.flag(~free_hit & frontier.any()):
-            break
-        carry = _bfs_layer(valid, owner, carry)
-        it += 1
-    _, vis_cols, col_parent, _ = carry
+        free_hit = (vis_cols & (owner < 0)).any(dim=-1)
+        p = ~free_hit & frontier.any(dim=-1)
+        return p if active is None else p & active
+
+    _, vis_cols, col_parent, _ = sync.while_loop(
+        go_on, lambda c, _: _bfs_layer(valid, owner, c), carry,
+        max_iters=max_layers)
     free_cols = vis_cols & (owner < 0)
-    return free_cols.any(), free_cols.int().argmax(), col_parent
+    return free_cols.any(dim=-1), free_cols.int().argmax(dim=-1), col_parent
 
 
-def _flip(row_of, owner, end_col, col_parent):
-    """Flip the augmenting path ending at free column ``end_col``."""
-    row_of, owner = row_of.clone(), owner.clone()
-    c = end_col
-    while sync.flag(c >= 0):
-        r = col_parent[c]
-        c_prev = row_of[r]           # -1 once r is a source row
-        row_of[r] = c
-        owner[c] = r
-        c = c_prev
+def _flip(row_of, owner, end_col, col_parent, active=None):
+    """Flip the augmenting path ending at free column ``end_col`` (in the
+    ``active`` scenarios).  With scenario axes the path's writes are
+    per-scenario scatters: no index is read on the host."""
+    bi = lead_index(row_of.shape[:-1], row_of.device)
+
+    def step(carry, running):
+        row_of, owner, c = carry
+        r = col_parent[(*bi, c)]
+        c_prev = row_of[(*bi, r)]    # -1 once r is a source row
+        if running is None:
+            row_of[(*bi, r)] = c
+            owner[(*bi, c)] = r
+        else:                        # scenarios that are done keep theirs
+            row_of[(*bi, r)] = torch.where(running, c, c_prev)
+            owner[(*bi, c)] = torch.where(running, r, owner[(*bi, c)])
+        return row_of, owner, c_prev
+
+    def go_on(carry):
+        p = carry[2] >= 0
+        return p if active is None else p & active
+
+    row_of, owner, _ = sync.while_loop(
+        go_on, step, (row_of.clone(), owner.clone(), end_col))
     return row_of, owner
 
 
@@ -187,10 +208,14 @@ def _augment_to_max_cardinality(valid, row_of, owner):
     """Alternating-path augmentation to exact maximum cardinality: BFS
     from all unassigned rows, flip one augmenting path per round, until
     no augmenting path exists."""
-    R, C = valid.shape
+    R, C = valid.shape[-2:]
     max_layers = min(R, C) + 1
-    while True:
-        found, end_col, col_parent = _bfs(valid, row_of, owner, max_layers)
-        if not sync.flag(found):
-            return row_of
-        row_of, owner = _flip(row_of, owner, end_col, col_parent)
+
+    def round_(carry, active):
+        row_of, owner, _, end_col, col_parent = carry
+        row_of, owner = _flip(row_of, owner, end_col, col_parent, active)
+        return (row_of, owner, *_bfs(valid, row_of, owner, max_layers,
+                                     active))
+
+    carry = (row_of, owner, *_bfs(valid, row_of, owner, max_layers))
+    return sync.while_loop(lambda c: c[2], round_, carry)[0]

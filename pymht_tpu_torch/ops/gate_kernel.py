@@ -28,7 +28,9 @@ against row ``n // leaves_per_target`` of ``z_sub`` (what
 ``radar_candidates_planes(..., z_sub, zmask_sub)`` computes), the plane is
 ``[N, 1 + Km]``, and ``used_meas`` stays on the real measurement axis
 through ``zidx``.  ``launches_pregate`` counts that entry point's share of
-``launches``.
+``launches``.  The same entry point steps a batch of scenarios, one
+"target" per scenario (core/grow.py): then ``radar_period`` is a ``[T]``
+tensor, each target's own time step.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ launches_pregate = 0  # of those, launches of the per-target entry point
 
 _PTR, _F32, _INT = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _ARGTYPES = [_PTR] * 8 + [_F32] * 4 + [_PTR] * 7 + [_INT, _INT, _PTR]
-_ARGTYPES_SUB = [_PTR] * 9 + [_F32] * 4 + [_PTR] * 7 + [_INT] * 4 + [_PTR]
+_ARGTYPES_SUB = [_PTR] * 9 + [_F32] * 4 + [_PTR] * 7 + [_INT] * 5 + [_PTR]
 
 
 class RadarCandidates(NamedTuple):
@@ -76,12 +78,19 @@ def radar_candidates_reference(x, P, cnllr, pd, mask, z, zmask,
     zmask [M] bool; radar_period a float or 0-d tensor.  With ``z_sub``
     [T,Km,2], ``zmask_sub`` [T,Km], ``zidx`` [T,Km] and
     ``leaves_per_target`` = N // T, leaf n meets row n // L of ``z_sub``
-    and ``used_meas`` [M] is scattered through ``zidx``."""
+    and ``used_meas`` [M] is scattered through ``zidx``; there
+    ``radar_period`` may also be a [T] tensor, target t's time step."""
     dev = x.device
     A = pv.Phi(radar_period, dev)
     Q = pv.Q(radar_period, q_scale, dev)
     R = torch.eye(2, dtype=torch.float32, device=dev) * r_var
-    x_bar, P_bar = k.predict(A, Q, x, P)
+    if A.dim() == 3:                     # one time step per target
+        L = _sub_shape(x, z_sub, leaves_per_target)[1]
+        A, Q = A.repeat_interleave(L, 0), Q.repeat_interleave(L, 0)
+        x_bar = torch.einsum('nij,nj->ni', A, x)
+        P_bar = torch.einsum('nij,njk,nlk->nil', A, P, A) + Q
+    else:
+        x_bar, P_bar = k.predict(A, Q, x, P)
     z_hat, S, S_inv, K, P_hat = k.precalc(pv.C_RADAR(dev), R, x_bar, P_bar)
     if z_sub is None:
         zt, zm = k.residuals(z, z_hat), zmask[None, :]
@@ -183,14 +192,21 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
            q_scale, r_var, eta2, lambda_ex, z_sub=None, zmask_sub=None,
            zidx=None, leaves_per_target=None):
     """Launch K1 on the current stream into ``out`` (from
-    ``empty_outputs``).  ``dt`` is a 0-d f32 tensor on the device; the
-    other scalars go by value.  Nothing is copied from the host.  With
-    ``z_sub`` the per-target entry point is launched (``out`` from
+    ``empty_outputs``).  ``dt`` is a 0-d f32 tensor on the device, or for
+    the per-target entry point also ``[T]`` (one time step per target;
+    an expanded scalar, stride 0, is read without a copy); the other
+    scalars go by value.  Nothing is copied from the host.
+    With ``z_sub`` the per-target entry point is launched (``out`` from
     ``empty_outputs(N, M, dev, Km)``; ``zidx`` int32 with values in
-    [0, M))."""
+    [0, M)).  Raises for a shape the kernel's 32-bit leaf and
+    measurement indices cannot address."""
     global launches, launches_pregate
     dev = x.device
     N, M = x.shape[0], z.shape[0]
+    if 16 * N >= 2 ** 31 or M >= 2 ** 31:
+        raise ValueError(f"radar_candidates: {N} leaves and {M} measurements "
+                         f"exceed the kernel's int32 indices (16 N and M "
+                         f"must stay below 2^31)")
     sub = z_sub is not None
     if sub:
         T, L = _sub_shape(x, z_sub, leaves_per_target)
@@ -198,11 +214,18 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
         if Km < 1 or zmask_sub is None or zidx is None:
             raise ValueError("radar_candidates: z_sub needs Km >= 1 columns "
                              "and both zmask_sub and zidx")
+        dt_step = dt.stride(0) if dt.dim() == 1 else 0
+        if dt.dim() == 1 and (dt.shape[0] != T or dt_step not in (0, 1)):
+            raise ValueError(f"radar_candidates: dt must be 0-d or one step "
+                             f"per target, [{T}] with stride 0 or 1; got "
+                             f"shape {tuple(dt.shape)}, stride {dt.stride()}")
+        dt_one = dt[:1] if dt.dim() == 1 else dt   # dtype, device, alignment
         per_target = (("z_sub", z_sub, torch.float32, (T, Km, 2), 8),
                       ("zmask_sub", zmask_sub, torch.bool, (T, Km), 1),
-                      ("zidx", zidx, torch.int32, (T, Km), 4))
+                      ("zidx", zidx, torch.int32, (T, Km), 4),
+                      ("dt", dt_one, torch.float32, tuple(dt_one.shape), 4))
     else:
-        Km, per_target = M, ()
+        Km, per_target = M, (("dt", dt, torch.float32, (), 4),)
     # alignment: the kernel loads x and P as float4 and z as float2, and
     # stores the per-leaf float outputs as float4
     for name, t, dtype, shape, align in (
@@ -214,7 +237,6 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
             ("z", z, torch.float32, (M, 2), 8),
             ("zmask", zmask, torch.bool, (M,), 1),
             *per_target,
-            ("dt", dt, torch.float32, (), 4),
             ("scores", out.scores, torch.float32, (N, Km + 1), 4),
             ("x_bar", out.x_bar, torch.float32, (N, 4), 16),
             ("P_bar", out.P_bar, torch.float32, (N, 4, 4), 16),
@@ -235,7 +257,7 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
             err = lib.gate_score_sub_launch(
                 *leaves, z_sub.data_ptr(), zmask_sub.data_ptr(),
                 zidx.data_ptr(), dt.data_ptr(), *scalars, *outs, T, L, Km, M,
-                stream)
+                dt_step, stream)
         else:
             err = lib.gate_score_launch(
                 *leaves, z.data_ptr(), zmask.data_ptr(), dt.data_ptr(),
@@ -255,8 +277,8 @@ def radar_candidates(x, P, cnllr, pd, mask, z, zmask, radar_period,
     ``radar_period`` a float or a 0-d tensor (a device value, the per-scan
     dt, is never read back).  ``z_sub`` [T,Km,2], ``zmask_sub`` [T,Km],
     ``zidx`` [T,Km] i32 and ``leaves_per_target`` select the per-target
-    pass (module docstring).  CPU tensors take the plain twin; CUDA
-    tensors take the kernel."""
+    pass (module docstring), where ``radar_period`` may also be [T].  CPU
+    tensors take the plain twin; CUDA tensors take the kernel."""
     dev = x.device
     sub = dict(z_sub=z_sub, zmask_sub=zmask_sub, zidx=zidx,
                leaves_per_target=leaves_per_target)

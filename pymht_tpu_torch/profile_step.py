@@ -5,6 +5,8 @@
     python -m pymht_tpu_torch.profile_step --ais --pregate 64
     python -m pymht_tpu_torch.profile_step --prune-similar --dynamic-window
     python -m pymht_tpu_torch.profile_step --method ipm
+    python -m pymht_tpu_torch.profile_step --batch 32        # B scenarios
+    python -m pymht_tpu_torch.profile_step --batch 256 --mc
 
 Runs the radar-only bench scene (``Tracker(use_ais=False)``) or, with
 ``--ais``, the AIS-fusion scene (``Tracker(use_ais=True)``, A=32, G=2;
@@ -13,7 +15,12 @@ sets ``radar_cand_width``; ``--method`` names the selection solver
 (default ``'lagrangian'``, the production hybrid); ``--prune-similar`` and ``--dynamic-window``
 turn on ``scan_step``'s arguments of those names (the stepped Tracker
 hands the step only the first; the second is streaming's, given to the
-step here so that its device work can be read beside the rest).  Over the
+step here so that its device work can be read beside the rest).  With
+``--batch B`` it steps B scenarios together through the batched step
+(``parallel/scenario.make_batched_step``): B scenarios of
+``scenes.mc_bench_scene`` (bench.py's shapes, 100 targets each), or with
+``--mc`` of ``scenes.mc_scene`` (eval_configs.py's Monte-Carlo
+configuration); a "scan" below is then one batched scan.  Over the
 steady scans (3 onwards) it reports:
 
 * per phase (grow, select, terminate + prune, initiate), the wall time of
@@ -46,10 +53,9 @@ from .core.tracker import Tracker
 from .utils.scenes import bench_scene, bench_scene_ais
 
 
-def _phase_times(tr: Tracker, packed):
+def _phase_times(state, init_state, scan, ais, shapes, params, method,
+                 merge=False):
     """Wall ms of each phase of the next step, run alone on its inputs."""
-    scan, ais = tr._unpack_inputs(packed)
-    shapes, params = tr.shapes, tr.params
     out, t = {}, time.perf_counter()
 
     def lap(name):
@@ -60,18 +66,18 @@ def _phase_times(tr: Tracker, packed):
         t = now
 
     n_sync = sync.count
-    g = grow(tr.state, scan, ais, shapes, params)
-    if tr.prune_similar:
+    g = grow(state, scan, ais, shapes, params)
+    if merge:
         g = g._replace(state=prune_similar(g.state, shapes, params))
     lap("grow")
-    res = select(g.state, shapes, params, method=tr.method)
+    res = select(g.state, shapes, params, method=method)
     lap("select")
     st = g.state.replace(sel_leaf=res.sel, lam=res.lam)
     st = n_scan_prune(terminate(st, shapes, params).state, shapes,
                       params).state
     lap("terminate_prune")
     # (the used-MMSI filter of scan_step, a handful of ops, is left out)
-    initiator_mod.step(tr.init_state, scan.z, scan.mask & ~g.used_meas,
+    initiator_mod.step(init_state, scan.z, scan.mask & ~g.used_meas,
                        scan.time, ais, shapes, params)
     lap("initiate")
     out["host_syncs_grow_select_prune_initiate"] = sync.count - n_sync
@@ -92,11 +98,18 @@ def main(argv=None):
                     help="merge similar sibling hypotheses after grow")
     ap.add_argument("--dynamic-window", action="store_true",
                     help="the on-device window trigger in every step")
+    ap.add_argument("--batch", type=int, default=0, metavar="B",
+                    help="B scenarios through the batched step")
+    ap.add_argument("--mc", action="store_true",
+                    help="with --batch: eval_configs.py's Monte-Carlo "
+                         "configuration instead of bench.py's shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.batch:
+        return _batched(args)
     if args.ais:
         shapes, params, scans, groups, _, seeds, mmsi = bench_scene_ais()
     else:
@@ -122,7 +135,9 @@ def main(argv=None):
         if i >= 2:
             packed = tr._pack_inputs(float(s.time) - tr.t0, s.measurements,
                                      messages(i))
-            phases.append(_phase_times(tr, packed))
+            phases.append(_phase_times(tr.state, tr.init_state,
+                                       *tr._unpack_inputs(packed), shapes,
+                                       params, tr.method, tr.prune_similar))
         tr.add_measurement_list(s.time, s.measurements, messages(i))
     # pass 2: the unchanged steps under the profiler
     tr = new_tracker()
@@ -139,16 +154,7 @@ def main(argv=None):
     wall_ms = 1e3 * (time.perf_counter() - t_window)
     prof.__exit__(None, None, None)
     n = len(scans) - 2
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    from torch.autograd import DeviceType
-    events = [e for e in prof.key_averages()      # kernels and copies
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    top = sorted(events, key=dev_us, reverse=True)[:20]
+    busy_ms, events, top = _device_time(prof)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scene": "ais" if args.ais else "radar",
@@ -165,13 +171,98 @@ def main(argv=None):
         "phase_ms_median": {k: float(np.median([p[k] for p in phases]))
                             for k in phases[0]},
         "host_syncs_per_scan": tr.host_syncs,
+        **_device_summary(events, top, n),
+    }, indent=1))
+    return 0
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _device_time(prof):
+    """(device busy ms, device events, the 20 longest) of a trace."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages()      # kernels and copies
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    top = sorted(events, key=_dev_us, reverse=True)[:20]
+    return sum(_dev_us(e) for e in events) / 1e3, events, top
+
+
+def _device_summary(events, top, n):
+    return {
         "device_ops_per_scan": sum(e.count for e in events) / n,
         "k1": [{"name": e.key[:90], "device_ms_per_call":
-                dev_us(e) / 1e3 / e.count, "calls_per_scan": e.count / n}
+                _dev_us(e) / 1e3 / e.count, "calls_per_scan": e.count / n}
                for e in events if "gate_score" in e.key],
         "top_device_ops": [
-            {"name": e.key[:90], "device_ms_per_scan": dev_us(e) / 1e3 / n,
-             "calls_per_scan": e.count / n} for e in top],
+            {"name": e.key[:90], "device_ms_per_scan": _dev_us(e) / 1e3 / n,
+             "calls_per_scan": e.count / n} for e in top]}
+
+
+def _batched(args):
+    """The batched step on B scenarios: phases alone, then the steady
+    scans under the profiler, as for one scenario."""
+    from .parallel import montecarlo as mc
+    from .parallel.scenario import make_batched_step
+    from .utils.scenes import mc_bench_scene, mc_scene
+    scene = mc_scene if args.mc else mc_bench_scene
+    shapes, params, sc = scene(batch=args.batch)
+    sc = mc.McScenario(*(a.to("cuda") for a in sc))
+    step = make_batched_step(shapes, params, method=args.method)
+    S = sc.z.shape[1]
+
+    # pass 1: each phase of each steady batched scan, timed alone
+    st, ist = mc.initial_states(sc, shapes, params)
+    phases = []
+    for s in range(S):
+        scan = mc.scan_batch(sc, s)
+        if s >= 2:
+            phases.append(_phase_times(st, ist, scan, None, shapes, params,
+                                       args.method))
+        st, ist, _ = step(st, ist, scan)
+    # pass 2: the unchanged batched steps under the profiler
+    torch.cuda.reset_peak_memory_stats()
+    st, ist = mc.initial_states(sc, shapes, params)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    reads, walls = [], []
+    for s in range(S):
+        if s == 2:
+            torch.cuda.synchronize()
+            prof.__enter__()
+            t_window = time.perf_counter()
+        n_sync, t = sync.count, time.perf_counter()
+        st, ist, out = step(st, ist, mc.scan_batch(sc, s))
+        reads.append(sync.count - n_sync)
+        if s < 2:
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t_window)
+    prof.__exit__(None, None, None)
+    n = S - 2
+    busy_ms, events, top = _device_time(prof)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "scene": "mc" if args.mc else "mc-bench",
+        "batch": args.batch,
+        "shapes": dataclasses.asdict(shapes),
+        "method": args.method,
+        "scans_profiled": n,
+        "wall_ms_first_two_scans": walls,
+        "wall_ms_per_batched_scan": wall_ms / n,
+        "scenario_scans_per_s": args.batch * n / (wall_ms / 1e3),
+        "device_busy_ms_per_scan": busy_ms / n,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "phase_ms_median": {k: float(np.median([p[k] for p in phases]))
+                            for k in phases[0]},
+        "host_syncs_per_scan": reads,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "tracks_alive": int(out.track_mask[:, :sc.truth.shape[2]].sum()),
+        **_device_summary(events, top, n),
     }, indent=1))
     return 0
 

@@ -136,3 +136,44 @@ def xcheck_scene(n_targets: int = 10, n_scans: int = 16, seed: int = 7,
                                p0=(0., 0.), P_d=P_d, local_clutter=True,
                                global_clutter=True)
     return shapes, params, scans, sim_list
+
+
+def _mc_draw(shapes, params, batch, n_targets, n_scans, seed, **kw):
+    import torch
+    from ..parallel import montecarlo as mc
+    return mc.generate(torch.Generator().manual_seed(seed), batch, n_targets,
+                       n_scans, shapes, params, params.radar_range, **kw)
+
+
+def mc_scene(batch: int = 256, n_targets: int = 4, n_scans: int = 10,
+             seed: int = 0):
+    """eval_configs.py's ``run_montecarlo`` configuration (its shape rule
+    at ``n_targets``: T = max(8, K + 4), L=16, M = K + 24, A=2, W=6, 8
+    prelims, M initiators; an 800 m radar, P_d 0.9, lambda_phi 1e-6,
+    N=4, sigma_Q 0.05) at BASELINE config 4's ``batch`` of 256 scenarios.
+    Drawn by ``parallel.montecarlo.generate`` on a CPU generator seeded
+    with ``seed`` (move it to the card with ``.to``).
+
+    Returns (shapes, params, scenario)."""
+    K = n_targets
+    shapes = TrackerShapes(max_targets=max(8, K + 4), max_leaves=16,
+                           max_meas=K + 24, max_ais=2, window=6,
+                           max_prelim=8, max_initiators=K + 24)
+    params = TrackerParams(radar_period=2.5, P_d=0.9, lambda_phi=1e-6,
+                           lambda_nu=1e-5, N=4, radar_range=800.0)
+    return shapes, params, _mc_draw(shapes, params, batch, K, n_scans, seed,
+                                    sigma_Q=0.05)
+
+
+def mc_bench_scene(batch: int = 32, n_targets: int = 100, n_scans: int = 13,
+                   seed: int = 0):
+    """``batch`` scenarios at bench.py's shapes and parameters (those of
+    ``bench_scene``: T=128, L=32, M=512, W=7, A=8, 64 prelims, 512
+    initiators; a 2 km radar, lambda_phi 2e-5, P_d 0.9, N=5), each with
+    ``n_targets`` targets and half a local clutter point per target per
+    scan, drawn like ``mc_scene`` (``n_scans`` scans).
+
+    Returns (shapes, params, scenario)."""
+    shapes, params = _bench_config(max_ais=8)
+    return shapes, params, _mc_draw(shapes, params, batch, n_targets,
+                                    n_scans, seed, lambda_local=0.5)

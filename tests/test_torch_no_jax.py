@@ -5,7 +5,8 @@ initiation and the spatial pre-gate, and then streams a run with
 ``prune_similar`` and the on-device window, degrades the beam, checks the
 forest and smooths the tracks; then runs the default ``'ipm'`` and
 ``'lagrangian_pure'``, both exact oracles, a checkpoint round trip and
-the XML export."""
+the XML export; then draws a Monte-Carlo batch and tracks it with the
+batched step (parallel/)."""
 import os
 import subprocess
 import sys
@@ -120,6 +121,13 @@ with tempfile.TemporaryDirectory() as d:
     xml_io.write_element_to_file(os.path.join(d, 'run.xml'), root)
     run = ET.parse(os.path.join(d, 'run.xml')).getroot().find(xml_io.RUN)
     assert len(run.findall(xml_io.TRACK)) >= 2
+# scenario batching: a Monte-Carlo batch through the batched step
+from pymht_tpu_torch.parallel import montecarlo as mc
+sc = mc.generate(torch.Generator().manual_seed(0), 3, 2, 4, shapes, params,
+                 300.0)
+st, xs, ms = mc.run_batch(sc, shapes, params)
+assert xs.shape == (4, 3, 8, 4) and int(ms[-1].sum()) >= 4
+assert st.leaf_x.shape == (3, 8, 8, 4)
 loaded = sorted(m for m in sys.modules
                 if (m in ('jax', 'pymht_tpu')
                     or m.startswith(('jax.', 'jaxlib', 'flax', 'pymht_tpu.')))

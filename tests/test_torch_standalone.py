@@ -60,6 +60,15 @@ def test_port_files_cover_the_solver_and_persistence_modules():
         assert f"pymht_tpu_torch/{want}" in names, want
 
 
+def test_port_files_cover_the_parallel_modules():
+    """Scenario batching and the Monte-Carlo runner are the port's own
+    files, under the import scan above."""
+    names = {str(p.relative_to(REPO_ROOT)) for p in PORT_FILES}
+    for want in ("parallel/__init__.py", "parallel/scenario.py",
+                 "parallel/montecarlo.py", "batch.py"):
+        assert f"pymht_tpu_torch/{want}" in names, want
+
+
 def _code_lines(path, comment):
     """The lines of a source file below its leading comment block."""
     lines = path.read_text().splitlines()

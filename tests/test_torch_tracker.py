@@ -141,7 +141,10 @@ def test_tracker_refuses_unported_options():
     """Nothing of Tracker's surface raises NotImplementedError any more:
     every selection method runs, the options and entry points of the
     streaming and degradation slice are accepted.  What is refused: an
-    unknown method (ValueError) and a step without its AisBatch."""
+    unknown method (ValueError) and a step without its AisBatch.  The one
+    NotImplementedError left in the package is the batched step's
+    refusal of the options that are not batched yet
+    (parallel/scenario.py)."""
     params = TrackerParams()
     tr = Tracker(SHAPES, params, device='cpu', prune_similar=True,
                  dynamic_window=True, degrade_on_overload=True)
@@ -172,9 +175,9 @@ def test_tracker_refuses_unported_options():
                            params)
     import pathlib
     port = pathlib.Path(ttracker.__file__).resolve().parents[1]
-    hits = [str(f) for f in port.rglob("*.py")
+    hits = [str(f.relative_to(port)) for f in port.rglob("*.py")
             if "NotImplementedError" in f.read_text()]
-    assert not hits, hits
+    assert hits == ["parallel/scenario.py"], hits
 
 
 def test_tracker_defaults_to_the_card(monkeypatch):
