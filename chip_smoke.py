@@ -98,7 +98,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     L=32, M=512, W=7, 100 targets, a 2 km radar, 13 scans;
     ``scenes.mc_bench_scene``) the same way, against scenarios 0 and 31
     stepped alone on the card (the CPU is too slow at this size), with
-    the run's peak device memory.
+    the run's peak device memory;
+19. mc-ais: B=32 draws of the AIS-fusion scene (T=128, L=32, M=512,
+    A=32, G=2, W=7, 12 scans; ``scenes.bench_ais_batch``, each padded by
+    a Tracker and pre-initialised with its seeds and MMSIs) through
+    ``make_batched_step(method='lagrangian', use_ais=True)``: K1 once per
+    batched scan, every selection feasible, scenarios 0 and 31 against
+    themselves stepped alone on the card (labels, selected leaves,
+    states, objectives), a B=4, 4-scan batch against its CPU run, K1
+    against its twin at the batch's shape (seeded and on two real scans)
+    and timed against its bound; ms per batched scan, host reads, peak
+    device memory;
+20. mc-pregate: the mc-bench batch (B=32) with ``radar_cand_width=64``
+    through ``run_batch``: K1's per-target entry point with B * T = 4096
+    targets of Km = 64 columns on the flat [B * M] axis, the rest as
+    phase 18;
+21. mc-ipm: B=8 draws of the demo scene (T=32, L=32, M=64, A=8, W=7, 21
+    scans) under ``make_batched_step(method='ipm', use_ais=True)``: the
+    interior-point solver entered, every scan feasible, every scenario
+    against itself stepped alone under 'ipm' on the card, K1 at the
+    batch's shape; then 'lagrangian_pure' on the same batch for 5 scans
+    from the state after 12, every scenario against itself alone.
 
 The line before the last is one JSON object describing each kernel of
 the path; the last line is ``{"ok": true, "device": {...}}``.  There is
@@ -1610,16 +1630,20 @@ def batched_grow_makes_no_host_sync(state_b, scan_b, shapes, params):
           "no leaf")
 
 
-def batched_phase(what, scene, batch, picks, on_cpu):
+def batched_phase(what, scene, batch, picks, on_cpu, km=0):
     """One batched configuration: the counted card run of ``run_batch``
     (K1's launches noted), a second card run timed, the checks, and K1
-    against its twin and timed at the batched shape."""
+    against its twin and timed at the batched shape.  ``km``: the
+    spatial pre-gate's radar_cand_width (K1 then has B * T targets of L
+    leaves and Km columns)."""
+    import dataclasses
     import torch
     from pymht_tpu_torch import sync
     from pymht_tpu_torch.core.state import state_to_numpy
     from pymht_tpu_torch.ops import gate_kernel as gk
     from pymht_tpu_torch.parallel import montecarlo as mc
     shapes, params, sc_cpu = scene(batch=batch)
+    shapes = dataclasses.replace(shapes, radar_cand_width=km)
     sc = mc.McScenario(*(a.to("cuda") for a in sc_cpu))
     B, S = sc.z.shape[:2]
     T, L, M = shapes.max_targets, shapes.max_leaves, shapes.max_meas
@@ -1662,24 +1686,19 @@ def batched_phase(what, scene, batch, picks, on_cpu):
     stepped_alone(sc, shapes, params, picks, state_b, xs, ms, what)
     q = mc_quality(sc, xs, ms, what)
 
-    args = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
-    inp, dt, sub = k1_batch_inputs(17, B, T * L, M, "cuda")
-    err, g_r = check_against_twin(gk, f"{what}, seeded", inp, dt, args, sub)
-    check(bool(g_r[:, 1:].any()), f"K1 {what}: nothing gated")
-    err = max(err, check_noted_launches(gk, noted, what, (B * T * L, B * M),
-                                        (1, S - 1)))
-    times = kernel_times(gk, inp, dt, args, sub)
-    bound = k1_sub_bound(B, T * L, M, B * M, n_dt=B)
+    err, times, bound = k1_at_batch_shape(gk, what, noted, B, T, L, M, km,
+                                          (1, S - 1))
     print(f"{what}: B={B}, {S} batched scans, {ms_per_scan:.2f} ms per "
           f"batched scan ({1e3 * B / ms_per_scan:.1f} scenario-scans/s; "
           f"second run, wall clock), {reads / S:.2f} host reads per batched "
           f"scan, peak device memory {peak_gib:.3f} GiB; K1 launches "
-          f"{launches}; K1 at N={B * T * L}, Km={M}: kernel alone "
+          f"{launches}; K1 at N={B * T * L}, Km={km or M}: kernel alone "
           f"{1e3 * times['kernel_ms']:.3f} us hot, "
           f"{1e3 * times['kernel_flushed_ms']:.3f} us flushed, wrapper "
           f"{1e3 * times['ms']:.3f} us, twin {1e3 * times['plain_ms']:.3f} "
           f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
-          f"bytes, by {bound['bound_by']}); max |err| {err:.3g}")
+          f"bytes, by {bound['bound_by']}); max |err| {err:.3g} "
+          f"({card_line()})")
     return dict(launches=launches, n_scans=S, ms_per_scan=ms_per_scan,
                 reads_per_scan=reads / S, peak_gib=peak_gib, max_err=err,
                 quality=q, **times, bound_ms=bound["bound_ms"],
@@ -1696,6 +1715,318 @@ def mc_bench_phase():
     from pymht_tpu_torch.utils.scenes import mc_bench_scene
     return batched_phase("mc-bench", mc_bench_scene, MC_BENCH_BATCH,
                          (0, MC_BENCH_BATCH - 1), on_cpu=False)
+
+
+def k1_pregate_batch_inputs(seed, B, T, L, M, Km, device):
+    """K1's inputs as grow hands them over for a pre-gated batch: B * T
+    targets of L leaves (a target's leaves within metres of each other),
+    each with the Km measurements of its own scenario's scan nearest its
+    prediction (``zidx`` on the flat [B * M] axis) and its scenario's
+    time step.  Returns (the seven tensors, dt [B * T], the per-target
+    arguments)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(2.0, 3.0, B).astype(np.float32)
+    xt = rng.normal(0, 300, (B, T, 1, 4))
+    x = (xt + rng.normal(0, 2, (B, T, L, 4))).astype(np.float32)
+    P = (np.diag([6.25, 6.25, 1.875, 1.875])
+         + rng.uniform(0, 1, (B, T, L, 1, 1)) * np.eye(4)).astype(np.float32)
+    cnllr = rng.normal(0, 1, (B, T, L)).astype(np.float32)
+    pd = np.full((B, T, L), 0.9, np.float32)
+    mask = rng.uniform(size=(B, T, L)) < 0.9
+    pred = xt[:, :, 0, :2] + dt[:, None, None] * xt[:, :, 0, 2:]  # [B,T,2]
+    z = rng.normal(0, 300, (B, M, 2)).astype(np.float32)
+    k = min(M, T)
+    z[:, :k] = pred[:, :k] + rng.normal(0, 2, (B, k, 2))
+    zmask = rng.uniform(size=(B, M)) < 0.95
+    d2 = ((z[:, None] - pred[:, :, None]) ** 2).sum(-1)           # [B,T,M]
+    d2 = np.where(zmask[:, None], d2, np.inf)
+    zidx = np.argsort(d2, axis=-1, kind="stable")[..., :Km]
+    z_sub = np.take_along_axis(z[:, None], zidx[..., None], 2)
+    zmask_sub = np.take_along_axis(np.broadcast_to(zmask[:, None],
+                                                   (B, T, M)), zidx, 2)
+    flat = (zidx + M * np.arange(B)[:, None, None]).astype(np.int32)
+
+    def dev(a, shape):
+        return torch.from_numpy(np.ascontiguousarray(a).reshape(shape)) \
+            .to(device)
+
+    inp = [dev(x, (-1, 4)), dev(P, (-1, 4, 4)), dev(cnllr, (-1,)),
+           dev(pd, (-1,)), dev(mask, (-1,)), dev(z, (-1, 2)),
+           dev(zmask, (-1,))]
+    sub = dict(z_sub=dev(z_sub, (B * T, Km, 2)),
+               zmask_sub=dev(zmask_sub, (B * T, Km)),
+               zidx=dev(flat, (B * T, Km)), leaves_per_target=L)
+    return inp, dev(np.repeat(dt, T), (B * T,)), sub
+
+
+def k1_at_batch_shape(gk, what, noted, B, T, L, M, km, picks):
+    """K1 held against its twin at a batch's shape, seeded and on the
+    tensors of the batch's real scans ``picks`` (``noted``), then timed
+    against its bound.  Without the pre-gate (``km`` 0) one "target" per
+    scenario; with it B * T targets of Km columns.  Returns (max |err|,
+    the times, the bound)."""
+    args = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
+    if km:
+        inp, dt, sub = k1_pregate_batch_inputs(17, B, T, L, M, km, "cuda")
+        bound = k1_sub_bound(B * T, L, km, B * M, n_dt=B * T)
+    else:
+        inp, dt, sub = k1_batch_inputs(17, B, T * L, M, "cuda")
+        bound = k1_sub_bound(B, T * L, M, B * M, n_dt=B)
+    err, g_r = check_against_twin(gk, f"{what}, seeded", inp, dt, args, sub)
+    check(bool(g_r[:, 1:].any()), f"K1 {what}: nothing gated")
+    for inp_n, _, _, sub_n in noted:
+        check(sub_n.get("leaves_per_target") == (L if km else T * L),
+              f"{what}: K1 was not launched at the batch's per-target shape")
+    err = max(err, check_noted_launches(gk, noted, what, (B * T * L, B * M),
+                                        picks))
+    return err, kernel_times(gk, inp, dt, args, sub), bound
+
+
+def step_batch(bs, shapes, method, use_ais, scans, start=None, kept=None):
+    """A ``BatchScene`` through ``make_batched_step`` over ``scans``, from
+    its initial states or ``start`` (state, initiator state).  Returns
+    (state, initiator state, per-scan outputs, host reads per scan); the
+    dict ``kept`` maps a scan count to the (state, initiator state) after
+    that many scans, filled in as they pass."""
+    from pymht_tpu_torch import sync
+    from pymht_tpu_torch.parallel.scenario import make_batched_step
+    step = make_batched_step(shapes, bs.params, method=method,
+                             use_ais=use_ais)
+    st, ist = (bs.state, bs.init_state) if start is None else start
+    outs, reads = [], []
+    for i, s in enumerate(scans):
+        n0 = sync.count
+        st, ist, o = step(st, ist, *bs.scan(s))
+        outs.append(o)
+        reads.append(sync.count - n0)
+        if kept is not None and i + 1 in kept:
+            kept[i + 1] = (st, ist)
+    return st, ist, outs, reads
+
+
+def check_scenarios_alone(bs, shapes, method, use_ais, picks, scans, st_b,
+                          outs_b, what, start=None):
+    """Scenarios ``picks`` of a ``BatchScene`` stepped alone through
+    ``scan_step`` (launches not counted) against the batch's outputs:
+    labels, selected leaves, masks and ids equal, floats within
+    STATE_RTOL / STATE_ATOL, objectives within OBJ_RTOL (1 + |obj|), the
+    final states field by field.  Under 'ipm' the bound is not compared:
+    in f32 the root LP stops a round earlier or later with batched
+    products, and its value is then that round's iterate (ROADMAP,
+    queue 3).  Returns the scenario-scans on which the solver ran."""
+    import torch
+    from pymht_tpu_torch.core.grow import AisBatch, Scan
+    from pymht_tpu_torch.core.state import state_to_numpy
+    from pymht_tpu_torch.core.tracker import scan_step
+    n_solved = 0
+    for b in picks:
+        st, ist, sc, ai = bs.scenario(b)
+        if start is not None:
+            st, ist = one_scenario(start[0], b), one_scenario(start[1], b)
+        for i, s in enumerate(scans):
+            st, ist, o = scan_step(st, ist, Scan(*(f[s] for f in sc)),
+                                   AisBatch(*(f[s] for f in ai)), shapes,
+                                   bs.params, method=method,
+                                   use_ais=use_ais)
+            ob = type(o)(*(f[b] for f in outs_b[i]))
+            n_solved += float(o.sel_obj) != float(o.sel_bound)
+            for name in o._fields:
+                x, y = getattr(o, name), getattr(ob, name)
+                w = f"{what}: scenario {b} alone, scan {s}: {name}"
+                if name == "sel_obj":
+                    check(abs(float(x) - float(y))
+                          <= OBJ_RTOL * (1.0 + abs(float(y))), w)
+                elif name == "sel_bound":
+                    check(method == "ipm" or abs(float(x) - float(y))
+                          <= OBJ_RTOL * (1.0 + abs(float(y))), w)
+                elif x.dtype.is_floating_point:
+                    check(torch.allclose(x, y, rtol=STATE_RTOL,
+                                         atol=STATE_ATOL), w)
+                else:
+                    check(torch.equal(x, y), w)
+        check_batched_state(state_to_numpy(st),
+                            state_to_numpy(one_scenario(st_b, b)),
+                            f"{what}: scenario {b} alone, final state")
+    print(f"{what}: scenarios {list(picks)} stepped alone on the card = "
+          f"the batch's on every scan (labels, selected leaves, states, "
+          f"objectives)")
+    return n_solved
+
+
+def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
+                      solver=None, kept=None):
+    """A ``BatchScene`` with the AIS branch on: the counted card run
+    (K1's launches noted; with ``solver``, the name of a select function
+    whose calls are counted), a second card run timed, the checks
+    (scenarios ``picks`` alone on the card; with ``cpu_batch`` = (B, S)
+    the first B scenarios' first S scans against the CPU), and K1 at the
+    batch's shape.  Returns the phase's numbers; ``kept`` as for
+    ``step_batch``, from the counted run."""
+    import dataclasses
+    import torch
+    from pymht_tpu_torch.core import select as sel_mod
+    from pymht_tpu_torch.core.state import state_to_numpy
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    shapes = dataclasses.replace(bs.shapes, radar_cand_width=km)
+    B, S = bs.scans.z.shape[:2]
+    T, L, M = shapes.max_targets, shapes.max_leaves, shapes.max_meas
+    scans = range(S)
+
+    calls, real = [], getattr(sel_mod, solver) if solver else None
+    if solver:
+        def noting(state, *a, **k):
+            calls.append(1)
+            return real(state, *a, **k)
+        setattr(sel_mod, solver, noting)
+    gk.launches = gk.launches_pregate = 0
+    try:
+        with noting_k1_launches(gk) as noted:
+            st_b, ist_b, outs, reads = step_batch(bs, shapes, method, True,
+                                                  scans, kept=kept)
+    finally:
+        if solver:
+            setattr(sel_mod, solver, real)
+    launches, launches_p = gk.launches, gk.launches_pregate
+    torch.cuda.synchronize()
+    check(launches == S and launches_p == S,
+          f"{what}: K1 launched {launches} times ({launches_p} through the "
+          f"per-target entry point) over {S} batched scans")
+    check(not any(bool(o.track_x.isnan().any()) for o in outs)
+          and bool(outs[-1].track_mask.any()), f"{what}: NaN or no track")
+    check(all(bool(o.sel_feasible.all()) for o in outs),
+          f"{what}: a scenario's selection is infeasible")
+    check(not solver or len(calls) >= 1, f"{what}: {solver} never ran")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_2, _, outs_2, _ = step_batch(bs, shapes, method, True, scans)
+    torch.cuda.synchronize()
+    ms_per_scan = 1e3 * (time.perf_counter() - t0) / S
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(torch.equal(a.track_mask, b.track_mask)
+              and torch.equal(a.sel_hist_meas, b.sel_hist_meas)
+              for a, b in zip(outs, outs_2)),
+          f"{what}: a second card run differs")
+
+    n_solved = check_scenarios_alone(bs, shapes, method, True, picks, scans,
+                                     st_b, outs, what)
+    if cpu_batch:
+        Bc, Sc = cpu_batch
+        sub = bs._replace(
+            state=one_scenario(bs.state, slice(0, Bc)),
+            init_state=one_scenario(bs.init_state, slice(0, Bc)),
+            scans=type(bs.scans)(*(f[:Bc] for f in bs.scans)),
+            ais=type(bs.ais)(*(f[:Bc] for f in bs.ais)))
+        st_g, _, o_g, _ = step_batch(sub, shapes, method, True, range(Sc))
+        st_c, _, o_c, _ = step_batch(sub.to("cpu"), shapes, method, True,
+                                     range(Sc))
+        for s, (a, c) in enumerate(zip(o_g, o_c)):
+            check(torch.equal(a.sel_hist_meas.cpu(), c.sel_hist_meas)
+                  and torch.equal(a.sel_hist_mmsi.cpu(), c.sel_hist_mmsi)
+                  and torch.equal(a.track_mask.cpu(), c.track_mask),
+                  f"{what}: B={Bc} scan {s}: labels differ from the CPU run")
+            check(torch.allclose(a.track_x.cpu(), c.track_x,
+                                 rtol=STATE_RTOL, atol=STATE_ATOL),
+                  f"{what}: B={Bc} scan {s}: states differ from the CPU run")
+        check_batched_state(state_to_numpy(st_g), state_to_numpy(st_c),
+                            f"{what}: B={Bc} card against CPU, final state")
+        print(f"{what}: B={Bc}, {Sc} scans: card = CPU run (labels, masks, "
+              f"states)")
+    # a middle and the last scan: the demo scene's first scans have no
+    # track yet, so no leaf to gate
+    err, times, bound = k1_at_batch_shape(gk, what, noted, B, T, L, M, km,
+                                          (S // 2, S - 1))
+    n_sel = sum(int((o.sel_hist_mmsi[..., -1] > 0).sum()) for o in outs)
+    print(f"{what}: B={B}, {S} batched scans, {ms_per_scan:.2f} ms per "
+          f"batched scan ({1e3 * B / ms_per_scan:.1f} scenario-scans/s; "
+          f"second run, wall clock), {np.mean(reads):.2f} host reads per "
+          f"batched scan (median {np.median(reads):.0f}, max {max(reads)}), "
+          f"peak device memory {peak_gib:.3f} GiB; {n_sel} selected AIS "
+          f"labels; a solver ran on {n_solved} scenario-scans of those "
+          f"stepped alone"
+          + (f" ({len(calls)} batched calls of {solver})" if solver else "")
+          + f"; K1 launches {launches}; K1 at N={B * T * L}, Km={km or M}: "
+          f"kernel alone {1e3 * times['kernel_ms']:.3f} us hot, "
+          f"{1e3 * times['kernel_flushed_ms']:.3f} us flushed, wrapper "
+          f"{1e3 * times['ms']:.3f} us, twin {1e3 * times['plain_ms']:.3f} "
+          f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
+          f"bytes, by {bound['bound_by']}); max |err| {err:.3g} "
+          f"({card_line()})")
+    return dict(launches=launches, n_scans=S, ms_per_scan=ms_per_scan,
+                reads_per_scan=float(np.mean(reads)), peak_gib=peak_gib,
+                max_err=err, **times, bound_ms=bound["bound_ms"],
+                bound_bytes=bound["bytes"])
+
+
+MC_AIS_BATCH, MC_AIS_SCANS = 32, 12
+MC_PREGATE_BATCH = 32
+MC_IPM_BATCH = 8
+MC_PURE_FROM, MC_PURE_SCANS = 12, 5
+
+
+def mc_ais_phase():
+    from pymht_tpu_torch.utils.scenes import bench_ais_batch
+    bs = bench_ais_batch(MC_AIS_BATCH, n_scans=MC_AIS_SCANS - 1).to("cuda")
+    return scene_batch_phase("mc-ais", bs, "lagrangian",
+                             (0, MC_AIS_BATCH - 1), cpu_batch=(4, 4))
+
+
+def mc_pregate_phase():
+    from pymht_tpu_torch.utils.scenes import mc_bench_scene
+    return batched_phase("mc-pregate", mc_bench_scene, MC_PREGATE_BATCH,
+                         (0, MC_PREGATE_BATCH - 1), on_cpu=False,
+                         km=PREGATE_KM)
+
+
+def mc_ipm_phase():
+    """B draws of the demo scene under 'ipm' with the AIS branch, every
+    scenario held to itself stepped alone; then 'lagrangian_pure' on the
+    same batch from the state after MC_PURE_FROM scans."""
+    import torch
+    from pymht_tpu_torch.core import select as sel_mod
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.utils.scenes import demo_batch
+    bs = demo_batch(MC_IPM_BATCH).to("cuda")
+    kept = {MC_PURE_FROM: None}
+    r = scene_batch_phase("mc-ipm", bs, "ipm", range(MC_IPM_BATCH),
+                          solver="select_ipm", kept=kept)
+    # 'lagrangian_pure' from the state after MC_PURE_FROM scans of 'ipm'
+    start = kept[MC_PURE_FROM]
+    scans = range(MC_PURE_FROM, MC_PURE_FROM + MC_PURE_SCANS)
+    calls, real = [], sel_mod.select_lagrangian
+
+    def noting(state, *a, **k):
+        calls.append(1)
+        return real(state, *a, **k)
+
+    gk.launches = gk.launches_pregate = 0
+    sel_mod.select_lagrangian = noting
+    try:
+        st_p, _, outs_p, reads_p = step_batch(bs, bs.shapes,
+                                              "lagrangian_pure", True, scans,
+                                              start)
+    finally:
+        sel_mod.select_lagrangian = real
+    launches_p = gk.launches
+    torch.cuda.synchronize()
+    check(launches_p == MC_PURE_SCANS
+          and gk.launches_pregate == MC_PURE_SCANS,
+          f"mc-pure: K1 launched {launches_p} times over {MC_PURE_SCANS} "
+          f"batched scans")
+    check(len(calls) >= 1, "mc-pure: the Lagrangian never ran")
+    check(all(bool(o.sel_feasible.all()) for o in outs_p),
+          "mc-pure: a scenario's selection is infeasible")
+    check_scenarios_alone(bs, bs.shapes, "lagrangian_pure", True,
+                          range(MC_IPM_BATCH), scans, st_p, outs_p,
+                          "mc-pure", start=start)
+    print(f"mc-pure ('lagrangian_pure', the mc-ipm batch, scans "
+          f"{scans.start}-{scans.stop - 1}): the Lagrangian ran in "
+          f"{len(calls)} batched calls; host reads per batched scan "
+          f"{reads_p}; K1 launches {launches_p}")
+    r.update(launches_pure=launches_p, n_scans_pure=MC_PURE_SCANS)
+    return r
 
 
 def main():
@@ -1768,6 +2099,9 @@ def main():
     xml_phase(ipm["gpu"])
     mc = mc_phase()
     mcb = mc_bench_phase()
+    mca = mc_ais_phase()
+    mcp = mc_pregate_phase()
+    mci = mc_ipm_phase()
     for what, r in (("slice (radar only)", res), ("AIS scene", ais)):
         syncs = r["syncs"]
         print(f"{what} on the card: {r['ms_per_scan']:.2f} ms/scan (median "
@@ -1809,11 +2143,13 @@ def main():
         # then the 'ipm' runs (demo scene, 2_ipm_xcheck beside
         # 'lagrangian'), the 'lagrangian_pure' run and the checkpointed
         # streams, then the two Monte-Carlo batches (per-target entry
-        # point, one launch per batched scan)
+        # point, one launch per batched scan), then the batches with the
+        # AIS branch, the pre-gate and the solvers (the same entry point)
         "launches": res["launches"] + ais["launches"] + stream["launches"]
         + deg["launches"] + roof["launches"] + ipm["launches"]
         + ipm["launches_xcheck"] + pure["launches"] + ckpt["launches"]
-        + mc["launches"] + mcb["launches"],
+        + mc["launches"] + mcb["launches"] + mca["launches"]
+        + mcp["launches"] + mci["launches"] + mci["launches_pure"],
         "launches_slice": res["launches"],
         "launches_ais": ais["launches"],
         "launches_pregate": ais["launches_pregate"],
@@ -1827,23 +2163,31 @@ def main():
         "launches_checkpoint": ckpt["launches"],
         "launches_mc": mc["launches"],
         "launches_mc_bench": mcb["launches"],
+        "launches_batch_ais": mca["launches"],
+        "launches_batch_pregate": mcp["launches"],
+        "launches_batch_ipm": mci["launches"],
+        "launches_batch_pure": mci["launches_pure"],
         # a batched scan counts as one scan
         "launches_per_scan": (res["launches"] + ais["launches"]
                               + stream["launches"] + deg["launches"]
                               + roof["launches"] + ipm["launches"]
                               + ipm["launches_xcheck"] + pure["launches"]
                               + ckpt["launches"] + mc["launches"]
-                              + mcb["launches"])
+                              + mcb["launches"] + mca["launches"]
+                              + mcp["launches"] + mci["launches"]
+                              + mci["launches_pure"])
         / (res["n_scans"] + ais["n_scans"] + stream["n_scans"]
            + deg["n_scans"] + roof["n_scans"] + ipm["n_scans"]
            + ipm["n_scans_xcheck"] + pure["n_scans"] + ckpt["n_scans"]
-           + mc["n_scans"] + mcb["n_scans"]),
+           + mc["n_scans"] + mcb["n_scans"] + mca["n_scans"]
+           + mcp["n_scans"] + mci["n_scans"] + mci["n_scans_pure"]),
         "oracle_gaps": gaps,
         # over every comparison with the twin: the kernel phase's shapes,
-        # the real scans' tensors of the 'ipm' runs and the two batches
+        # the real scans' tensors of the 'ipm' runs and the five batches
         # (seeded and real scans)
         "max_abs_err": max(k1["max_err_all"], ipm["k1_max_err"],
-                           mc["max_err"], mcb["max_err"]),
+                           mc["max_err"], mcb["max_err"], mca["max_err"],
+                           mcp["max_err"], mci["max_err"]),
         "seeded_max_abs_err": k1["max_err_all"],
         "real_scans_max_abs_err": ipm["k1_max_err"],
         "mc_max_abs_err": mc["max_err"],
@@ -1873,7 +2217,13 @@ def main():
         "mc_bench_kernel_ms": mcb["kernel_ms"],
         "mc_bench_kernel_flushed_ms": mcb["kernel_flushed_ms"],
         "mc_bench_plain_ms": mcb["plain_ms"],
-        "mc_bench_bound_ms": mcb["bound_ms"]}]}))
+        "mc_bench_bound_ms": mcb["bound_ms"],
+        **{f"{key}_{name}": r[name]
+           for key, r in (("batch_ais", mca), ("batch_pregate", mcp),
+                          ("batch_ipm", mci))
+           for name in ("ms", "kernel_ms", "kernel_flushed_ms", "plain_ms",
+                        "bound_ms", "max_err", "ms_per_scan",
+                        "reads_per_scan", "peak_gib")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -20,3 +20,13 @@ def lead_index(shape, device, extra: int = 0) -> tuple:
     return tuple(torch.arange(s, device=device)
                  .view((1,) * i + (s,) + (1,) * (n - 1 - i + extra))
                  for i, s in enumerate(shape))
+
+
+def isin(elements: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
+    """``torch.isin(elements, test)`` per scenario: ``elements [..., A]``
+    against ``test [..., K]`` with the same leading axes (``jnp.isin``
+    under ``jax.vmap``).  Without batch axes it is ``torch.isin`` itself,
+    so the unbatched path makes the same operation."""
+    if elements.dim() <= 1:
+        return torch.isin(elements, test)
+    return (elements[..., :, None] == test[..., None, :]).any(dim=-1)

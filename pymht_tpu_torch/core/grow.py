@@ -23,11 +23,13 @@ distance to the selected leaf's prediction): M above becomes Km, K1 takes
 the per-target ``z_sub [T, Km, 2]``, and compressed indices map back to
 scan indices through ``zidx`` after the beam.
 
-The radar branch without the pre-gate also takes a batch of scenarios:
-leading axes B on the state and on the scan (``z [B, M, 2]``, ``time
-[B]``).  K1 then runs once for the whole batch through its per-target
-entry point, one "target" per scenario (its T * L leaves against its own
-scan and time step).
+Every branch also takes a batch of scenarios: leading axes B on the
+state, the scan (``z [B, M, 2]``, ``time [B]``) and the AIS batch
+(``[B, A, ...]``).  K1 then runs once for the whole batch through its
+per-target entry point: without the pre-gate one "target" per scenario
+(its T * L leaves against its own scan and time step), with it one per
+(scenario, target), B * T targets of L leaves, whose Km columns index the
+flat [B * M] measurement axis.
 """
 from __future__ import annotations
 
@@ -92,40 +94,47 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
     dev = state.leaf_x.device
     ix1 = lead_index(lead + (T,), dev, extra=1)
     ix = tuple(a[..., 0] for a in ix1)                 # (tb,) unbatched
-    tb = ix[-1]
     dt = scan.time - state.time
 
     # --- spatial pre-gate: each target's Km nearest measurements ------
     Km = shapes.radar_cand_width
     pregate = 0 < Km < M
-    if lead and (pregate or ais is not None):
-        raise ValueError("grow: the pre-gate and the AIS branch take one "
-                         "scenario, not a batch")
+    bi2 = lead_index(lead, dev, extra=2)      # [..., T, k] picks of [..., M]
     sub = {}
     z_sub = zmask_sub = zidx = None
     z_k1, zmask_k1, dt_k1 = scan.z, scan.mask, dt
-    if lead:         # one K1 "target" per scenario, on a flat [B*M] axis
+    if lead:         # the scenarios' scans on one flat [B*M] axis
         nb = math.prod(lead)
-        z_k1 = scan.z.reshape(nb, M, 2).contiguous()
-        zmask_k1 = scan.mask.reshape(nb, M).contiguous()
-        sub = dict(z_sub=z_k1, zmask_sub=zmask_k1,
-                   zidx=torch.arange(nb * M, dtype=torch.int32,
-                                     device=dev).view(nb, M),
-                   leaves_per_target=T * L)
-        z_k1, zmask_k1 = z_k1.view(nb * M, 2), zmask_k1.view(nb * M)
-        dt_k1 = dt.reshape(nb).contiguous()
+        z_k1 = scan.z.reshape(nb * M, 2).contiguous()
+        zmask_k1 = scan.mask.reshape(nb * M).contiguous()
+        if not pregate:      # one K1 "target" per scenario
+            sub = dict(z_sub=z_k1.view(nb, M, 2),
+                       zmask_sub=zmask_k1.view(nb, M),
+                       zidx=torch.arange(nb * M, dtype=torch.int32,
+                                         device=dev).view(nb, M),
+                       leaves_per_target=T * L)
+            dt_k1 = dt.reshape(nb).contiguous()
     if pregate:
-        xr = state.leaf_x[tb, state.sel_leaf.long().clamp(0, L - 1)]  # [T,4]
-        px = xr[:, 0] + dt * xr[:, 2]
-        py = xr[:, 1] + dt * xr[:, 3]
-        d2 = ((scan.z[None, :, 0] - px[:, None]) ** 2
-              + (scan.z[None, :, 1] - py[:, None]) ** 2)           # [T,M]
-        d2 = torch.where(scan.mask[None, :], d2, torch.inf)
+        xr = state.leaf_x[(*ix, state.sel_leaf.long().clamp(0, L - 1))]
+        px = xr[..., 0] + dt[..., None] * xr[..., 2]               # [T]
+        py = xr[..., 1] + dt[..., None] * xr[..., 3]
+        d2 = ((scan.z[..., None, :, 0] - px[..., None]) ** 2
+              + (scan.z[..., None, :, 1] - py[..., None]) ** 2)    # [T,M]
+        d2 = torch.where(scan.mask[..., None, :], d2, torch.inf)
         dvals, zidx = smallest_k(d2, Km)                           # [T,Km]
-        z_sub = scan.z[zidx]                                       # [T,Km,2]
-        zmask_sub = scan.mask[zidx] & torch.isfinite(dvals)
-        sub = dict(z_sub=z_sub, zmask_sub=zmask_sub, zidx=zidx.int(),
-                   leaves_per_target=L)
+        z_sub = scan.z[(*bi2, zidx)]                               # [T,Km,2]
+        zmask_sub = scan.mask[(*bi2, zidx)] & torch.isfinite(dvals)
+        if lead:     # B * T targets; columns on the flat [B*M] axis
+            off = torch.arange(0, nb * M, M, device=dev).view(
+                *lead, 1, 1)
+            sub = dict(z_sub=z_sub.reshape(nb * T, Km, 2),
+                       zmask_sub=zmask_sub.reshape(nb * T, Km),
+                       zidx=(zidx + off).int().reshape(nb * T, Km),
+                       leaves_per_target=L)
+            dt_k1 = dt.reshape(nb, 1).expand(nb, T).reshape(nb * T)
+        else:
+            sub = dict(z_sub=z_sub, zmask_sub=zmask_sub, zidx=zidx.int(),
+                       leaves_per_target=L)
     M_eff = Km if pregate else M
 
     # --- K1: predict + gate + score every (leaf, measurement) pair ----
@@ -159,10 +168,10 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
             state, scan, ais, params, G,
             prefilter=shapes.ais_prefilter_width, z_sub=z_sub,
             zmask_sub=zmask_sub)
-        cn = state.leaf_cnllr[:, :, None]
+        cn = state.leaf_cnllr[..., None]
         pure_score = torch.where(pure_gate, cn + nllr1g, BIG)      # [T,L,G]
         fused = torch.where(gate2, cn[..., None] + fused_score, BIG)
-        ais_block = torch.cat([pure_score[..., None], fused], dim=3)
+        ais_block = torch.cat([pure_score[..., None], fused], dim=-1)
         W_a = G * Cn_r
         Cn = Cn_r + W_a
         # Block-wise exact merge: the top L of [radar | ais] is the top L
@@ -170,11 +179,12 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
         # as in the JAX package.  Indices go to the per-leaf slot layout
         # of the module docstring.
         glob_r = (top_idx // Cn_r) * Cn + top_idx % Cn_r
-        score_a, idx_a = smallest_k(ais_block.reshape(T, L * W_a), L)
+        score_a, idx_a = smallest_k(ais_block.reshape(*lead, T, L * W_a), L)
         glob_a = (idx_a // W_a) * Cn + Cn_r + idx_a % W_a
         top_scores, pos = smallest_k(
-            torch.cat([top_scores, score_a], dim=1), L)            # [T,2L]
-        top_idx = torch.gather(torch.cat([glob_r, glob_a], dim=1), 1, pos)
+            torch.cat([top_scores, score_a], dim=-1), L)           # [T,2L]
+        top_idx = torch.gather(torch.cat([glob_r, glob_a], dim=-1), -1,
+                               pos)
 
     # Feasibility spine: force the zero-hypothesis child of the
     # previously selected leaf into the beam, so the previous selection
@@ -206,16 +216,15 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
         is_pure_ais = is_ais & (ais_sub == 0)
         ais_m = (ais_sub - 1).clamp(0, M_eff - 1)
     if pregate:      # compressed columns back to scan indices
-        radar_m = torch.gather(zidx, 1, radar_m)
+        radar_m = torch.gather(zidx, -1, radar_m)
         if ais is not None:
-            ais_m = torch.gather(zidx, 1, ais_m)
+            ais_m = torch.gather(zidx, -1, ais_m)
 
     # --- gather the parents' payloads, apply the radar update ---------
     tp = (*ix1, parent)
     x_bar_p, P_bar_p = x_bar[tp], P_bar[tp]
     K_p, P_radar = K[tp], P_hat[tp]
-    zt_p = (scan.z[(*lead_index(lead, dev, extra=2), radar_m)]
-            - x_bar_p[..., :2])                                    # [T,L,2]
+    zt_p = scan.z[(*bi2, radar_m)] - x_bar_p[..., :2]              # [T,L,2]
     x_radar = x_bar_p + torch.einsum('...ij,...j->...i', K_p, zt_p)
     new_x = torch.where(is_zero[..., None], x_bar_p, x_radar)
     new_P = torch.where(is_zero[..., None, None], P_bar_p, P_radar)
@@ -227,10 +236,10 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
         # the selected fused and pure-AIS states, from the compressed
         # stage-2 ingredients ([T,L] gathers; integer channels stay
         # integers)
-        tpg = (tb[:, None], parent, ais_g)
+        tpg = (*ix1, parent, ais_g)
         x_p = x_bar2[tpg]
-        zt_f = scan.z[ais_m] - z_hat2[tpg]
-        x_f = x_p + torch.einsum('tlij,tlj->tli', K2g[tpg], zt_f)
+        zt_f = scan.z[(*bi2, ais_m)] - z_hat2[tpg]
+        x_f = x_p + torch.einsum('...ij,...j->...i', K2g[tpg], zt_f)
         ais_a = ais_idx[tpg]                        # message index, [T,L]
         new_x = torch.where(is_ais[..., None],
                             torch.where(is_pure_ais[..., None], x_p, x_f),
@@ -239,7 +248,8 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
         new_meas_label = torch.where(
             is_ais, torch.where(is_pure_ais, 0, ais_m + 1), new_meas_label)
         new_ais_label = torch.where(is_ais, ais_a + 1, 0).int()
-        new_mmsi_label = torch.where(is_ais, ais.mmsi[ais_a], 0).int()
+        new_mmsi_label = torch.where(is_ais, ais.mmsi[(*bi2, ais_a)],
+                                     0).int()
 
     new_meas_label = torch.where(new_mask, new_meas_label, -1).int()
 

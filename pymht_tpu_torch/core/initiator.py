@@ -11,8 +11,8 @@
    prelims with two-point velocity initialisation and NIS dedup;
 3. everything still unclaimed becomes the next scan's initiators.
 
-The radar-only step (``ais=None``) also takes a batch of scenarios:
-leading axes on the state and on ``z``, ``z_mask`` and ``time``.
+The step also takes a batch of scenarios: leading axes on the state, on
+``z``, ``z_mask`` and ``time`` and on the AIS batch.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..batch import lead_index
+from ..batch import isin, lead_index
 from ..models import pv, ais as ais_model
 from ..ops import kalman as k
 from ..ops.assignment import auction_assign
@@ -118,9 +118,6 @@ def step(state: InitiatorState, z, z_mask, time, ais: Optional[AisBatch],
     P = shapes.max_prelim
     *lead, M = z.shape[:-1]
     lead = tuple(lead)
-    if lead and ais is not None:
-        raise ValueError("initiator.step: AIS seeding takes one scenario, "
-                         "not a batch")
     dev = z.device
     gamma = params.gamma_initiator
     bi = lead_index(lead, dev, extra=1)        # () unbatched
@@ -138,18 +135,19 @@ def step(state: InitiatorState, z, z_mask, time, ais: Optional[AisBatch],
 
     # -- 1b. AIS-seeded prelims ----------------------------------------
     if ais is not None:
-        dTa = time - ais.time                                            # [A]
+        dTa = time[..., None] - ais.time                                 # [A]
         PhiA = pv.Phi(dTa, dev)
-        ax = torch.einsum('aij,aj->ai', PhiA, ais.state)
-        aP = torch.einsum('aij,jk,alk->ail', PhiA, pv.P0(dev), PhiA) \
-            + pv.Q(dTa, device=dev)
+        ax = torch.einsum('...aij,...aj->...ai', PhiA, ais.state)
+        aP = torch.einsum('...aij,jk,...alk->...ail', PhiA, pv.P0(dev),
+                          PhiA) + pv.Q(dTa, device=dev)
         held = torch.where(st.p_mask, st.p_mmsi, -1)
-        a_new = ais.mask & ~torch.isin(ais.mmsi, held)
+        a_new = ais.mask & ~isin(ais.mmsi, held)
         a_new = _nis_dedup(ax, a_new, st.p_x, st.p_P, st.p_mask)
         take, src = _insert_rows(st.p_mask, a_new)
+        src = (*bi, src)
         st = st.replace(
-            p_x=torch.where(take[:, None], ax[src], st.p_x),
-            p_P=torch.where(take[:, None, None], aP[src], st.p_P),
+            p_x=torch.where(take[..., None], ax[src], st.p_x),
+            p_P=torch.where(take[..., None, None], aP[src], st.p_P),
             p_m=torch.where(take, 0, st.p_m),
             p_n=torch.where(take, 0, st.p_n),
             p_mmsi=torch.where(take, ais.mmsi[src], st.p_mmsi),

@@ -298,8 +298,11 @@ def select_ipm(state: TrackerState, shapes: TrackerShapes,
                params: TrackerParams, budget: int = 8) -> SelectionResult:
     """The whole forest as one dense 0/1 program, solved by
     ``ops/lp.solve_ilp``: usage rows ``A_in [n_slots, T*L]`` scattered
-    from the label histories, one equality row per target."""
-    T, L, W = state.hist_meas.shape
+    from the label histories, one equality row per target.  Takes a batch
+    of forests too (leading scenario axes): one program per scenario,
+    solved together."""
+    *lead, T, L, W = state.hist_meas.shape
+    lead = tuple(lead)
     dev = state.hist_meas.device
     slots, n_slots = _slot_index(state, shapes)
     n = T * L
@@ -308,23 +311,25 @@ def select_ipm(state: TrackerState, shapes: TrackerShapes,
     # dense one-hot over slots is O(T*L*W*S) memory); int64 flat indices.
     s = torch.where(state.leaf_mask[..., None, None], slots, n_slots)
     col = torch.arange(n, device=dev).reshape(T, L)[..., None, None]
-    flat_idx = (col * (n_slots + 1) + s).reshape(-1)
-    A_in = torch.zeros((n * (n_slots + 1),), dtype=torch.float32, device=dev)
+    flat_idx = _batch_offset(col * (n_slots + 1) + s, lead,
+                             n * (n_slots + 1)).reshape(-1)
+    A_in = torch.zeros((math.prod(lead) * n * (n_slots + 1),),
+                       dtype=torch.float32, device=dev)
     A_in[flat_idx] = 1.0
-    A_in = A_in.reshape(n, n_slots + 1)[:, :n_slots].T.contiguous()  # [S, n]
+    A_in = A_in.reshape(*lead, n, n_slots + 1)[..., :n_slots].mT.contiguous()
     # Keep every slot used by at least one leaf: within-target conflicts
     # across the window matter too (a measurement may be claimed by two
     # different targets' histories at different tree depths).
-    in_mask = A_in.sum(dim=1) > 0.5
+    in_mask = A_in.sum(dim=-1) > 0.5
 
     A_eq = (torch.arange(T, device=dev)[:, None]
             == (torch.arange(n, device=dev) // L)[None, :]).float()
-    f = leaf_scores(state, params).reshape(n)
+    f = leaf_scores(state, params).reshape(*lead, n)
     # Inactive targets: the equality row must stay satisfiable, so their
     # leaf 0 is allowed as a dummy with zero cost.
-    dummy = ((~state.tgt_mask)[:, None]
-             & (torch.arange(L, device=dev) == 0)[None, :]).reshape(n)
-    var_mask = state.leaf_mask.reshape(n) | dummy
+    dummy = ((~state.tgt_mask)[..., None]
+             & (torch.arange(L, device=dev) == 0)).reshape(*lead, n)
+    var_mask = state.leaf_mask.reshape(*lead, n) | dummy
     f = torch.where(dummy, 0.0, f)
 
     ones_T = torch.ones((T,), dtype=torch.bool, device=dev)
@@ -456,6 +461,17 @@ def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
 # The gather/scatter Lagrangian over all slots ('lagrangian_pure')
 # ----------------------------------------------------------------------
 
+class _PureCarry(NamedTuple):
+    it: int
+    lam: torch.Tensor
+    best_sel: torch.Tensor
+    best_obj: torch.Tensor
+    best_feas: torch.Tensor
+    best_lb: torch.Tensor
+    last_sel: torch.Tensor
+    stale: torch.Tensor
+
+
 def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
                       params: TrackerParams, iters: int = 60,
                       theta: float = 1.0,
@@ -480,36 +496,57 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
     objective of the already-solved remainder, used only to scale the
     relative convergence tolerance.  One host read per iteration, one
     more on the repair cadence, one per repair round after the first.
+    Takes a batch of forests too (leading scenario axes): the loops then
+    run while any scenario continues (``sync.while_loop``).
     """
-    T, L, W = state.hist_meas.shape
+    *lead, T, L, W = state.hist_meas.shape
+    lead = tuple(lead)
+    nb = math.prod(lead)
     dev = state.hist_meas.device
     eff_tgt = state.tgt_mask if participate is None \
         else (state.tgt_mask & participate)
-    eff_leaf = state.leaf_mask & eff_tgt[:, None]
+    eff_leaf = state.leaf_mask & eff_tgt[..., None]
     slots, n_slots = _slot_index(state, shapes)                 # [T,L,W,2]
     f = leaf_scores(state, params)                              # [T,L]
-    slots_flat = slots.reshape(T, L, W * 2)
+    slots_flat = slots.reshape(*lead, T, L, W * 2)
     lam_init = state.lam if lam0 is None else lam0
     tb = torch.arange(T, device=dev)
-    zero1 = torch.zeros((1,), dtype=torch.float32, device=dev)
-    false1 = torch.zeros((1,), dtype=torch.bool, device=dev)
+    bi1 = lead_index(lead, dev, extra=1)      # [..., T] picks
+    bi2 = lead_index(lead, dev, extra=2)      # [..., T, K] picks of slots
+    bi3 = lead_index(lead, dev, extra=3)      # [..., T, L, K] picks
+    zero1 = torch.zeros((*lead, 1), dtype=torch.float32, device=dev)
+    false1 = torch.zeros((*lead, 1), dtype=torch.bool, device=dev)
 
     def reduced_cost(lam):
-        return f + torch.cat([lam, zero1])[slots_flat].sum(dim=2)
+        lam_pad = torch.cat([lam, zero1], dim=-1)
+        return f + lam_pad[(*bi3, slots_flat)].sum(dim=-1)
 
     def decode(lam):
         rc = reduced_cost(lam)
-        lb = torch.where(eff_tgt, rc.amin(dim=1), 0.0).sum() - lam.sum()
-        return rc.argmin(dim=1), lb
+        lb = (torch.where(eff_tgt, rc.amin(dim=-1), 0.0).sum(dim=-1)
+              - lam.sum(dim=-1))
+        return rc.argmin(dim=-1), lb
 
     def own_slots(sel):
-        return torch.where(eff_tgt[:, None], slots_flat[tb, sel], n_slots)
+        return torch.where(eff_tgt[..., None], slots_flat[(*bi1, tb, sel)],
+                           n_slots)
+
+    def per_slot(own, vals, fill, reduce):
+        """``vals`` reduced into a [..., n_slots + 1] table at the slots
+        ``own`` (one flat scatter for every scenario)."""
+        out = torch.full((nb * (n_slots + 1),), fill, dtype=vals.dtype,
+                         device=dev)
+        out.scatter_reduce_(0, _batch_offset(own, lead,
+                                             n_slots + 1).reshape(-1),
+                            vals.reshape(-1), reduce, include_self=True)
+        return out.view(*lead, n_slots + 1)
 
     def usage_of(sel):
-        s = own_slots(sel).reshape(-1)
-        cnt = torch.zeros((n_slots + 1,), dtype=torch.float32, device=dev)
+        s = _batch_offset(own_slots(sel), lead, n_slots + 1).reshape(-1)
+        cnt = torch.zeros((nb * (n_slots + 1),), dtype=torch.float32,
+                          device=dev)
         cnt.index_add_(0, s, torch.ones_like(s, dtype=torch.float32))
-        return cnt[:n_slots]
+        return cnt.view(*lead, n_slots + 1)[..., :n_slots]
 
     # Per-(target, column) unavoidability: a slot is unavoidable for t if
     # EVERY live leaf of t uses it (a shared within-window prefix).  An
@@ -519,10 +556,10 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
     # [T, W*2] all-live-leaves-agree test per column, not a [T, n_slots]
     # table.  Loop-invariant.
     sf = torch.where(eff_leaf[..., None], slots_flat, -1)        # [T,L,K]
-    rep = sf.amax(dim=1)                                         # [T,K]
-    agree = ((sf == rep[:, None, :]) | ~eff_leaf[..., None]).all(dim=1)
+    rep = sf.amax(dim=-2)                                        # [T,K]
+    agree = ((sf == rep[..., None, :]) | ~eff_leaf[..., None]).all(dim=-2)
     unav_cols = (agree & (rep >= 0) & (rep < n_slots)
-                 & (eff_leaf.sum(dim=1) > 0)[:, None]).float()   # [T,K]
+                 & (eff_leaf.sum(dim=-1) > 0)[..., None]).float()  # [T,K]
     ar_L = torch.arange(L, device=dev)
 
     def repair_round(rc, carry):
@@ -534,100 +571,102 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
         holder never loses its slot, so the repair ends at the
         all-spines assignment in the worst case."""
         sel, banned, _ = carry
-        over_pad = torch.cat([usage_of(sel) > 1.5, false1])
+        over_pad = torch.cat([usage_of(sel) > 1.5, false1], dim=-1)
         own = own_slots(sel)                                      # [T,K]
-        own_flat = own.reshape(-1)
         on_spine = (sel == state.spine_leaf).float()
-        key = (f[tb, sel][:, None] - 1e8 * unav_cols
-               - 5e7 * on_spine[:, None])
-        over_own = over_pad[own]
+        key = (f[(*bi1, tb, sel)][..., None] - 1e8 * unav_cols
+               - 5e7 * on_spine[..., None])
+        over_own = over_pad[(*bi2, own)]
         claim = torch.where(over_own, key, INF)
-        slot_min = torch.full((n_slots + 1,), INF, dtype=torch.float32,
-                              device=dev)
-        slot_min.scatter_reduce_(0, own_flat, claim.reshape(-1), 'amin',
-                                 include_self=True)
-        in_conf = over_own.any(dim=1) & eff_tgt
+        slot_min = per_slot(own, claim, INF, 'amin')
+        in_conf = over_own.any(dim=-1) & eff_tgt
         # The keeper of a slot is the LOWEST-INDEX claimant within
         # tolerance of the slot's best key (an epsilon added to the key
         # itself would vanish in f32 next to the priority offsets).
-        min_own = slot_min[own]
+        min_own = slot_min[(*bi2, own)]
         is_min = over_own & (key <= min_own + 1e-5 * (1.0 + min_own.abs()))
         cand = torch.where(is_min, tb[:, None], T)
-        slot_owner = torch.full((n_slots + 1,), T, dtype=torch.int64,
-                                device=dev)
-        slot_owner.scatter_reduce_(0, own_flat, cand.reshape(-1), 'amin',
-                                   include_self=True)
-        keeper = (~over_own | (slot_owner[own] == tb[:, None])).all(dim=1)
+        slot_owner = per_slot(own, cand, T, 'amin')
+        keeper = (~over_own
+                  | (slot_owner[(*bi2, own)] == tb[:, None])).all(dim=-1)
         loser = in_conf & ~keeper
-        banned = banned | (loser[:, None] & (ar_L[None, :] == sel[:, None]))
+        banned = banned | (loser[..., None] & (ar_L == sel[..., None]))
         # Conflict-aware repick: penalise leaves that touch any slot
         # currently over-used so losers prefer clean leaves.
-        pen = over_pad[slots_flat].sum(dim=2).float()
+        pen = over_pad[(*bi3, slots_flat)].sum(dim=-1).float()
         rcb = torch.where(banned, INF, rc + 1e3 * pen)
-        sel = torch.where(loser, rcb.argmin(dim=1), sel)
-        return sel, banned, in_conf.any()
+        sel = torch.where(loser, rcb.argmin(dim=-1), sel)
+        return sel, banned, in_conf.any(dim=-1)
 
-    def repair(sel, lam):
+    def repair(sel, lam, active=None):
+        """Repair rounds until no target (of the ``active`` scenarios) is
+        in conflict; the JAX loop starts with had_conf = True, so round 0
+        is not tested."""
         rc = reduced_cost(lam)
-        carry = (sel, torch.zeros((T, L), dtype=torch.bool, device=dev), None)
-        for it in range(repair_rounds):
-            # the JAX loop starts with had_conf = True: no read on round 0
-            if it > 0 and not sync.flag(carry[2]):
-                break
-            carry = repair_round(rc, carry)
-        sel = carry[0]
-        return sel, ~(usage_of(sel) > 1.5).any()
+
+        def go_on(carry):
+            return carry[2] if active is None else carry[2] & active
+
+        sel = sync.while_loop(
+            go_on, lambda c, _: repair_round(rc, c),
+            (sel, torch.zeros((*lead, T, L), dtype=torch.bool, device=dev),
+             None),
+            max_iters=repair_rounds, test_first=False)[0]
+        return sel, ~(usage_of(sel) > 1.5).any(dim=-1)
 
     def obj_of(sel):
-        return torch.where(eff_tgt, f[tb, sel], 0.0).sum()
+        return torch.where(eff_tgt, f[(*bi1, tb, sel)], 0.0).sum(dim=-1)
 
-    def step(it, carry):
+    def step(c: _PureCarry, active) -> _PureCarry:
         """One subgradient iteration: decode, (on cadence) repair into a
         feasible incumbent, fixed-theta Polyak step."""
-        lam, best_sel, best_obj, best_feas, best_lb, last_sel, stale = carry
-        sel, lb = decode(lam)
-        best_lb = torch.maximum(best_lb, lb)
+        sel, lb = decode(c.lam)
+        best_lb = torch.maximum(c.best_lb, lb)
         cnt = usage_of(sel)
         # Subgradient of the dualised <=1 rows over rows in play: used
         # rows push prices up, slack rows that still carry a price decay
         # back toward 0.
-        g = torch.where((cnt > 0) | (lam > 0), cnt - 1.0, 0.0)
-        feas = ~(cnt > 1.5).any()
-        if it % repair_cadence == 0 and sync.flag(~feas):
-            sel_c, feas_c = repair(sel, lam)
-        else:
-            sel_c, feas_c = sel, feas
+        g = torch.where((cnt > 0) | (c.lam > 0), cnt - 1.0, 0.0)
+        feas = ~(cnt > 1.5).any(dim=-1)
+        sel_c, feas_c = sel, feas
+        if c.it % repair_cadence == 0:
+            need = ~feas if active is None else ~feas & active
+            sel_c, feas_c = sync.cond(
+                need, lambda: repair(sel, c.lam,
+                                     need if need.dim() else None),
+                lambda: (sel, feas))
         obj = torch.where(feas_c, obj_of(sel_c), INF)
-        better = feas_c & ((obj < best_obj - 1e-6) | ~best_feas)
+        better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
         # Patience resets only on a MATERIAL improvement (>= 0.01 % of
         # the pre-update incumbent).
-        material = feas_c & ((obj < best_obj
-                              - 1e-4 * (1.0 + best_obj.abs()))
-                             | ~best_feas)
-        best_sel = torch.where(better, sel_c, best_sel)
-        best_obj = torch.where(better, obj, best_obj)
-        best_feas = best_feas | feas_c
-        same = (sel == last_sel).all()
-        stale = torch.where(material, 0, stale + 1)
+        material = feas_c & ((obj < c.best_obj
+                              - 1e-4 * (1.0 + c.best_obj.abs()))
+                             | ~c.best_feas)
+        best_sel = torch.where(better[..., None], sel_c, c.best_sel)
+        best_obj = torch.where(better, obj, c.best_obj)
+        best_feas = c.best_feas | feas_c
+        same = (sel == c.last_sel).all(dim=-1)
+        stale = torch.where(material, 0, c.stale + 1)
         stale = torch.where(feas & same, stale + 3, stale)
-        gnorm2 = torch.clamp(torch.dot(g, g), min=1e-6)
+        gnorm2 = torch.clamp(_sq_norm(g), min=1e-6)
         gap_est = torch.where(
             best_feas,
             torch.minimum(torch.clamp(best_obj - lb, min=1e-3),
                           1.0 + 0.25 * best_obj.abs()),
             1.0)
-        lam = torch.clamp(lam + theta * gap_est / gnorm2 * g, min=0.0)
-        return lam, best_sel, best_obj, best_feas, best_lb, sel, stale
+        lam = torch.clamp(c.lam + (theta * gap_est / gnorm2)[..., None] * g,
+                          min=0.0)
+        return _PureCarry(c.it + 1, lam, best_sel, best_obj, best_feas,
+                          best_lb, sel, stale)
 
-    def go_on(carry):
-        _, _, best_obj, best_feas, best_lb, _, stale = carry
-        gap = best_obj - best_lb
+    def go_on(c: _PureCarry):
+        gap = c.best_obj - c.best_lb
         # Convergence is judged against the GLOBAL objective (exact part
         # + this subproblem).  The patience exit only fires once the
         # certified gap is inside the 0.1 % contract.
-        scale = 1.0 + (obj_offset + best_obj).abs()
-        converged = best_feas & (gap <= 2e-4 * scale)
-        patience_out = (best_feas & (stale >= patience)
+        scale = 1.0 + (obj_offset + c.best_obj).abs()
+        converged = c.best_feas & (gap <= 2e-4 * scale)
+        patience_out = (c.best_feas & (c.stale >= patience)
                         & (gap <= 1e-3 * scale))
         return ~converged & ~patience_out
 
@@ -635,22 +674,18 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
     sel_seed, lb_seed = decode(lam_init)
     sel_seed, feas_seed = repair(sel_seed, lam_init)
     obj_seed = torch.where(feas_seed, obj_of(sel_seed), INF)
-    carry = (lam_init, sel_seed, obj_seed, feas_seed, lb_seed, sel_seed,
-             torch.zeros((), dtype=torch.int64, device=dev))
-    it = 0
-    while it < iters and sync.flag(go_on(carry)):
-        carry = step(it, carry)
-        it += 1
-    lam, best_sel, best_obj, best_feas, best_lb, _, _ = carry
+    c = _PureCarry(0, lam_init, sel_seed, obj_seed, feas_seed, lb_seed,
+                   sel_seed, torch.zeros(lead, dtype=torch.int64, device=dev))
+    c = sync.while_loop(go_on, step, c, max_iters=iters)
 
     if with_clusters:
         labels, n_clusters = cluster(state, shapes)
     else:
-        labels = torch.zeros((T,), dtype=torch.int32, device=dev)
-        n_clusters = torch.full((), -1, dtype=torch.int32, device=dev)
-    return SelectionResult(sel=best_sel.int(), feasible=best_feas,
-                           obj=best_obj, bound=best_lb, labels=labels,
-                           n_clusters=n_clusters, lam=lam)
+        labels = torch.zeros((*lead, T), dtype=torch.int32, device=dev)
+        n_clusters = torch.full(lead, -1, dtype=torch.int32, device=dev)
+    return SelectionResult(sel=c.best_sel.int(), feasible=c.best_feas,
+                           obj=c.best_obj, bound=c.best_lb, labels=labels,
+                           n_clusters=n_clusters, lam=c.lam)
 
 
 # ----------------------------------------------------------------------
@@ -1031,20 +1066,16 @@ def select(state: TrackerState, shapes: TrackerShapes,
     gather/scatter Lagrangian on the whole forest, ``'greedy'`` the
     per-target independent best with its feasibility reported honestly.
     With ``fast_path`` no solver runs when the independent optima are
-    conflict-free (they are then the global optimum).  ``'lagrangian'``
-    and ``'greedy'`` also take a batch of forests (leading scenario
-    axes): the solver then runs when any scenario conflicts, and the
-    fast result is kept where a scenario's independent optima are
-    conflict-free."""
+    conflict-free (they are then the global optimum).  Every method
+    also takes a batch of forests (leading scenario axes): the solver
+    then runs when any scenario conflicts, and the fast result is kept
+    where a scenario's independent optima are conflict-free."""
     solver = {'ipm': select_ipm, 'lagrangian': select_hybrid,
               'lagrangian_pure': select_lagrangian}
     if method not in solver and method != 'greedy':
         raise ValueError(f"unknown selection method {method!r}")
     *lead, T = state.tgt_mask.shape
     lead = tuple(lead)
-    if lead and method not in ('lagrangian', 'greedy'):
-        raise ValueError(f"select: method {method!r} takes one forest, not "
-                         f"a batch")
     if not fast_path and method != 'greedy':
         return solver[method](state, shapes, params, **kw)
 

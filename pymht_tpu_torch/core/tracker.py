@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .. import sync
-from ..batch import lead_index
+from ..batch import isin, lead_index
 from ..models import pv
 from .config import TrackerShapes, TrackerParams
 from ..utils.timing import RuntimeLog
@@ -76,10 +76,9 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
     None).  ``prune_similar`` merges near-identical sibling hypotheses
     after grow; ``dynamic_window`` shrinks the N-scan window of targets
     that are over budget (``shrink_windows``).  Neither reads a value on
-    the host.  The radar-only step with the ``'lagrangian'`` or
-    ``'greedy'`` selection also takes a batch of scenarios: leading axes
-    on the states, the scan and every output
-    (``parallel/scenario.make_batched_step``)."""
+    the host.  The step also takes a batch of scenarios, with any method
+    and either branch: leading axes on the states, the scan, the AIS batch
+    and every output (``parallel/scenario.make_batched_step``)."""
     if use_ais and not isinstance(ais, AisBatch):
         raise TypeError("scan_step: use_ais=True needs an AisBatch "
                         "(grow.empty_ais for a scan with no messages)")
@@ -116,11 +115,11 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
 
     # 8. initiate from the measurements no leaf gated
     if use_ais and ais_initialization:
-        # messages whose MMSI a surviving leaf associated this scan are
-        # not available for initiation
-        cur_mmsi = torch.where(state.leaf_mask, state.hist_mmsi[:, :, -1], 0)
+        # messages whose MMSI a surviving leaf of the same scenario
+        # associated this scan are not available for initiation
+        cur_mmsi = torch.where(state.leaf_mask, state.hist_mmsi[..., -1], 0)
         ais_for_init = ais._replace(
-            mask=ais.mask & ~torch.isin(ais.mmsi, cur_mmsi.reshape(-1)))
+            mask=ais.mask & ~isin(ais.mmsi, cur_mmsi.flatten(-2)))
     else:
         ais_for_init = None
     init_out = initiator_mod.step(init_state, scan.z, scan.mask & ~g.used_meas,

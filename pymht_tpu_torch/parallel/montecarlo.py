@@ -159,7 +159,8 @@ def scan_batch(scenario: McScenario, s: int) -> Scan:
 def run_batch(scenario: McScenario, shapes: TrackerShapes,
               params: TrackerParams, method: str = 'lagrangian'):
     """Track every scenario of the batch, one batched ``scan_step`` per
-    scan with nothing fetched in between, on the scenario's device.
+    scan with nothing fetched in between, on the scenario's device, with
+    any of the four selection methods (radar only, as the JAX function).
     Returns (final states, track_x [S, B, T, 4], track_mask [S, B, T])."""
     step = make_batched_step(shapes, params, method=method, use_ais=False)
     state_b, istate_b = initial_states(scenario, shapes, params)

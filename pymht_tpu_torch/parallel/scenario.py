@@ -4,15 +4,17 @@ of pymht_tpu/parallel/scenario.py: ``make_batched_step``,
 
 B independent scenarios advance one scan together.  Where the JAX
 package ``jax.vmap``s ``scan_step``, the port writes the scenario axis
-out: every tensor of the state, the initiator state, the scan and the
-step's outputs carries a leading B, and every core function takes it
-(``batch.lead_index``).  The loops and branches that the port reads on
-the host keep vmap's semantics (``sync.while_loop``, ``sync.cond``): a
-loop runs while any scenario's test holds, a scenario that is done keeps
-its carry, and a branch runs where some scenario takes it and is
-selected per scenario.  A batched scan therefore makes a number of
-launches that does not grow with B, K1 among them once, and about as
-many host reads as the slowest of its scenarios alone.
+out: every tensor of the state, the initiator state, the scan, the AIS
+batch and the step's outputs carries a leading B, and every core function
+takes it (``batch.lead_index``), with any selection method, with or
+without the AIS branch and with or without the spatial pre-gate.  The
+loops and branches that the port reads on the host keep vmap's semantics
+(``sync.while_loop``, ``sync.cond`` and the batched loops of
+``ops/lp.py``): a loop runs while any scenario's test holds, a scenario
+that is done keeps its carry, and a branch runs where some scenario takes
+it and is selected per scenario.  A batched scan therefore makes a
+number of launches that does not grow with B, K1 among them once, and
+about as many host reads as the slowest of its scenarios alone.
 """
 from __future__ import annotations
 
@@ -26,28 +28,14 @@ def make_batched_step(shapes: TrackerShapes, params: TrackerParams,
                       method: str = 'lagrangian', use_ais: bool = False):
     """``scan_step`` over a leading scenario axis: returns
     ``step(state_b, istate_b, scan_b, ais_b=None) -> (state_b, istate_b,
-    outputs_b)``.  The radar-only step with the ``'lagrangian'`` or
-    ``'greedy'`` selection is batched; the options that are not yet
-    raise (ROADMAP, queue 1: the remainder of scenario batching)."""
-    if use_ais:
-        raise NotImplementedError(
-            "make_batched_step: use_ais=True (grow's AIS branch, "
-            "ops/ais_fused.py) is not batched yet; ROADMAP queue 1, the "
-            "remainder of scenario batching")
-    if method in ('ipm', 'lagrangian_pure'):
-        raise NotImplementedError(
-            f"make_batched_step: method={method!r} (ops/lp.py, "
-            f"select_ipm / select_lagrangian) is not batched yet; ROADMAP "
-            f"queue 1, the remainder of scenario batching")
-    if shapes.radar_cand_width > 0:
-        raise NotImplementedError(
-            "make_batched_step: radar_cand_width > 0 (grow's spatial "
-            "pre-gate) is not batched yet; ROADMAP queue 1, the remainder "
-            "of scenario batching")
+    outputs_b)``.  ``ais_b`` is the scenarios' ``AisBatch`` ``[B, A,
+    ...]`` (read only with ``use_ais``).  An unknown ``method`` raises the
+    dispatcher's ValueError at the first step, as the JAX step does when
+    traced."""
 
     def step(state_b, istate_b, scan_b, ais_b=None):
-        return scan_step(state_b, istate_b, scan_b, None, shapes, params,
-                         method=method, use_ais=False)
+        return scan_step(state_b, istate_b, scan_b, ais_b, shapes, params,
+                         method=method, use_ais=use_ais)
 
     return step
 

@@ -7,6 +7,9 @@
     python -m pymht_tpu_torch.profile_step --method ipm
     python -m pymht_tpu_torch.profile_step --batch 32        # B scenarios
     python -m pymht_tpu_torch.profile_step --batch 256 --mc
+    python -m pymht_tpu_torch.profile_step --batch 32 --ais
+    python -m pymht_tpu_torch.profile_step --batch 32 --pregate 64
+    python -m pymht_tpu_torch.profile_step --batch 8 --demo --method ipm
 
 Runs the radar-only bench scene (``Tracker(use_ais=False)``) or, with
 ``--ais``, the AIS-fusion scene (``Tracker(use_ais=True)``, A=32, G=2;
@@ -18,9 +21,12 @@ hands the step only the first; the second is streaming's, given to the
 step here so that its device work can be read beside the rest).  With
 ``--batch B`` it steps B scenarios together through the batched step
 (``parallel/scenario.make_batched_step``): B scenarios of
-``scenes.mc_bench_scene`` (bench.py's shapes, 100 targets each), or with
+``scenes.mc_bench_scene`` (bench.py's shapes, 100 targets each), with
 ``--mc`` of ``scenes.mc_scene`` (eval_configs.py's Monte-Carlo
-configuration); a "scan" below is then one batched scan.  Over the
+configuration), with ``--ais`` B draws of the AIS-fusion scene
+(``scenes.bench_ais_batch``) and with ``--demo`` B draws of the demo
+scene (``scenes.demo_batch``, AIS on, 21 scans), each under ``--method``
+and ``--pregate``; a "scan" below is then one batched scan.  Over the
 steady scans (3 onwards) it reports:
 
 * per phase (grow, select, terminate + prune, initiate), the wall time of
@@ -103,6 +109,8 @@ def main(argv=None):
     ap.add_argument("--mc", action="store_true",
                     help="with --batch: eval_configs.py's Monte-Carlo "
                          "configuration instead of bench.py's shapes")
+    ap.add_argument("--demo", action="store_true",
+                    help="with --batch: draws of the demo scene (AIS on)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -206,25 +214,46 @@ def _batched(args):
     scans under the profiler, as for one scenario."""
     from .parallel import montecarlo as mc
     from .parallel.scenario import make_batched_step
-    from .utils.scenes import mc_bench_scene, mc_scene
-    scene = mc_scene if args.mc else mc_bench_scene
-    shapes, params, sc = scene(batch=args.batch)
-    sc = mc.McScenario(*(a.to("cuda") for a in sc))
-    step = make_batched_step(shapes, params, method=args.method)
-    S = sc.z.shape[1]
+    from .utils import scenes
+    B = args.batch
+    if args.ais or args.demo:
+        build = scenes.demo_batch if args.demo else scenes.bench_ais_batch
+        bs = build(B, device="cuda")
+        shapes, params, use_ais, truth = bs.shapes, bs.params, True, None
+        S = bs.scans.z.shape[1]
+
+        def initial():
+            return bs.state, bs.init_state
+
+        def scan_at(s):
+            return bs.scan(s)
+    else:
+        shapes, params, sc = (scenes.mc_scene if args.mc
+                              else scenes.mc_bench_scene)(batch=B)
+        sc = mc.McScenario(*(a.to("cuda") for a in sc))
+        use_ais, truth, S = False, sc.truth, sc.z.shape[1]
+
+        def initial():
+            return mc.initial_states(sc, shapes, params)
+
+        def scan_at(s):
+            return mc.scan_batch(sc, s), None
+    shapes = dataclasses.replace(shapes, radar_cand_width=args.pregate)
+    step = make_batched_step(shapes, params, method=args.method,
+                             use_ais=use_ais)
 
     # pass 1: each phase of each steady batched scan, timed alone
-    st, ist = mc.initial_states(sc, shapes, params)
+    st, ist = initial()
     phases = []
     for s in range(S):
-        scan = mc.scan_batch(sc, s)
+        scan, ais = scan_at(s)
         if s >= 2:
-            phases.append(_phase_times(st, ist, scan, None, shapes, params,
+            phases.append(_phase_times(st, ist, scan, ais, shapes, params,
                                        args.method))
-        st, ist, _ = step(st, ist, scan)
+        st, ist, _ = step(st, ist, scan, ais)
     # pass 2: the unchanged batched steps under the profiler
     torch.cuda.reset_peak_memory_stats()
-    st, ist = mc.initial_states(sc, shapes, params)
+    st, ist = initial()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
@@ -235,7 +264,7 @@ def _batched(args):
             prof.__enter__()
             t_window = time.perf_counter()
         n_sync, t = sync.count, time.perf_counter()
-        st, ist, out = step(st, ist, mc.scan_batch(sc, s))
+        st, ist, out = step(st, ist, *scan_at(s))
         reads.append(sync.count - n_sync)
         if s < 2:
             torch.cuda.synchronize()
@@ -245,23 +274,26 @@ def _batched(args):
     prof.__exit__(None, None, None)
     n = S - 2
     busy_ms, events, top = _device_time(prof)
+    K = truth.shape[2] if truth is not None else shapes.max_targets
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "scene": "mc" if args.mc else "mc-bench",
-        "batch": args.batch,
+        "scene": ("demo" if args.demo else "ais" if args.ais
+                  else "mc" if args.mc else "mc-bench"),
+        "batch": B,
         "shapes": dataclasses.asdict(shapes),
         "method": args.method,
+        "use_ais": use_ais,
         "scans_profiled": n,
         "wall_ms_first_two_scans": walls,
         "wall_ms_per_batched_scan": wall_ms / n,
-        "scenario_scans_per_s": args.batch * n / (wall_ms / 1e3),
+        "scenario_scans_per_s": B * n / (wall_ms / 1e3),
         "device_busy_ms_per_scan": busy_ms / n,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "phase_ms_median": {k: float(np.median([p[k] for p in phases]))
                             for k in phases[0]},
         "host_syncs_per_scan": reads,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "tracks_alive": int(out.track_mask[:, :sc.truth.shape[2]].sum()),
+        "tracks_alive": int(out.track_mask[:, :K].sum()),
         **_device_summary(events, top, n),
     }, indent=1))
     return 0

@@ -1,6 +1,8 @@
 """Seeded scenes shared by the port's smoke run and profiler."""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
 from ..core.config import TrackerParams, TrackerShapes
@@ -177,3 +179,130 @@ def mc_bench_scene(batch: int = 32, n_targets: int = 100, n_scans: int = 13,
     shapes, params = _bench_config(max_ais=8)
     return shapes, params, _mc_draw(shapes, params, batch, n_targets,
                                     n_scans, seed, lambda_local=0.5)
+
+
+class BatchScene(NamedTuple):
+    """B seeded draws of one scene as the batched step takes them: each
+    draw padded by a ``Tracker``'s own ``_pad_scan`` / ``_pad_ais`` and
+    stacked, each scenario pre-initialised with its seeds and MMSIs.
+    ``scans.time`` and ``ais.time`` are relative to each draw's origin
+    (``origins[b]``, a Tracker's ``t0``)."""
+    shapes: object
+    params: object
+    state: object           # TrackerState, [B, ...]
+    init_state: object      # InitiatorState, [B, ...]
+    scans: object           # Scan: z [B, S, M, 2], mask [B, S, M], time [B, S]
+    ais: object             # AisBatch, [B, S, A, ...]
+    sim_lists: list         # per draw, the simulator's truth
+    origins: list           # per draw, the time origin t0
+
+    def scan(self, s):
+        """(Scan, AisBatch) of scan ``s`` of every scenario: [B, ...]."""
+        return _at(self.scans, s), _at(self.ais, s)
+
+    def to(self, device):
+        """The same scene on ``device``."""
+        import dataclasses
+
+        def move(tree):
+            if dataclasses.is_dataclass(tree):
+                return tree.replace(**{f.name: getattr(tree, f.name).to(
+                    device) for f in dataclasses.fields(tree)})
+            return type(tree)(*(f.to(device) for f in tree))
+
+        return self._replace(state=move(self.state),
+                             init_state=move(self.init_state),
+                             scans=move(self.scans), ais=move(self.ais))
+
+    def scenario(self, b):
+        """(state, initiator state, Scan [S, ...], AisBatch [S, ...]) of
+        scenario ``b`` alone."""
+        return (_pick(self.state, b), _pick(self.init_state, b),
+                _pick(self.scans, b), _pick(self.ais, b))
+
+
+def _at(tup, s):
+    return type(tup)(*(f[:, s] for f in tup))
+
+
+def _pick(tree, b):
+    import dataclasses
+    if dataclasses.is_dataclass(tree):
+        return tree.replace(**{f.name: getattr(tree, f.name)[b]
+                               for f in dataclasses.fields(tree)})
+    return type(tree)(*(f[b] for f in tree))
+
+
+def batch_scene(shapes, params, draws, device="cpu") -> BatchScene:
+    """Stack ``draws``, each (scans, ais_groups, seeds, mmsi, sim_list)
+    (``seeds=None``: no pre-initialisation, the initiator starts every
+    track), into a ``BatchScene`` on ``device``.  Every draw must have the
+    same number of scans."""
+    import dataclasses
+
+    import torch
+
+    from ..core.grow import AisBatch, Scan
+    from ..core.tracker import Tracker
+
+    period = params.radar_period
+    M = shapes.max_meas
+    states, istates, zs, ais, sims, origins = [], [], [], [], [], []
+    for scans, groups, seeds, mmsi, sim_list in draws:
+        tr = Tracker(shapes, params, method="lagrangian", use_ais=True,
+                     device="cpu")
+        if seeds is not None:
+            tr.pre_initialize(scans[0].time - period, seeds, mmsi=mmsi)
+        else:
+            tr.t0 = float(scans[0].time) - period
+        zs.append(np.stack([tr._pad_scan(float(sc.time) - tr.t0,
+                                         sc.measurements) for sc in scans]))
+        ais.append([np.stack(f) for f in zip(*(
+            tr._pad_ais(list(groups[i]) if i < len(groups) else [])
+            for i in range(len(scans))))])
+        states.append(tr.state)
+        istates.append(tr.init_state)
+        sims.append(sim_list)
+        origins.append(tr.t0)
+    packed = torch.from_numpy(np.stack(zs))                # [B, S, M+1, 2]
+    scan = Scan(z=packed[:, :, :M].contiguous(),
+                mask=torch.arange(M) < packed[:, :, M, :1].int(),
+                time=packed[:, :, M, 1].contiguous())
+    ais_b = AisBatch(*(torch.from_numpy(np.stack(f))
+                       for f in zip(*ais)))
+
+    def stack(trees):
+        return trees[0].replace(**{f.name: torch.stack(
+            [getattr(t, f.name) for t in trees]).to(device)
+            for f in dataclasses.fields(trees[0])})
+
+    return BatchScene(shapes, params, stack(states), stack(istates),
+                      Scan(*(f.to(device) for f in scan)),
+                      AisBatch(*(f.to(device) for f in ais_b)), sims,
+                      origins)
+
+
+def bench_ais_batch(batch: int = 32, seed: int = 4321, device="cpu",
+                    **kw) -> BatchScene:
+    """``batch`` draws of ``bench_scene_ais`` (T=128, L=32, M=512, A=32,
+    G=2, W=7; ``kw`` passes its other arguments), draw b with seed
+    ``seed + b``, pre-initialised with its 100 seeds and MMSIs."""
+    draws = []
+    for b in range(batch):
+        (shapes, params, scans, groups, sim_list, seeds,
+         mmsi) = bench_scene_ais(seed=seed + b, **kw)
+        draws.append((scans, groups, seeds, mmsi, sim_list))
+    return batch_scene(shapes, params, draws, device)
+
+
+def demo_batch(batch: int = 8, seed: int = 42, device="cpu",
+               **kw) -> BatchScene:
+    """``batch`` draws of ``demo_scene`` (T=32, L=32, M=64, A=8, W=7, six
+    targets with transponders; ``kw`` passes its other arguments), draw b
+    with seed ``seed + b``; no pre-initialisation, as the demo."""
+    draws = []
+    for b in range(batch):
+        shapes, params, scans, groups, sim_list = demo_scene(seed=seed + b,
+                                                             **kw)
+        draws.append((scans, groups, None, None, sim_list))
+    return batch_scene(shapes, params, draws, device)

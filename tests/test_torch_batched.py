@@ -9,8 +9,8 @@ targets (tier 3), the initiator's auctions run different numbers of
 rounds, and the scenarios are stepped to different scan times (so K1
 gets one time step per scenario).  Then ``select`` on stacked forests,
 ``auction_assign`` on stacked cost matrices and K1's plain twin through
-the batched call, each against its unbatched self; B=1; and what the
-batched step refuses.
+the batched call (without and with the pre-gate), each against its
+unbatched self; B=1; and what the batched step refuses.
 
 Integer and boolean outputs must be equal; float outputs within
 STATE_RTOL / STATE_ATOL (the batched twin predicts with one transition
@@ -410,16 +410,16 @@ def test_wrapper_refuses_what_the_kernel_cannot_index():
 
 
 def test_make_batched_step_refuses_unbatched_options():
-    """What is not batched yet raises NotImplementedError naming the
-    option; an unknown method is the dispatcher's ValueError."""
-    for kw, match in ((dict(use_ais=True), "use_ais"),
-                      (dict(method='ipm'), "ipm"),
-                      (dict(method='lagrangian_pure'), "lagrangian_pure")):
-        with pytest.raises(NotImplementedError, match=match):
-            make_batched_step(SHAPES, PARAMS, **kw)
-    with pytest.raises(NotImplementedError, match="radar_cand_width"):
-        make_batched_step(dataclasses.replace(SHAPES, radar_cand_width=8),
-                          PARAMS)
+    """Nothing of the JAX step's options is refused any more (the AIS
+    branch, 'ipm' / 'lagrangian_pure' and the pre-gate are held in
+    tests/test_torch_batched_options.py); what is still refused is an
+    unknown method, with the dispatcher's ValueError."""
+    for kw in (dict(use_ais=True), dict(method='ipm'),
+               dict(method='lagrangian_pure'),
+               dict(use_ais=True, method='ipm')):
+        assert callable(make_batched_step(SHAPES, PARAMS, **kw))
+    assert callable(make_batched_step(
+        dataclasses.replace(SHAPES, radar_cand_width=8), PARAMS))
     step = make_batched_step(SHAPES, PARAMS, method='simplex')
     st, ist = batch_states(SHAPES, PARAMS, 2, device="cpu")
     M = SHAPES.max_meas
@@ -427,6 +427,115 @@ def test_make_batched_step_refuses_unbatched_options():
         step(st, ist, Scan(torch.zeros(2, M, 2),
                            torch.zeros(2, M, dtype=torch.bool),
                            torch.ones(2)))
+
+
+def _pregate_batch_inputs(seed, B, T, L, M, Km):
+    """K1's inputs as grow hands them over for a batch of B pre-gated
+    scenarios: B * T targets of L leaves, each with Km columns of its own
+    scenario's scan (its nearest measurements), indexed on the flat
+    [B * M] axis (``zidx`` offset by b * M), and each target its
+    scenario's time step.  Returns (the seven tensors, dt [B * T], the
+    per-target arguments, and per scenario the unbatched call's
+    arguments)."""
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(2.0, 3.0, B).astype(np.float32)
+    x = rng.normal(0, 60, (B, T, L, 4)).astype(np.float32)
+    x[..., 2:] = rng.normal(0, 3, (B, T, 1, 2))
+    x[..., :2] = x[:, :, :1, :2] + rng.normal(0, 3, (B, T, L, 2))
+    P = np.broadcast_to(np.diag([6.25, 6.25, 1.875, 1.875]),
+                        (B, T, L, 4, 4)).astype(np.float32)
+    cnllr = rng.normal(0, 1, (B, T, L)).astype(np.float32)
+    pd = np.full((B, T, L), 0.9, np.float32)
+    mask = rng.uniform(size=(B, T, L)) < 0.9
+    pred = x[:, :, 0, :2] + dt[:, None, None] * x[:, :, 0, 2:]    # [B,T,2]
+    z = rng.normal(0, 60, (B, M, 2)).astype(np.float32)
+    z[:, :T] = pred + rng.normal(0, 2, (B, T, 2))
+    zmask = rng.uniform(size=(B, M)) < 0.95
+    d2 = ((z[:, None] - pred[:, :, None]) ** 2).sum(-1)           # [B,T,M]
+    d2 = np.where(zmask[:, None], d2, np.inf)
+    zidx = np.argsort(d2, axis=-1, kind="stable")[..., :Km]       # [B,T,Km]
+    z_sub = np.take_along_axis(z[:, None], zidx[..., None], 2)
+    zmask_sub = np.take_along_axis(zmask[:, None].repeat(T, 1), zidx, 2)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        x.reshape(-1, 4), P.reshape(-1, 4, 4), cnllr.reshape(-1),
+        pd.reshape(-1), mask.reshape(-1), z.reshape(-1, 2),
+        zmask.reshape(-1))]
+    flat = (zidx + M * np.arange(B)[:, None, None]).astype(np.int32)
+    sub = dict(z_sub=torch.from_numpy(z_sub.reshape(B * T, Km, 2).copy()),
+               zmask_sub=torch.from_numpy(zmask_sub.reshape(B * T, Km)
+                                          .copy()),
+               zidx=torch.from_numpy(flat.reshape(B * T, Km).copy()),
+               leaves_per_target=L)
+    dt_t = torch.from_numpy(dt).reshape(B, 1).expand(B, T).reshape(B * T)
+    alone = [([torch.from_numpy(np.ascontiguousarray(a[b])).reshape(
+        (T * L,) + a.shape[3:]) for a in (x, P, cnllr, pd, mask)]
+        + [torch.from_numpy(z[b]), torch.from_numpy(zmask[b])],
+        torch.tensor(dt[b]),
+        dict(z_sub=torch.from_numpy(np.ascontiguousarray(z_sub[b])),
+             zmask_sub=torch.from_numpy(np.ascontiguousarray(zmask_sub[b])),
+             zidx=torch.from_numpy(zidx[b].astype(np.int32)),
+             leaves_per_target=L)) for b in range(B)]
+    return t, dt_t, sub, alone
+
+
+K1_ARGS = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
+
+
+def _same_candidates(got, want, what):
+    g, g_w = got.scores < gk.BIG / 2, want.scores < gk.BIG / 2
+    assert torch.equal(g, g_w), what
+    np.testing.assert_allclose(got.scores[g].cpu().numpy(),
+                               want.scores[g_w].cpu().numpy(), rtol=1e-5,
+                               atol=1e-4, err_msg=what)
+    for f in ("x_bar", "P_bar", "K", "P_hat"):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                   getattr(want, f).cpu().numpy(),
+                                   rtol=1e-5, atol=1e-4,
+                                   err_msg=f"{what}: {f}")
+    assert torch.equal(got.gated_counts.cpu(), want.gated_counts.cpu()), what
+    return int(g[:, 1:].sum())
+
+
+def test_k1_twin_through_the_batched_pregate_call():
+    """K1's plain twin called as grow calls it for a pre-gated batch (B *
+    T targets, columns on the flat [B * M] axis, one time step per
+    target) against the unbatched pre-gated twin on each scenario."""
+    B, T, L, M, Km = 3, 4, 8, 40, 6
+    t, dt, sub, alone = _pregate_batch_inputs(9, B, T, L, M, Km)
+    got = gk.radar_candidates(*t, dt, **K1_ARGS, **sub)
+    assert got.scores.shape == (B * T * L, Km + 1)
+    assert got.used_meas.shape == (B * M,)
+    n_gated = 0
+    for b, (inp, dt_b, sub_b) in enumerate(alone):
+        want = gk.radar_candidates(*inp, dt_b, **K1_ARGS, **sub_b)
+        rows = slice(b * T * L, (b + 1) * T * L)
+        n_gated += _same_candidates(
+            type(got)(*(f[rows] for f in got[:6]), got.used_meas),
+            want._replace(used_meas=want.used_meas), f"scenario {b}")
+        assert torch.equal(got.used_meas.view(B, M)[b], want.used_meas)
+    assert n_gated > 0 and bool(got.used_meas.any())
+
+
+@pytest.mark.cuda
+def test_k1_kernel_on_the_batched_pregate_call():
+    """The same call on the card: K1's per-target entry point at the
+    batched pre-gate's shape (flat ``zidx`` offsets, ``dt`` per target)
+    against its twin on the same tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    B, T, L, M, Km = 4, 16, 32, 128, 16
+    t, dt, sub, _ = _pregate_batch_inputs(10, B, T, L, M, Km)
+    t = [a.cuda() for a in t]
+    dt = dt.contiguous().cuda()
+    sub = {k: v.cuda() if isinstance(v, torch.Tensor) else v
+           for k, v in sub.items()}
+    n0, p0 = gk.launches, gk.launches_pregate
+    got = gk.radar_candidates(*t, dt, **K1_ARGS, **sub)
+    torch.cuda.synchronize()
+    assert (gk.launches, gk.launches_pregate) == (n0 + 1, p0 + 1)
+    want = gk.radar_candidates_reference(*t, dt, **K1_ARGS, **sub)
+    assert _same_candidates(got, want, "batched pre-gate") > 0
+    assert torch.equal(got.used_meas, want.used_meas)
 
 
 def test_batch_states_need_the_card_unless_told(monkeypatch):

@@ -141,10 +141,9 @@ def test_tracker_refuses_unported_options():
     """Nothing of Tracker's surface raises NotImplementedError any more:
     every selection method runs, the options and entry points of the
     streaming and degradation slice are accepted.  What is refused: an
-    unknown method (ValueError) and a step without its AisBatch.  The one
-    NotImplementedError left in the package is the batched step's
-    refusal of the options that are not batched yet
-    (parallel/scenario.py)."""
+    unknown method (ValueError) and a step without its AisBatch.  No
+    NotImplementedError is left anywhere in the package: the batched
+    step takes every option too (parallel/scenario.py)."""
     params = TrackerParams()
     tr = Tracker(SHAPES, params, device='cpu', prune_similar=True,
                  dynamic_window=True, degrade_on_overload=True)
@@ -177,7 +176,7 @@ def test_tracker_refuses_unported_options():
     port = pathlib.Path(ttracker.__file__).resolve().parents[1]
     hits = [str(f.relative_to(port)) for f in port.rglob("*.py")
             if "NotImplementedError" in f.read_text()]
-    assert hits == ["parallel/scenario.py"], hits
+    assert hits == [], hits
 
 
 def test_tracker_defaults_to_the_card(monkeypatch):
