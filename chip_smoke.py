@@ -118,15 +118,42 @@ Phases, in order; any failure raises and the script exits non-zero:
     interior-point solver entered, every scan feasible, every scenario
     against itself stepped alone under 'ipm' on the card, K1 at the
     batch's shape; then 'lagrangian_pure' on the same batch for 5 scans
-    from the state after 12, every scenario against itself alone.
+    from the state after 12, every scenario against itself alone;
+22. sharded-1: tests/test_sharded_swarm.py's scene (T=1024 slots, 600
+    targets, L=8, M=512, A=32, G=2, W=5, seed 42, 4 scans,
+    ``utils/scenes.swarm_shard_scene``) through ``parallel.sharded_tracker.
+    make_sharded_tracker_step`` at one NCCL rank: K1 once per scan at
+    N=8192 and held against its twin on two scans' tensors, the
+    replicated state's digests equal after every scan, against the
+    unsharded ``scan_step`` on the card (the JAX test's contract: feasible,
+    objectives within 1e-3, at least 99.5 % of the labels equal, AIS labels
+    and states equal where they are) and against the same sharded step on
+    the CPU (one gloo rank); ms/scan, host reads, collectives and bytes
+    per scan beside the unsharded step's; K1 timed at N=8192 against its
+    bound; the state after 2 scans saved.  Then bench.py's radar-only
+    scene (13 scans) through the sharded step: track quality above the
+    radar-only floor, ms/scan beside the unsharded step's;
+23. sharded-2: two ranks spawned on the one card, gloo on CUDA tensors
+    (NCCL refuses two ranks on one GPU): the swarm scene at 2 x 512 target
+    slots for 3 scans, digests after each, every K1 launch (N=4096 per
+    rank) held against its twin on its scan's tensors, the gathered
+    outputs equal to sharded-1's; sharded-1's checkpoint restored by rows
+    (``load_state(shard=)``) and its next scan equal to sharded-1's; the
+    measurement exchange over the two ranks; ``dryrun(2)`` on the 1 x 2
+    and 2 x 1 meshes against ``make_batched_step``.  Their times are those
+    of two processes sharing one GPU over a host transport, not of
+    several cards.
 
 The line before the last is one JSON object describing each kernel of
 the path; the last line is ``{"ok": true, "device": {...}}``.  There is
 no CPU fallback: without a CUDA device the script exits with code 1.
+Every collective and rendezvous of the sharded phases times out after
+SHARD_TIMEOUT_S, so ranks that diverge fail the run instead of hanging.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -2029,8 +2056,487 @@ def mc_ipm_phase():
     return r
 
 
-def main():
+# ----------------------------------------------------------------------
+# sharded phases: the target-sharded step on torch.distributed
+# ----------------------------------------------------------------------
+
+SHARD_SCANS = 4            # swarm scans at one rank
+SHARD2_SCANS = 3           # at two ranks sharing the card
+SHARD_CKPT_AFTER = 2       # sharded-1 saved after this many scans
+SHARD_TIMEOUT_S = 120      # bounds every rendezvous and collective
+SWARM_N_TARGETS = 600
+# sharded against unsharded (tests/test_sharded_swarm.py's contract: the
+# sharded select has no exact tiers 1-2 and reduces in another order)
+SWARM_MIN_AGREE = 0.995
+SWARM_OBJ_RTOL = 1e-3
+SWARM_STATE_ATOL = 1e-3
+SHARD_OUTPUTS = ("track_mask", "track_id", "track_x", "sel_hist_meas",
+                 "sel_obj", "sel_bound", "sel_feasible", "dead",
+                 "confirmed_mask", "confirmed_x", "confirmed_meas")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init_group(backend, rank, world, port):
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=SHARD_TIMEOUT_S))
+
+
+def scene_inputs(scene, device, n_scans, use_ais):
+    """(shapes, params, state, initiator state, [(Scan, AisBatch or None)]
+    per scan, sim_list, Tracker) of a seeded scene, pre-initialised by the
+    Tracker on ``device``, the scans padded by its make_stream_inputs."""
+    from pymht_tpu_torch import Tracker
+    from pymht_tpu_torch.core.grow import AisBatch, Scan
+    if use_ais:
+        shapes, params, scans, groups, sim_list, seeds, mmsi = scene()
+    else:
+        (shapes, params, scans, sim_list, seeds), groups, mmsi = \
+            scene(), None, None
+    scans = scans[:n_scans]
+    tr = Tracker(shapes, params, method="lagrangian", use_ais=use_ais,
+                 device=device)
+    tr.pre_initialize(scans[0].time - params.radar_period, seeds, mmsi=mmsi)
+    scan_b, ais_b = tr.make_stream_inputs(scans, groups)
+    per = [(Scan(*(f[i] for f in scan_b)),
+            AisBatch(*(f[i] for f in ais_b)) if use_ais else None)
+           for i in range(len(scans))]
+    return shapes, params, tr.state, tr.init_state, per, sim_list, tr
+
+
+def swarm_inputs(device, n_scans=SHARD_SCANS):
+    from pymht_tpu_torch.utils.scenes import swarm_shard_scene
+    return scene_inputs(swarm_shard_scene, device, n_scans, True)
+
+
+def sel_ais_of(st):
+    """The AIS label of each target's selected leaf in the newest column
+    (what tests/test_sharded_swarm.py compares)."""
     import torch
+    return st.hist_ais[torch.arange(st.sel_leaf.shape[0],
+                                    device=st.sel_leaf.device),
+                       st.sel_leaf.long(), -1]
+
+
+def run_sharded(axis, shapes, params, local, istate, inputs, use_ais,
+                keep_after=None):
+    """``inputs`` through ``make_sharded_tracker_step`` from this rank's
+    share ``local`` of a forest.  Per scan: the step timed alone (wall clock,
+    synchronised on a card), its host reads, collectives and their bytes;
+    then the outputs gathered (numpy, the whole forest's layout, with
+    ``sel_ais``) and the replicated state's digests held equal over the
+    ranks.  Returns (local state, initiator state, per-scan outputs,
+    stats, the gathered (state, initiator state) after ``keep_after``
+    scans)."""
+    import torch
+    from pymht_tpu_torch import sync
+    from pymht_tpu_torch.parallel.collectives import check_replicated
+    from pymht_tpu_torch.parallel.sharded_tracker import (
+        gather_outputs, gather_state, make_sharded_tracker_step)
+    cuda = local.leaf_x.is_cuda
+    step = make_sharded_tracker_step(axis, shapes, params, use_ais=use_ais)
+    st, ist = local, istate
+    outs, kept = [], None
+    stats = dict(ms=[], reads=[], collectives=[], bytes=[])
+    for k, (sc, ab) in enumerate(inputs):
+        if cuda:
+            torch.cuda.synchronize()
+        r0, c0, b0 = sync.count, axis.count, axis.bytes
+        t0 = time.perf_counter()
+        st, ist, o = step(st, ist, sc, ab)
+        if cuda:
+            torch.cuda.synchronize()
+        stats["ms"].append(1e3 * (time.perf_counter() - t0))
+        stats["reads"].append(sync.count - r0)
+        stats["collectives"].append(axis.count - c0)
+        stats["bytes"].append(axis.bytes - b0)
+        o = gather_outputs(o, axis)
+        o["sel_ais"] = axis.all_gather(sel_ais_of(st))
+        outs.append({key: v.cpu().numpy() for key, v in o.items()})
+        check_replicated(axis, [st.lam, st.next_id, st.scan_idx, st.time,
+                                *(getattr(ist, f.name) for f in
+                                  dataclasses.fields(ist))],
+                         f"sharded step, scan {k}")
+        if keep_after == k + 1:
+            kept = (gather_state(st, axis), ist)
+    return st, ist, outs, stats, kept
+
+
+def run_unsharded(shapes, params, state, istate, inputs, use_ais):
+    """The same scans through the single-device ``scan_step``: the
+    sharded run's outputs (numpy), the steps' wall ms and host reads."""
+    import torch
+    from pymht_tpu_torch import sync
+    from pymht_tpu_torch.core.tracker import scan_step
+    st, ist, outs, walls, reads = state, istate, [], [], []
+    for sc, ab in inputs:
+        torch.cuda.synchronize()
+        r0, t0 = sync.count, time.perf_counter()
+        st, ist, o = scan_step(st, ist, sc, ab, shapes, params,
+                               method="lagrangian", use_ais=use_ais)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        reads.append(sync.count - r0)
+        d = {f: getattr(o, f).cpu().numpy() for f in SHARD_OUTPUTS}
+        d["sel_ais"] = sel_ais_of(st).cpu().numpy()
+        outs.append(d)
+    return outs, walls, reads
+
+
+def check_shard_run(outs, what):
+    for k, o in enumerate(outs):
+        check(bool(o["sel_feasible"]), f"{what} scan {k}: infeasible")
+        check(all(not np.isnan(v).any() for v in o.values()
+                  if v.dtype.kind == "f"), f"{what} scan {k}: NaN")
+        check(bool(o["track_mask"].any()), f"{what} scan {k}: no track")
+
+
+def check_shard_same(a_outs, b_outs, what, other):
+    """Two runs of the sharded step: the same tracks, labels, AIS labels,
+    deaths and confirmed labels on every scan, states within STATE_RTOL /
+    STATE_ATOL, objectives within OBJ_RTOL."""
+    check(len(a_outs) == len(b_outs), f"{what}: scan counts differ")
+    for k, (a, b) in enumerate(zip(a_outs, b_outs)):
+        for f in ("track_mask", "track_id", "sel_ais", "dead",
+                  "confirmed_mask", "sel_feasible"):
+            check(np.array_equal(a[f], b[f]),
+                  f"{what} scan {k}: {f} differs from {other}")
+        live = a["track_mask"]
+        check(np.array_equal(a["sel_hist_meas"][live],
+                             b["sel_hist_meas"][live])
+              and np.array_equal(a["confirmed_meas"][a["confirmed_mask"]],
+                                 b["confirmed_meas"][b["confirmed_mask"]]),
+              f"{what} scan {k}: labels differ from {other}")
+        check(np.allclose(a["track_x"][live], b["track_x"][live],
+                          rtol=STATE_RTOL, atol=STATE_ATOL),
+              f"{what} scan {k}: states differ from {other}")
+        check(math.isclose(float(a["sel_obj"]), float(b["sel_obj"]),
+                           rel_tol=OBJ_RTOL, abs_tol=1e-3),
+              f"{what} scan {k}: objective differs from {other}")
+
+
+def check_swarm_contract(single, sharded, what):
+    """tests/test_sharded_swarm.py's contract on the seeded targets'
+    slots: feasible, objective within SWARM_OBJ_RTOL, at least
+    SWARM_MIN_AGREE of the selected labels equal, and where they are
+    the AIS labels equal and the states within SWARM_STATE_ATOL.
+    Returns the agreeing share per scan."""
+    n, shares = SWARM_N_TARGETS, []
+    for k, (a, b) in enumerate(zip(single, sharded)):
+        check(bool(b["sel_feasible"]), f"{what} scan {k}: infeasible")
+        oa, ob = float(a["sel_obj"]), float(b["sel_obj"])
+        check(abs(oa - ob) <= SWARM_OBJ_RTOL * (1 + abs(oa)),
+              f"{what} scan {k}: objective {ob} against {oa}")
+        same = (a["sel_hist_meas"][:n, -1] == b["sel_hist_meas"][:n, -1])
+        shares.append(float(same.mean()))
+        check(shares[-1] >= SWARM_MIN_AGREE,
+              f"{what} scan {k}: only {shares[-1]:.4f} of the labels agree")
+        check(np.array_equal(a["sel_ais"][:n][same], b["sel_ais"][:n][same]),
+              f"{what} scan {k}: AIS labels differ")
+        check(np.allclose(a["track_x"][:n][same], b["track_x"][:n][same],
+                          rtol=0, atol=SWARM_STATE_ATOL),
+              f"{what} scan {k}: states differ")
+    return shares
+
+
+def sharded_bench_scene(axis, card):
+    """bench.py's radar-only scene (13 scans) through the sharded step at
+    one rank, its K1 launches counted, its track quality held to the
+    radar-only floor through the scene's own Tracker's archive, its
+    ms/scan beside the unsharded scan_step's on the same scans."""
+    from types import SimpleNamespace
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.parallel.sharded_tracker import (gather_state,
+                                                          shard_state)
+    from pymht_tpu_torch.utils import metrics
+    from pymht_tpu_torch.utils.scenes import bench_scene
+    shapes, params, st0, ist0, inputs, sim_list, tr = scene_inputs(
+        bench_scene, "cuda", None, False)
+    gk.launches = gk.launches_pregate = 0
+    st, _, outs, stats, _ = run_sharded(axis, shapes, params,
+                                        shard_state(st0, axis), ist0,
+                                        inputs, use_ais=False)
+    launches = gk.launches
+    check(launches == len(outs) and gk.launches_pregate == 0,
+          f"sharded-1 bench scene: K1 launched {launches} times over "
+          f"{len(outs)} scans")
+    check_shard_run(outs, "sharded-1 bench scene")
+    _, walls, reads = run_unsharded(shapes, params, st0, ist0, inputs,
+                                    False)
+    # the Tracker's own archive of the gathered outputs, as its step keeps it
+    for (sc, _), o in zip(inputs, outs):
+        tr.scan_times.append(float(sc.time))
+        tr._absorb_outputs(SimpleNamespace(**o), n_scans=len(tr.scan_times))
+    tr.state = gather_state(st, axis)
+    m = metrics.evaluate(tr, sim_list, params.radar_period,
+                         p0=(0.0, 0.0), radar_range=params.radar_range)
+    print(f"sharded-1 bench scene (T=128, L=32, M=512, W=7, {len(outs)} "
+          f"scans, one NCCL rank): coverage {m['track_percent']:.5f} "
+          f"(floor {MIN_COVERAGE}), rms {m['rms']:.4f} m (ceiling "
+          f"{MAX_RMS}), false tracks {m['n_false_tracks']}; "
+          f"{np.median(stats['ms'][2:]):.2f} ms/scan sharded against "
+          f"{np.median(walls[2:]):.2f} unsharded scan_step (medians of "
+          f"scans 3-{len(outs)}, wall clock); K1 launches {launches}; per "
+          f"scan: host reads {stats['reads']} sharded, {reads} unsharded; "
+          f"collectives {stats['collectives']}, bytes {stats['bytes']} "
+          f"({card})")
+    check(m["track_percent"] >= MIN_COVERAGE and m["rms"] <= MAX_RMS,
+          f"sharded-1 bench scene: track quality below the floor: {m}")
+    return dict(metrics=m, ms_per_scan=float(np.median(stats["ms"][2:])),
+                unsharded_ms_per_scan=float(np.median(walls[2:])),
+                n_scans=len(outs), launches=launches, reads=stats["reads"],
+                unsharded_reads=reads, collectives=stats["collectives"],
+                bytes=stats["bytes"])
+
+
+def sharded1_phase(card, ckpt_path):
+    """sharded-1: the swarm scene through make_sharded_tracker_step at one
+    NCCL rank on the card, against the unsharded card step and against
+    the same sharded step on the CPU (one gloo rank); K1 against its twin
+    on real scans' tensors at N = 8192; the state after SHARD_CKPT_AFTER
+    scans saved to ``ckpt_path`` for sharded-2; then the bench scene."""
+    import torch
+    import torch.distributed as dist
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.parallel.collectives import Axis
+    from pymht_tpu_torch.parallel.sharded_tracker import shard_state
+    from pymht_tpu_torch.utils import checkpoint
+    torch.cuda.set_device(0)
+    init_group("nccl", 0, 1, free_port())
+    try:
+        axis = Axis()
+        check(dist.get_backend() == "nccl" and axis.size == 1,
+              "sharded-1: not one NCCL rank")
+        cpu_axis = Axis(dist.new_group([0], backend="gloo"))
+        shapes, params, st0, ist0, inputs, _, _ = swarm_inputs("cuda")
+        N = shapes.max_targets * shapes.max_leaves
+        gk.launches = gk.launches_pregate = 0
+        with noting_k1_launches(gk) as noted:
+            st, ist, outs, stats, kept = run_sharded(
+                axis, shapes, params, shard_state(st0, axis), ist0, inputs,
+                use_ais=True, keep_after=SHARD_CKPT_AFTER)
+        launches = gk.launches
+        check(launches == SHARD_SCANS and gk.launches_pregate == 0,
+              f"sharded-1: K1 launched {launches} times over {SHARD_SCANS} "
+              f"scans")
+        check_shard_run(outs, "sharded-1")
+        checkpoint.save_state(ckpt_path, *kept)
+
+        single, walls, reads = run_unsharded(shapes, params, st0, ist0,
+                                             inputs, True)
+        shares = check_swarm_contract(single, outs,
+                                      "sharded-1 against scan_step")
+        sh_c, pa_c, st_c, ist_c, in_c, _, _ = swarm_inputs("cpu")
+        _, _, outs_c, _, _ = run_sharded(cpu_axis, sh_c, pa_c,
+                                         shard_state(st_c, cpu_axis), ist_c,
+                                         in_c, use_ais=True)
+        check_shard_same(outs, outs_c, "sharded-1", "the CPU run")
+        err = check_noted_launches(gk, noted, "sharded-1", (N, 512),
+                                   (0, SHARD_SCANS - 1))
+        args = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
+        inp = k1_inputs(23, N, 512, "cuda")
+        dt = torch.full((), 2.5, device="cuda")
+        e, _ = check_against_twin(gk, f"N={N} seeded", inp, dt, args)
+        times = kernel_times(gk, inp, dt, args)
+        bound = k1_bound(N, 512)
+        fused = sum(int((o["sel_ais"] > 0).sum()) for o in outs)
+        print(f"sharded-1 (swarm scene T=1024, {SWARM_N_TARGETS} targets, "
+              f"L=8, M=512, A=32, G=2, {SHARD_SCANS} scans, one NCCL rank): "
+              f"{np.median(stats['ms'][1:]):.2f} ms/scan (median of scans "
+              f"2-{SHARD_SCANS}, wall clock) against "
+              f"{np.median(walls[1:]):.2f} for the unsharded scan_step; host "
+              f"reads per scan {stats['reads']} ({reads} unsharded), "
+              f"collectives per scan "
+              f"{stats['collectives']}, bytes per scan {stats['bytes']}; K1 "
+              f"launches {launches} at N={N}, M=512; labels agreeing with "
+              f"scan_step {shares}; = the CPU run (gloo); {fused} selected "
+              f"AIS labels ({card})")
+        print(f"K1 at N={N}, M=512 (one rank's grow at T=1024, L=8), device "
+              f"time: kernel alone {1e3 * times['kernel_ms']:.3f} us hot, "
+              f"{1e3 * times['kernel_flushed_ms']:.3f} us flushed, wrapper "
+              f"{1e3 * times['ms']:.3f} us, twin "
+              f"{1e3 * times['plain_ms']:.3f} us; bound "
+              f"{1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} bytes, by "
+              f"{bound['bound_by']}); max |err| {max(err, e):.3g} ({card})")
+        bench = sharded_bench_scene(axis, card)
+    finally:
+        dist.destroy_process_group()
+    return dict(launches=launches + bench["launches"],
+                launches_swarm=launches, n_scans=SHARD_SCANS
+                + bench["n_scans"], outs=outs, max_err=max(err, e),
+                ms_per_scan=float(np.median(stats["ms"][1:])),
+                unsharded_ms_per_scan=float(np.median(walls[1:])),
+                reads=stats["reads"], unsharded_reads=reads,
+                collectives=stats["collectives"], bytes=stats["bytes"],
+                agree=shares, bench=bench,
+                k1_ms=times["ms"], k1_kernel_ms=times["kernel_ms"],
+                k1_plain_ms=times["plain_ms"], k1_bound_ms=bound["bound_ms"],
+                k1_bound_by=bound["bound_by"])
+
+
+def shard2_rank(rank, port, workdir, ckpt_path):
+    """One of sharded-2's two ranks on the one card (gloo on CUDA
+    tensors); writes its results to ``workdir``."""
+    import torch
+    import torch.distributed as dist
+    from pymht_tpu_torch.kernels import build
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.parallel import multihost
+    from pymht_tpu_torch.parallel.collectives import Axis
+    from pymht_tpu_torch.parallel.sharded_tracker import shard_state
+    from pymht_tpu_torch.utils import checkpoint
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(multihost.initialize(f"127.0.0.1:{port}", 2, rank,
+                               backend="gloo", timeout=SHARD_TIMEOUT_S),
+          "sharded-2: initialize")
+    check(torch.cuda.current_device() == rank % torch.cuda.device_count(),
+          "sharded-2: the rank's device")
+    build.build("gate_score")          # built by the parent: loads it
+    axis = Axis()
+    res = {}
+    shapes, params, st0, ist0, inputs, _, _ = swarm_inputs(
+        "cuda", SHARD2_SCANS)
+    N = shapes.max_targets // 2 * shapes.max_leaves
+    gk.launches = gk.launches_pregate = 0
+    with noting_k1_launches(gk) as noted:
+        _, _, outs, stats, _ = run_sharded(axis, shapes, params,
+                                           shard_state(st0, axis), ist0,
+                                           inputs, use_ais=True)
+    res["launches"] = gk.launches
+    check(res["launches"] == SHARD2_SCANS,
+          f"sharded-2 rank {rank}: K1 launched {res['launches']} times")
+    res["max_err"] = check_noted_launches(
+        gk, noted, f"sharded-2 rank {rank}", (N, 512),
+        range(SHARD2_SCANS))
+    res.update(stats)
+
+    # sharded-1's checkpoint, restored by rows, and its next scan
+    st, ist = checkpoint.load_state(ckpt_path, shard=axis)
+    _, _, resumed, _, _ = run_sharded(
+        axis, shapes, params, st, ist,
+        inputs[SHARD_CKPT_AFTER:SHARD_CKPT_AFTER + 1], use_ais=True)
+
+    # the measurement exchange
+    z_local = np.stack([np.full(4, 100.0 * rank, np.float32),
+                        np.arange(4, dtype=np.float32)], axis=1)
+    z, m = multihost.gather_local_measurements(
+        z_local, np.array([True, True, True, False]), 8)
+    want = {(100.0 * r, float(v)) for r in range(2) for v in range(3)}
+    check(int(m.sum()) == 6 and {tuple(r) for r in z[m]} == want,
+          "sharded-2: gather_local_measurements")
+
+    # dryrun(2) on both meshes against make_batched_step
+    for mesh in ((1, 2), (2, 1)):
+        dry_err = dryrun_against_batched(*mesh)
+        res[f"dryrun_{mesh[0]}x{mesh[1]}_err"] = dry_err
+    if rank == 0:
+        np.savez(f"{workdir}/outs.npz",
+                 **{f"scan{k}.{key}": v for k, o in enumerate(outs)
+                    for key, v in o.items()},
+                 **{f"resumed.{key}": v for key, v in resumed[0].items()})
+    with open(f"{workdir}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    check("jax" not in sys.modules and not [
+        m for m in sys.modules if m.split(".")[0] == "pymht_tpu"],
+        f"sharded-2 rank {rank} imported jax or the JAX package")
+
+
+def dryrun_against_batched(scen, clus):
+    """``dryrun(2)`` on a (scen, clus) mesh against make_batched_step on
+    its inputs: this rank's blocks within 1e-5.  Returns the max |err|."""
+    import torch
+    from pymht_tpu_torch.parallel import multihost, scenario as sc_mod
+    st, ist, out = sc_mod.dryrun(2, scen, clus)
+    inp = sc_mod.dryrun_inputs(sc_mod.DRYRUN_SHAPES, sc_mod.DRYRUN_PARAMS,
+                               scen, "cuda")
+    ref = sc_mod.make_batched_step(sc_mod.DRYRUN_SHAPES,
+                                   sc_mod.DRYRUN_PARAMS)(*inp)
+    mesh = multihost.hybrid_mesh(scen, clus)
+    _, shard = sc_mod.make_sharded_step(mesh, sc_mod.DRYRUN_SHAPES,
+                                        sc_mod.DRYRUN_PARAMS)
+    r_st, r_ist, _, _ = shard(ref[0], ref[1], inp[2])
+    err = 0.0
+    for a, b in ((st, r_st), (ist, r_ist)):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            check(x.shape == y.shape and torch.allclose(
+                x.float(), y.float(), rtol=1e-5, atol=1e-5),
+                f"dryrun(2) on {scen}x{clus}: {f.name} differs from "
+                f"make_batched_step")
+            if x.numel():
+                err = max(err, float((x.float() - y.float()).abs().max()))
+    check(bool(out.sel_feasible.all()), f"dryrun(2) on {scen}x{clus}")
+    return err
+
+
+def sharded2_phase(s1, ckpt_path, card):
+    """sharded-2: two ranks on the one card over gloo, spawned; their
+    gathered outputs against sharded-1's, the checkpoint resumed by rows,
+    the measurement exchange and dryrun(2) on both meshes."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(shard2_rank, args=(free_port(), d,
+                                                    ckpt_path),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.perf_counter() + 6 * SHARD_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() < deadline,
+                      "sharded-2: the ranks did not finish in time")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [json.load(open(f"{d}/rank{r}.json")) for r in range(2)]
+        data = np.load(f"{d}/outs.npz")
+        outs = [{key: data[f"scan{k}.{key}"] for key in s1["outs"][0]}
+                for k in range(SHARD2_SCANS)]
+        resumed = {key: data[f"resumed.{key}"] for key in s1["outs"][0]}
+    check_shard_same(outs, s1["outs"][:SHARD2_SCANS], "sharded-2",
+                     "sharded-1")
+    check_shard_same([resumed], [s1["outs"][SHARD_CKPT_AFTER]],
+                     "sharded-2 resumed from sharded-1's checkpoint",
+                     "sharded-1's next scan")
+    r0 = ranks[0]
+    print(f"sharded-2 (the swarm scene, two ranks of 512 targets sharing "
+          f"the card over gloo, {SHARD2_SCANS} scans): gathered outputs = "
+          f"sharded-1's; replicated-state digests equal after every scan; "
+          f"sharded-1's checkpoint after {SHARD_CKPT_AFTER} scans restored "
+          f"by rows and stepped = sharded-1's scan {SHARD_CKPT_AFTER + 1}; "
+          f"rank 0: {np.median(r0['ms'][1:]):.2f} ms/scan (two processes "
+          f"sharing one GPU, host transport: no multi-card speed), host "
+          f"reads {r0['reads']}, collectives {r0['collectives']}, bytes "
+          f"{r0['bytes']} per scan; K1 launches per rank "
+          f"{[r['launches'] for r in ranks]} at N=4096, M=512, max |err| "
+          f"{max(r['max_err'] for r in ranks):.3g}; dryrun(2) on 1x2 and "
+          f"2x1 = make_batched_step (max |err| "
+          f"{max(r[k] for r in ranks for k in r if k.startswith('dryrun')):.3g}"
+          f"); gather_local_measurements over the two ranks ({card})")
+    return dict(launches=sum(r["launches"] for r in ranks),
+                launches_per_rank=[r["launches"] for r in ranks],
+                n_scans=SHARD2_SCANS,
+                max_err=max(r["max_err"] for r in ranks),
+                ms_per_scan=float(np.median(r0["ms"][1:])),
+                reads=r0["reads"], collectives=r0["collectives"],
+                bytes=r0["bytes"])
+
+
+def main():
+    import os
+    import tempfile
+    import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a "
               "GPU", file=sys.stderr)
@@ -2102,6 +2608,10 @@ def main():
     mca = mc_ais_phase()
     mcp = mc_pregate_phase()
     mci = mc_ipm_phase()
+    with tempfile.TemporaryDirectory() as d:
+        s1_path = os.path.join(d, "sharded-1")
+        s1 = sharded1_phase(card, s1_path)
+        s2 = sharded2_phase(s1, s1_path, card)
     for what, r in (("slice (radar only)", res), ("AIS scene", ais)):
         syncs = r["syncs"]
         print(f"{what} on the card: {r['ms_per_scan']:.2f} ms/scan (median "
@@ -2130,6 +2640,7 @@ def main():
     check(not [m for m in sys.modules
                if m == "pymht_tpu" or m.startswith("pymht_tpu.")],
           "the port imported the JAX package (pymht_tpu)")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "gate_score",
@@ -2145,11 +2656,15 @@ def main():
         # streams, then the two Monte-Carlo batches (per-target entry
         # point, one launch per batched scan), then the batches with the
         # AIS branch, the pre-gate and the solvers (the same entry point)
+        # and the target-sharded step: the swarm and bench scenes at one
+        # NCCL rank, the swarm scene at two ranks (one launch per rank
+        # and scan)
         "launches": res["launches"] + ais["launches"] + stream["launches"]
         + deg["launches"] + roof["launches"] + ipm["launches"]
         + ipm["launches_xcheck"] + pure["launches"] + ckpt["launches"]
         + mc["launches"] + mcb["launches"] + mca["launches"]
-        + mcp["launches"] + mci["launches"] + mci["launches_pure"],
+        + mcp["launches"] + mci["launches"] + mci["launches_pure"]
+        + s1["launches"] + s2["launches"],
         "launches_slice": res["launches"],
         "launches_ais": ais["launches"],
         "launches_pregate": ais["launches_pregate"],
@@ -2167,7 +2682,13 @@ def main():
         "launches_batch_pregate": mcp["launches"],
         "launches_batch_ipm": mci["launches"],
         "launches_batch_pure": mci["launches_pure"],
-        # a batched scan counts as one scan
+        "launches_sharded_1": s1["launches"],
+        "launches_sharded_1_swarm": s1["launches_swarm"],
+        "launches_sharded_1_bench": s1["bench"]["launches"],
+        "launches_sharded_2": s2["launches"],
+        "launches_sharded_2_per_rank": s2["launches_per_rank"],
+        # a batched scan counts as one scan, a scan of each of the two
+        # ranks as one
         "launches_per_scan": (res["launches"] + ais["launches"]
                               + stream["launches"] + deg["launches"]
                               + roof["launches"] + ipm["launches"]
@@ -2175,19 +2696,22 @@ def main():
                               + ckpt["launches"] + mc["launches"]
                               + mcb["launches"] + mca["launches"]
                               + mcp["launches"] + mci["launches"]
-                              + mci["launches_pure"])
+                              + mci["launches_pure"] + s1["launches"]
+                              + s2["launches"])
         / (res["n_scans"] + ais["n_scans"] + stream["n_scans"]
            + deg["n_scans"] + roof["n_scans"] + ipm["n_scans"]
            + ipm["n_scans_xcheck"] + pure["n_scans"] + ckpt["n_scans"]
            + mc["n_scans"] + mcb["n_scans"] + mca["n_scans"]
-           + mcp["n_scans"] + mci["n_scans"] + mci["n_scans_pure"]),
+           + mcp["n_scans"] + mci["n_scans"] + mci["n_scans_pure"]
+           + s1["n_scans"] + 2 * s2["n_scans"]),
         "oracle_gaps": gaps,
         # over every comparison with the twin: the kernel phase's shapes,
         # the real scans' tensors of the 'ipm' runs and the five batches
         # (seeded and real scans)
         "max_abs_err": max(k1["max_err_all"], ipm["k1_max_err"],
                            mc["max_err"], mcb["max_err"], mca["max_err"],
-                           mcp["max_err"], mci["max_err"]),
+                           mcp["max_err"], mci["max_err"], s1["max_err"],
+                           s2["max_err"]),
         "seeded_max_abs_err": k1["max_err_all"],
         "real_scans_max_abs_err": ipm["k1_max_err"],
         "mc_max_abs_err": mc["max_err"],
@@ -2223,7 +2747,18 @@ def main():
                           ("batch_ipm", mci))
            for name in ("ms", "kernel_ms", "kernel_flushed_ms", "plain_ms",
                         "bound_ms", "max_err", "ms_per_scan",
-                        "reads_per_scan", "peak_gib")}}]}))
+                        "reads_per_scan", "peak_gib")},
+        # K1 at the sharded shapes: N = 8192 (T=1024, L=8) at one rank,
+        # 4096 per rank at two, both against M = 512
+        "sharded_1_max_abs_err": s1["max_err"],
+        "sharded_1_ms": s1["k1_ms"],
+        "sharded_1_kernel_ms": s1["k1_kernel_ms"],
+        "sharded_1_plain_ms": s1["k1_plain_ms"],
+        "sharded_1_bound_ms": s1["k1_bound_ms"],
+        "sharded_1_bound_by": s1["k1_bound_by"],
+        "sharded_2_max_abs_err": s2["max_err"],
+        "sharded_2_bound_ms": k1_bound(4096, 512)["bound_ms"],
+        "sharded_2_bound_by": k1_bound(4096, 512)["bound_by"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -82,9 +82,14 @@ class GrowOutputs(NamedTuple):
 
 
 def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
-         shapes: TrackerShapes, params: TrackerParams) -> GrowOutputs:
+         shapes: TrackerShapes, params: TrackerParams,
+         n_targets_global=None) -> GrowOutputs:
     """Advance every target's hypothesis forest by one scan.  ``ais`` is
-    an AisBatch, or None for the radar-only branch."""
+    an AisBatch, or None for the radar-only branch.
+    ``n_targets_global``: the live-target count of the whole forest for
+    the AIS association density, where ``state`` holds only this rank's
+    share of the targets (parallel/sharded_tracker.py); None counts
+    ``state``'s own."""
     if ais is not None and not isinstance(ais, AisBatch):
         raise TypeError(f"grow: ais must be an AisBatch or None, got "
                         f"{type(ais).__name__}")
@@ -165,7 +170,7 @@ def grow(state: TrackerState, scan: Scan, ais: Optional[AisBatch],
         G = min(shapes.ais_fuse_width, shapes.max_ais)
         (g_ok, gate2, pure_gate, nllr1g, fused_score, x_bar2, z_hat2, K2g,
          P_ais_hat, ais_idx) = ais_candidates(
-            state, scan, ais, params, G,
+            state, scan, ais, params, G, n_targets=n_targets_global,
             prefilter=shapes.ais_prefilter_width, z_sub=z_sub,
             zmask_sub=zmask_sub)
         cn = state.leaf_cnllr[..., None]

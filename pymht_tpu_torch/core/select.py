@@ -37,6 +37,7 @@ import torch
 from .. import sync
 from ..batch import lead_index
 from ..ops import lp as lp_ops
+from ..sync import pmax, pmin, psum
 from .config import TrackerShapes, TrackerParams
 from .grow import smallest_k
 from .state import TrackerState
@@ -163,26 +164,30 @@ def _filtered_flat_labels(state, shapes, tgt_filter):
 
 
 def _contested_minmax(state: TrackerState, shapes: TrackerShapes,
-                      tgt_filter=None):
+                      tgt_filter=None, axis=None):
     """Exact per-slot contestedness without a [T, n_slots] tensor: scatter
     the smallest and the largest target id using each slot into [n_slots]
     buffers; a slot is used by two distinct targets iff min < max.  Masked
-    entries go to the dump index n.  Returns (contested, used), both
-    [n_slots] bool."""
+    entries go to the dump index n.  With an ``axis`` (targets split over
+    its ranks) the ids are global and the buffers are pmin'd / pmax'd.
+    Returns (contested, used), both [n_slots] bool."""
     *lead, T = state.hist_meas.shape[:-2]
     mi, ai, n = _filtered_flat_labels(state, shapes, tgt_filter)
     dev = mi.device
+    T_g = T if axis is None else T * axis.size
     tid = torch.arange(T, dtype=torch.int32, device=dev)[:, None, None] \
         .expand(mi.shape).reshape(-1)
+    if axis is not None:
+        tid = tid + axis.index * T
     nb = math.prod(lead)
-    mn = torch.full((nb * (n + 1),), T, dtype=torch.int32, device=dev)
+    mn = torch.full((nb * (n + 1),), T_g, dtype=torch.int32, device=dev)
     mx = torch.full((nb * (n + 1),), -1, dtype=torch.int32, device=dev)
     for idx in (mi, ai):
         f = _batch_offset(idx, lead, n + 1).reshape(-1)
         mn.scatter_reduce_(0, f, tid, 'amin', include_self=True)
         mx.scatter_reduce_(0, f, tid, 'amax', include_self=True)
-    mn = mn.view(*lead, n + 1)[..., :n]
-    mx = mx.view(*lead, n + 1)[..., :n]
+    mn = pmin(axis, mn.view(*lead, n + 1)[..., :n])
+    mx = pmax(axis, mx.view(*lead, n + 1)[..., :n])
     return mn < mx, mx >= 0
 
 
@@ -693,12 +698,16 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
 # ----------------------------------------------------------------------
 
 class _Compact(NamedTuple):
-    """Loop-invariant data of the compact Lagrangian."""
+    """Loop-invariant data of the compact Lagrangian.  With ``axis`` the
+    targets are this rank's share of a forest split over the axis's
+    ranks: usage counts, objectives and bounds are psums, and the repair
+    keys and owners are pmins over global target ids."""
     f: torch.Tensor          # [T, L] leaf scores
     Uc: torch.Tensor         # [T, L, CAP] contested-slot usage (0/1)
     spine: torch.Tensor      # [T]
     eff_tgt: torch.Tensor    # [T] bool — participating targets
     unavoid: torch.Tensor    # [T, CAP] bool — every live leaf uses slot
+    axis: Optional[object] = None   # parallel.collectives.Axis
 
 
 def _rc_of(cp: _Compact, lam):
@@ -710,16 +719,24 @@ def _usel_of(cp: _Compact, sel):
     return cp.Uc[(*ix, sel)]                                          # [T,CAP]
 
 
+def _usage_count(cp: _Compact, sel):
+    """[CAP] global number of targets whose leaf ``sel`` uses each
+    column."""
+    return psum(cp.axis, _usel_of(cp, sel).sum(dim=-2))
+
+
 def _decode(cp: _Compact, lam):
     rc = _rc_of(cp, lam)
-    lb = (torch.where(cp.eff_tgt, rc.amin(dim=-1), 0.0).sum(dim=-1)
+    lb = (psum(cp.axis, torch.where(cp.eff_tgt, rc.amin(dim=-1),
+                                    0.0).sum(dim=-1))
           - lam.sum(dim=-1))
     return rc.argmin(dim=-1), lb
 
 
 def _obj_of(cp: _Compact, sel):
     ix = lead_index(sel.shape, sel.device)
-    return torch.where(cp.eff_tgt, cp.f[(*ix, sel)], 0.0).sum(dim=-1)
+    return psum(cp.axis,
+                torch.where(cp.eff_tgt, cp.f[(*ix, sel)], 0.0).sum(dim=-1))
 
 
 def _sq_norm(g):
@@ -730,24 +747,29 @@ def _sq_norm(g):
 def _repair_round(cp: _Compact, rc, carry):
     """Keep-best-per-slot conflict resolution: each over-used slot keeps
     its best claimant (unavoidable claimants first, then spine holders,
-    then score; lowest index within tolerance); the others ban their
-    current leaf and repick by reduced cost plus a contested penalty."""
+    then score; lowest global index within tolerance); the others ban
+    their current leaf and repick by reduced cost plus a contested
+    penalty."""
     sel, banned, _ = carry
     *lead, T, L = cp.f.shape
     dev = sel.device
     tb = torch.arange(T, device=dev)
+    gidx, T_g = tb, T                    # global target ids
+    if cp.axis is not None:
+        gidx, T_g = tb + cp.axis.index * T, T * cp.axis.size
     usel = _usel_of(cp, sel)
-    over = usel.sum(dim=-2) > 1.5                                    # [CAP]
+    over = psum(cp.axis, usel.sum(dim=-2)) > 1.5                     # [CAP]
     on_spine = (sel == cp.spine).float()
     keyc = (cp.f[(*lead_index(lead, dev, extra=1), tb, sel)][..., None]
             - 5e7 * on_spine[..., None] - 1e8 * cp.unavoid.float())
     claiming = (usel > 0.5) & over[..., None, :]
-    slot_min = torch.where(claiming, keyc, INF).amin(dim=-2)
+    slot_min = pmin(cp.axis, torch.where(claiming, keyc, INF).amin(dim=-2))
     in_conf = claiming.any(dim=-1) & cp.eff_tgt
     tol = 1e-5 * (1.0 + slot_min.abs())
     is_min = claiming & (keyc <= (slot_min + tol)[..., None, :])
-    owner = torch.where(is_min, tb[:, None], T).amin(dim=-2)
-    keeper = (~claiming | (owner[..., None, :] == tb[:, None])).all(dim=-1)
+    owner = pmin(cp.axis,
+                 torch.where(is_min, gidx[:, None], T_g).amin(dim=-2))
+    keeper = (~claiming | (owner[..., None, :] == gidx[:, None])).all(dim=-1)
     loser = in_conf & ~keeper
     banned = banned | (loser[..., None]
                        & (torch.arange(L, device=dev)[None, :]
@@ -755,7 +777,10 @@ def _repair_round(cp: _Compact, rc, carry):
     pen = torch.einsum('...tlc,...c->...tl', cp.Uc, over.float())
     rcb = torch.where(banned, INF, rc + 1e3 * pen)
     sel = torch.where(loser, rcb.argmin(dim=-1), sel)
-    return sel, banned, in_conf.any(dim=-1)
+    any_conf = in_conf.any(dim=-1)
+    if cp.axis is not None:
+        any_conf = cp.axis.psum(any_conf) > 0
+    return sel, banned, any_conf
 
 
 def _repair(cp: _Compact, sel, lam, repair_rounds, active=None):
@@ -771,7 +796,7 @@ def _repair(cp: _Compact, sel, lam, repair_rounds, active=None):
         go_on, lambda c, _: _repair_round(cp, rc, c),
         (sel, torch.zeros_like(cp.f, dtype=torch.bool), None),
         max_iters=repair_rounds, test_first=False)[0]
-    return sel, ~(_usel_of(cp, sel).sum(dim=-2) > 1.5).any(dim=-1)
+    return sel, ~(_usage_count(cp, sel) > 1.5).any(dim=-1)
 
 
 class _LagCarry(NamedTuple):
@@ -790,11 +815,13 @@ def _lagrangian_step(cp: _Compact, repair_rounds, repair_cadence,
                      c: _LagCarry, active=None) -> _LagCarry:
     """One subgradient iteration: decode, (on cadence) repair into a
     feasible incumbent, Held-Karp step-size halving, dual update.
-    ``active``: the scenarios whose loop still runs (None: all)."""
+    ``active``: the scenarios whose loop still runs (None: all).  Under
+    an axis every value the update reads is reduced, so the duals stay
+    equal on every rank without a broadcast."""
     sel, lb = _decode(cp, c.lam)
     lb_up = lb > c.best_lb + 1e-6 * (1.0 + c.best_lb.abs())
     best_lb = torch.maximum(c.best_lb, lb)
-    cnt = _usel_of(cp, sel).sum(dim=-2)
+    cnt = _usage_count(cp, sel)
     g = torch.where((cnt > 0) | (c.lam > 0), cnt - 1.0, 0.0)
     feas = ~(cnt > 1.5).any(dim=-1)
     sel_c, feas_c = sel, feas
@@ -839,17 +866,21 @@ def _lagrangian_continue(c: _LagCarry, obj_offset, patience):
 
 def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
                         iters=60, theta=1.5, patience=4, repair_rounds=8,
-                        repair_cadence=4):
-    """Subgradient ascent over the CAP contested slots only (single
-    device).  ``Uc [T, L, CAP]`` is the 0/1 usage of contested slot c by
-    leaf (t, l), masked to live leaves of participating targets.
-    Returns (sel, feasible, obj, lower bound, lam)."""
+                        repair_cadence=4, axis=None):
+    """Subgradient ascent over the CAP contested slots only.  ``Uc [T, L,
+    CAP]`` is the 0/1 usage of contested slot c by leaf (t, l), masked to
+    live leaves of participating targets.  With ``axis`` the same loop
+    runs on this rank's targets of a forest split over the axis (the
+    JAX function's ``axis_name``): 2 x [CAP] values reduced per iteration
+    (+ 2 x [CAP] pmins per repair round), every loop exit read on a
+    reduced, hence replicated, value.  Returns (sel, feasible, obj, lower
+    bound, lam)."""
     dev = f.device
     lead = f.shape[:-2]
     n_live = eff_leaf.sum(dim=-1).float()
     unavoid = ((Uc.sum(dim=-2) >= n_live[..., None] - 0.5)
                & (n_live[..., None] > 0.5))
-    cp = _Compact(f, Uc, spine.long(), eff_tgt, unavoid)
+    cp = _Compact(f, Uc, spine.long(), eff_tgt, unavoid, axis)
 
     sel_seed, lb_seed = _decode(cp, lam0)
     sel_seed, feas_seed = _repair(cp, sel_seed, lam0, repair_rounds)
@@ -867,24 +898,30 @@ def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
 
 
 def _contested_leaf_usage(state: TrackerState, shapes: TrackerShapes, big,
-                          CAP: int, usage=None):
+                          CAP: int, usage=None, axis=None):
     """The compact Lagrangian's columns: the first CAP slots used by two
     or more distinct ``big`` targets, and each live leaf's 0/1 usage of
     them.  With the dense ``usage`` [T, W, M+A] both come from compares;
     with ``usage=None`` from the min/max-target-id scatters and one
-    scatter of each leaf's labels (no [T, n_slots] tensor).  Returns
-    (Uc [T, L, CAP] f32, col_slot [CAP], col_ok [CAP], n_cont [],
-    eff_leaf [T, L]: the live leaves of the ``big`` targets)."""
+    scatter of each leaf's labels (no [T, n_slots] tensor).  With an
+    ``axis`` the targets are this rank's share: contestedness is then
+    global (one psum of the dense counts, or a pmin / pmax pair), hence
+    the same columns on every rank.  Returns (Uc [T, L, CAP] f32,
+    col_slot [CAP], col_ok [CAP], n_cont [], eff_leaf [T, L]: the live
+    leaves of the ``big`` targets)."""
     *lead, T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
     P = M + A
     S = W * P
     dev = state.hist_meas.device
     if usage is not None:
-        contested = ((usage & big[..., None, None]).sum(dim=-3)
-                     >= 2).reshape(*lead, S)
+        n_use = (usage & big[..., None, None]).sum(dim=-3)
+        if axis is not None:
+            n_use = axis.psum(n_use.int())
+        contested = (n_use >= 2).reshape(*lead, S)
     else:
-        contested, _ = _contested_minmax(state, shapes, tgt_filter=big)
+        contested, _ = _contested_minmax(state, shapes, tgt_filter=big,
+                                         axis=axis)
     n_cont = contested.sum(dim=-1)
     s_ids = torch.where(contested, torch.arange(S, device=dev), S)
     col_slot = torch.sort(s_ids).values[..., :CAP]

@@ -164,12 +164,15 @@ def expand_beam(state: TrackerState, new_L: int) -> TrackerState:
 
 
 def insert_targets(state: TrackerState, new_x, new_P, new_mask, new_mmsi,
-                   time, params: TrackerParams) -> TrackerState:
+                   time, params: TrackerParams,
+                   new_ids=None) -> TrackerState:
     """Initiate up to K new targets into free slots (masked, fixed shape):
     the k-th new target takes the k-th free slot as a single root leaf
-    with cnllr 0 and the next free id.  ``time`` (a 0-d tensor, or one
-    per scenario) advances the forest clock.  Leading scenario axes on
-    the state and on the new targets' tensors are allowed."""
+    with cnllr 0 and the next free id, or its id from ``new_ids`` [K]
+    (the target-sharded step, where ids must be unique over the ranks).
+    ``time`` (a 0-d tensor, or one per scenario) advances the forest
+    clock.  Leading scenario axes on the state and on the new targets'
+    tensors are allowed."""
     lead = state.leaf_mask.shape[:-2]
     free = ~state.tgt_mask
     slot_rank = torch.cumsum(free.int(), -1) - 1                  # [T]
@@ -191,8 +194,9 @@ def insert_targets(state: TrackerState, new_x, new_P, new_mask, new_mmsi,
     first = torch.zeros_like(state.leaf_mask)
     first[..., 0] = True
 
-    ids = torch.where(take, state.next_id[..., None] + slot_rank,
-                      state.tgt_id)
+    ids_in = (state.next_id[..., None] + slot_rank if new_ids is None
+              else new_ids[(*bi, src)])
+    ids = torch.where(take, ids_in, state.tgt_id)
     return state.replace(
         time=torch.maximum(state.time, time.to(f32)),
         leaf_x=torch.where(t2, root_x, state.leaf_x),

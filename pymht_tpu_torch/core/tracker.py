@@ -22,6 +22,7 @@ import torch
 from .. import sync
 from ..batch import isin, lead_index
 from ..models import pv
+from ..sync import psum
 from .config import TrackerShapes, TrackerParams
 from ..utils.timing import RuntimeLog
 from .state import TrackerState, empty_state, insert_targets, shrink_beam
@@ -62,6 +63,16 @@ class StepOutputs(NamedTuple):
     leaf_counts: torch.Tensor    # [T] i32
     gated_counts: torch.Tensor   # [T] i32
     used_meas: torch.Tensor      # [M] bool
+
+
+# StepOutputs fields with a target axis (after any scenario axes); the
+# others are per scan.  The sharded steps split and gather these.
+PER_TARGET_OUTPUTS = frozenset((
+    'track_mask', 'track_id', 'track_x', 'track_cnllr', 'sel_hist_valid',
+    'sel_hist_x', 'sel_hist_meas', 'sel_hist_mmsi', 'dead', 'dead_reason',
+    'confirmed_mask', 'confirmed_x', 'confirmed_meas', 'confirmed_mmsi',
+    'inserted_mask', 'inserted_id', 'inserted_P', 'leaf_counts',
+    'gated_counts'))
 
 
 def scan_step(state: TrackerState, init_state, scan: Scan,
@@ -164,7 +175,7 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
 
 
 def shrink_windows(state: TrackerState, gated_counts, inserted,
-                   params: TrackerParams) -> TrackerState:
+                   params: TrackerParams, axis=None) -> TrackerState:
     """The on-device dynamic window: graceful degradation for the
     streaming path, where no wall clock exists inside the step.  A target
     (other than one ``inserted`` this scan) shrinks its N-scan window by
@@ -172,11 +183,13 @@ def shrink_windows(state: TrackerState, gated_counts, inserted,
     share of the scan's gated-pair work (live leaves x gated pairs)
     exceeds max_target_time / radar_period with its beam at least half
     full.  Shapes are static, so this changes no arithmetic: it makes
-    the N-scan pruning of that target more aggressive.  No host read."""
+    the N-scan pruning of that target more aggressive.  No host read.
+    With an ``axis`` (the targets split over its ranks) the scan's total
+    work is psum'd; saturation stays target-local."""
     L = state.leaf_mask.shape[-1]
     lc = state.leaf_mask.sum(dim=-1)                                 # [T]
     proxy = lc.float() * (1.0 + gated_counts.float())
-    total = torch.where(state.tgt_mask, proxy, 0.0).sum(dim=-1)
+    total = psum(axis, torch.where(state.tgt_mask, proxy, 0.0).sum(dim=-1))
     share = params.max_target_time / params.radar_period
     sat = state.tgt_mask & (lc >= L)
     over = (state.tgt_mask & (lc >= L // 2)

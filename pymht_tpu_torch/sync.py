@@ -15,6 +15,10 @@ while any scenario's predicate holds and keeps the carry of a scenario
 that has exited (its body is computed and discarded); a batched branch
 computes each side that some scenario takes and selects per scenario.
 Either reads the host once per test, as the 0-d form does.
+
+``psum`` / ``pmin`` / ``pmax`` reduce over an optional axis of ranks
+(``parallel/collectives.Axis``): without one (``axis=None``, one device)
+they return their input, so the single-device code runs no extra op.
 """
 from __future__ import annotations
 
@@ -92,3 +96,16 @@ def cond(pred: torch.Tensor, true_fn, false_fn):
     if not any_:
         return false_fn()
     return select(pred, true_fn(), false_fn())
+
+
+def psum(axis, x):
+    """``axis.psum(x)``, or ``x`` itself without an axis (one device)."""
+    return x if axis is None else axis.psum(x)
+
+
+def pmin(axis, x):
+    return x if axis is None else axis.pmin(x)
+
+
+def pmax(axis, x):
+    return x if axis is None else axis.pmax(x)

@@ -22,6 +22,7 @@ from ..core.state import (TrackerState, initiator_from_numpy,
                           initiator_to_numpy, state_from_numpy,
                           state_to_numpy)
 from ..core.tracker import Tracker, TrackArchive, _resolve_device
+from ..parallel.sharded_tracker import PER_TARGET_FIELDS, rows_of
 
 
 def _arrays(state, init_state) -> dict:
@@ -31,11 +32,16 @@ def _arrays(state, init_state) -> dict:
     return arrays
 
 
-def _restore(data, device):
+def _restore(data, device, shard=None):
     def fields(prefix):
         return {k[len(prefix):]: data[k] for k in data.files
                 if k.startswith(prefix)}
-    return (state_from_numpy(fields("state."), device),
+    state = fields("state.")
+    if shard is not None:       # this rank's rows, cut on the host
+        T = state["tgt_mask"].shape[0]
+        state.update({k: rows_of(state[k], shard, T)
+                      for k in PER_TARGET_FIELDS})
+    return (state_from_numpy(state, device),
             initiator_from_numpy(fields("init."), device))
 
 
@@ -88,12 +94,15 @@ def save_state(path: str, state: TrackerState, init_state):
     np.savez_compressed(path + ".npz", **_arrays(state, init_state))
 
 
-def load_state(path: str, device=None):
+def load_state(path: str, device=None, shard=None):
     """Restore (TrackerState, InitiatorState) saved by ``save_state``
-    onto ``device`` (None: the GPU, as everywhere in the port).  The JAX
-    function's ``shardings`` argument, which places the arrays back on a
-    mesh, has no counterpart until the port runs on several devices."""
-    return _restore(np.load(path + ".npz"), _resolve_device(device))
+    onto ``device`` (None: the GPU, as everywhere in the port).  With
+    ``shard``, a ``parallel.collectives.Axis`` over which the targets are
+    split (the JAX function's ``shardings``), this rank restores only its
+    rows of the per-target fields (``parallel.sharded_tracker.
+    shard_state``'s layout) and the replicated fields whole: a file
+    written by either package, sharded or not, resumes sharded."""
+    return _restore(np.load(path + ".npz"), _resolve_device(device), shard)
 
 
 def load(path: str, device=None) -> Tracker:

@@ -76,6 +76,40 @@ def bench_scene_ais(n_targets: int = 100, n_scans: int = 12,
             [t.mmsi for t in targets])
 
 
+def swarm_shard_scene(n_scans: int = 4, seed: int = 42,
+                      n_targets: int = 600):
+    """The target-sharded swarm scene of tests/test_sharded_swarm.py:27-45
+    (BASELINE config 5 at the JAX test's cut): T=1024 slots, L=8, M=512,
+    A=32, W=5, G=2, N=3; ``n_targets`` seeded targets, half with
+    transponders, in a 12 km radar (spread over half of it), local
+    clutter 0.1 per target.
+
+    Returns (shapes, params, scans, ais_groups, sim_list, seeds, mmsi),
+    the last two for ``Tracker.pre_initialize(scans[0].time - period,
+    seeds, mmsi=mmsi)``."""
+    period, radar_range = 2.5, 12000.0
+    shapes = TrackerShapes(max_targets=1024, max_leaves=8, max_meas=512,
+                           max_ais=32, window=5, max_prelim=32,
+                           max_initiators=64, ais_per_leaf=2)
+    params = TrackerParams(radar_period=period, P_d=0.9, lambda_phi=1.5e-6,
+                           lambda_nu=1e-6, N=3, radar_range=radar_range)
+    rng = np.random.default_rng(seed)
+    targets = sim.generate_initial_targets(
+        rng, n_targets, (0.0, 0.0), radar_range * 0.5, 0.9, 0.1,
+        assign_mmsi=True, P_r=0.5)
+    sim_list = sim.simulate_targets(rng, targets, sim_time=n_scans * period,
+                                    dt=period)
+    scans = sim.simulate_scans(rng, sim_list, period, sigma_R=2.5,
+                               lambda_phi=1.5e-6, radar_range=radar_range,
+                               p0=(0.0, 0.0), lambda_local=0.1)
+    ais_groups = sim.simulate_ais(rng, sim_list, period,
+                                  init_time=sim_list[0][0].time)
+    F_inv = np.eye(4)
+    F_inv[0, 2] = F_inv[1, 3] = -period
+    return (shapes, params, scans, ais_groups, sim_list,
+            [F_inv @ t.state for t in targets], [t.mmsi for t in targets])
+
+
 def demo_scene(n_targets: int = 6, n_scans: int = 20, seed: int = 42,
                clutter: float = 2e-6):
     """examples/demo_tracking.py's scene at its defaults: T=32, L=32,

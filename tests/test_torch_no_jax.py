@@ -6,7 +6,8 @@ initiation and the spatial pre-gate, and then streams a run with
 forest and smooths the tracks; then runs the default ``'ipm'`` and
 ``'lagrangian_pure'``, both exact oracles, a checkpoint round trip and
 the XML export; then draws a Monte-Carlo batch and tracks it with the
-batched step (parallel/)."""
+batched step (parallel/), and steps a few scans through the target-sharded
+step on one gloo rank."""
 import os
 import subprocess
 import sys
@@ -128,6 +129,45 @@ sc = mc.generate(torch.Generator().manual_seed(0), 3, 2, 4, shapes, params,
 st, xs, ms = mc.run_batch(sc, shapes, params)
 assert xs.shape == (4, 3, 8, 4) and int(ms[-1].sum()) >= 4
 assert st.leaf_x.shape == (3, 8, 8, 4)
+# multi-device: one gloo rank on the CPU through the target-sharded
+# step, the distributed select, a sharded restore, the measurement
+# exchange and the scenario x cluster dry run
+import datetime, socket
+import torch.distributed as dist
+from pymht_tpu_torch.core import initiator
+from pymht_tpu_torch.core.grow import Scan
+from pymht_tpu_torch.parallel import multihost, scenario
+from pymht_tpu_torch.parallel.collectives import Axis
+from pymht_tpu_torch.parallel.distributed_select import make_distributed_select
+from pymht_tpu_torch.parallel.sharded_tracker import (
+    gather_state, make_sharded_tracker_step, shard_state)
+with socket.socket() as sock:
+    sock.bind(('127.0.0.1', 0))
+    port = sock.getsockname()[1]
+dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                        world_size=1, rank=0,
+                        timeout=datetime.timedelta(seconds=60))
+axis = Axis()
+tr = Tracker(shapes, params, method='lagrangian', use_ais=False, device='cpu')
+tr.pre_initialize(scans[0].time - 2.5, [F_inv @ t.state for t in targets])
+step = make_sharded_tracker_step(axis, shapes, params)
+st, ist = shard_state(tr.state, axis), tr.init_state
+scan_b = tr.make_stream_inputs(scans[:3])[0]
+for i in range(3):
+    st, ist, out = step(st, ist, Scan(*(f[i] for f in scan_b)))
+    assert bool(out['sel_feasible'])
+assert make_distributed_select(axis, shapes, params, impl='full')(st)[3]
+assert axis.count > 0 and axis.bytes > 0
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save_state(os.path.join(d, 'st'), gather_state(st, axis), ist)
+    back, _ = checkpoint.load_state(os.path.join(d, 'st'), device='cpu',
+                                    shard=axis)
+    assert torch.equal(back.leaf_x, st.leaf_x)
+z, m = multihost.gather_local_measurements(np.ones((3, 2)), [1, 0, 1], 4,
+                                           device='cpu')
+assert m.tolist() == [True, True, False, False]
+assert scenario.dryrun(1, device='cpu')[0].leaf_x.shape == (1, 8, 8, 4)
+dist.destroy_process_group()
 loaded = sorted(m for m in sys.modules
                 if (m in ('jax', 'pymht_tpu')
                     or m.startswith(('jax.', 'jaxlib', 'flax', 'pymht_tpu.')))

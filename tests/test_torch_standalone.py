@@ -34,7 +34,7 @@ from pymht_tpu_torch.utils import (  # noqa: E402
 
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO_ROOT / "pymht_tpu_torch").rglob("*.py")) \
-    + [REPO_ROOT / "chip_smoke.py"]
+    + [REPO_ROOT / "chip_smoke.py", REPO_ROOT / "tests" / "torch_dist_worker.py"]
 # an import statement naming jax or pymht_tpu as a whole word (so
 # pymht_tpu_torch itself passes), at any indentation
 FORBIDDEN = re.compile(
@@ -61,11 +61,14 @@ def test_port_files_cover_the_solver_and_persistence_modules():
 
 
 def test_port_files_cover_the_parallel_modules():
-    """Scenario batching and the Monte-Carlo runner are the port's own
-    files, under the import scan above."""
+    """Scenario batching, the Monte-Carlo runner and the multi-device
+    modules are the port's own files, under the import scan above (as is
+    the rank program of the multi-rank tests)."""
     names = {str(p.relative_to(REPO_ROOT)) for p in PORT_FILES}
     for want in ("parallel/__init__.py", "parallel/scenario.py",
-                 "parallel/montecarlo.py", "batch.py"):
+                 "parallel/montecarlo.py", "batch.py",
+                 "parallel/collectives.py", "parallel/distributed_select.py",
+                 "parallel/sharded_tracker.py", "parallel/multihost.py"):
         assert f"pymht_tpu_torch/{want}" in names, want
 
 
