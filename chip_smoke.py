@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (pymht_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py          # from the root of the repository
+    python3 chip_smoke.py              # from the root of the repository
+    python3 chip_smoke.py --k1-guard   # phases 1-3 only
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -18,7 +19,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    exceed the L2), one wrapper call, the twin, and the kernel's bound
    (its input and output bytes over the card's published 3.35 TB/s).
    The same for K1's per-target entry point (the spatial pre-gate's
-   ``z_sub [T, Km, 2]``) at T=128, L=32, Km=64 and at edge shapes;
+   ``z_sub [T, Km, 2]``) at T=128, L=32, Km=64 and at edge shapes.
+   Then K1 inside guard bands (``guard_check``) at every one of those
+   shapes, the swarm's and the saturation points': each of
+   K1_GUARD_REPS launches bit for bit an unguarded call's, every band
+   untouched (the card runs no sanitizer); ``--k1-guard`` stops here;
 4. slice: bench.py's seeded 100-target scene (T=128, L=32, M=512, W=7)
    stepped through ``Tracker(method='lagrangian', use_ais=False)`` on the
    card, with K1's launch count read around that run, then the same
@@ -132,7 +137,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     per scan beside the unsharded step's; K1 timed at N=8192 against its
     bound; the state after 2 scans saved.  Then bench.py's radar-only
     scene (13 scans) through the sharded step: track quality above the
-    radar-only floor, ms/scan beside the unsharded step's;
+    radar-only floor, ms/scan beside the unsharded step's; then the same
+    step on the card and on the CPU in lockstep: the scans where the two
+    part and, at the first, grow and the distributed select on each device
+    from the CPU's state (on the same forest the select must decide the
+    same on both);
 23. sharded-2: two ranks spawned on the one card, gloo on CUDA tensors
     (NCCL refuses two ranks on one GPU): the swarm scene at 2 x 512 target
     slots for 3 scans, digests after each, every K1 launch (N=4096 per
@@ -142,7 +151,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     measurement exchange over the two ranks; ``dryrun(2)`` on the 1 x 2
     and 2 x 1 meshes against ``make_batched_step``.  Their times are those
     of two processes sharing one GPU over a host transport, not of
-    several cards.
+    several cards;
+24. swarm: the swarm benchmark (``scripts/bench_swarm.run`` at its
+    defaults: BASELINE config 5, 1000 targets in T=1024 slots, L=16,
+    M=2048, A=128, W=6, G=2, the pre-gate at Km=64, 8 scans streamed
+    through ``scan_many`` a warm-up and 3 times, then the oracle's forest):
+    K1's per-target entry point once per scan at N=16,384, Km=64, held
+    against its twin on a scan's tensors and on seeded ones and timed
+    against its bound; the first 3 scans' tracks and (measurement, MMSI)
+    labels against the port's CPU run; coverage and rms above their
+    floors (set from tests/jax_swarm_reference.py); the exact oracle's gap
+    under a 60 s limit (<= 1e-3 when HiGHS proves the optimum);
+25. scripts: every script and example of the port through its ``main``
+    on the card: eval_configs (small), bench_saturation at T=1024 and
+    4096, ab_distributed_select and bench_scaling at one NCCL rank,
+    demo_tracking and demo_streaming_deployment with --no-plot; each
+    prints its lines; K1's launch shapes counted, and K1 against its twin
+    and timed at the saturation points (N=16T, M=2T).
 
 The line before the last is one JSON object describing each kernel of
 the path; the last line is ``{"ok": true, "device": {...}}``.  There is
@@ -384,6 +409,26 @@ def k1_sub_bound(T, L, Km, M, n_dt=1):
                 bound_by="bytes" if t_bytes >= t_flops else "operations")
 
 
+def report_gate_difference(gk, name, inp, dt, args, sub, s, s_r, n_diff):
+    """What a failing gate comparison leaves behind, before it raises: the
+    count again on the host, the first rows that differ, the non-finite
+    scores of each side, and whether a second launch on the same inputs
+    repeats the first."""
+    import torch
+    g, g_r = (s < gk.BIG * 0.5).cpu(), (s_r < gk.BIG * 0.5).cpu()
+    diff = g != g_r
+    rows = diff.any(dim=1).nonzero().flatten()
+    again = gk.radar_candidates(*inp, dt, **args, **sub)
+    torch.cuda.synchronize()
+    print(f"K1 {name}: the card counted {n_diff} differing gates of "
+          f"{g.numel()}; the host counts {int(diff.sum())}, in "
+          f"{rows.numel()} rows (first {rows[:8].tolist()}); non-finite "
+          f"scores: kernel {int((~s.isfinite()).sum())}, twin "
+          f"{int((~s_r.isfinite()).sum())}; a second launch on the same "
+          f"inputs gives the same scores: {torch.equal(again.scores, s)}",
+          flush=True)
+
+
 def check_against_twin(gk, name, inp, dt, args, sub=None):
     """One K1 call against its twin on the same inputs: gating, counts
     and used identical, the rest within K1_RTOL / K1_ATOL.  Returns
@@ -397,6 +442,8 @@ def check_against_twin(gk, name, inp, dt, args, sub=None):
     s, s_r = out.scores, ref.scores
     g, g_r = s < BIG * 0.5, s_r < BIG * 0.5
     n_diff = int((g != g_r).sum())
+    if n_diff:
+        report_gate_difference(gk, name, inp, dt, args, sub, s, s_r, n_diff)
     check(n_diff == 0, f"K1 {name}: {n_diff} gating decisions differ")
     check(torch.equal(s[~g_r], s_r[~g_r]),
           f"K1 {name}: ungated scores are not exactly {BIG}")
@@ -449,27 +496,39 @@ def kernel_times(gk, inp, dt, args, sub=None):
                                           sub=sub))
 
 
+K1_ARGS = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
+# (name, N, M, k1_inputs' keywords) of the shared-scan entry point
+K1_CASES = [("bench", 4096, 512, {}), ("half beam", 2048, 512, {}),
+            # the shapes of the 'ipm' runs: the demo scene (T=32, L=32,
+            # M=64) and 2_ipm_xcheck (T=16); M is below a block's threads
+            ("demo scene", 1024, 64, {}), ("xcheck scene", 512, 64, {}),
+            ("ragged", 4095, 512, {}),
+            ("ragged, N % 4 = 2", 4094, 512, {}),
+            ("one measurement", 4096, 1, {}),
+            ("measurements masked", 4096, 512, {"zmask_all": False}),
+            ("leaves masked", 4096, 512, {"mask_all": False})]
+# (name, T, L, Km, M, targets masked) of the per-target entry point: bench
+# leaves, a tile smaller than the kernel's 16 rows, a ragged L, targets
+# with every column masked, one column, and more columns than a block has
+# threads
+K1_SUB_CASES = [("per target, bench", 128, 32, 64, 512, False),
+                ("per target, L=8", 16, 8, 8, 32, False),
+                ("per target, ragged L=20", 12, 20, 16, 48, False),
+                ("per target, targets masked", 128, 32, 64, 512, True),
+                ("per target, Km=1", 9, 5, 1, 17, False),
+                ("per target, Km=300", 3, 33, 300, 512, False)]
+
+
 def kernel_phase():
     """Returns (shared-scan entry point's numbers at the bench shape, the
     per-target entry point's at T=128, L=32, Km=64, the shared-scan entry
     point's kernel-alone time and bound at the half beam, N=2048)."""
     import torch
     from pymht_tpu_torch.ops import gate_kernel as gk
-    args = dict(q_scale=1.0, r_var=6.25, eta2=5.99, lambda_ex=3e-5)
-    dt = torch.full((), 2.5, device="cuda")
-    cases = [("bench", 4096, 512, {}), ("half beam", 2048, 512, {}),
-             # the shapes of the 'ipm' runs: the demo scene (T=32, L=32,
-             # M=64) and 2_ipm_xcheck (T=16); M is below a block's threads
-             ("demo scene", 1024, 64, {}), ("xcheck scene", 512, 64, {}),
-             ("ragged", 4095, 512, {}),
-             ("ragged, N % 4 = 2", 4094, 512, {}),
-             ("one measurement", 4096, 1, {}),
-             ("measurements masked", 4096, 512, {"zmask_all": False}),
-             ("leaves masked", 4096, 512, {"mask_all": False})]
+    args, dt = K1_ARGS, torch.full((), 2.5, device="cuda")
     res, res_half, err_all = {}, {}, 0.0
-    scalars = (args["q_scale"], args["r_var"], args["eta2"],
-               args["lambda_ex"])
-    for i, (name, N, M, kw) in enumerate(cases):
+    scalars = tuple(args.values())
+    for i, (name, N, M, kw) in enumerate(K1_CASES):
         inp = k1_inputs(i, N, M, "cuda", **kw)
         err, g_r = check_against_twin(gk, name, inp, dt, args)
         if name in ("demo scene", "xcheck scene"):
@@ -484,17 +543,8 @@ def kernel_phase():
                        gated_share=float(g_r[:, 1:].float().mean()),
                        **kernel_times(gk, inp, dt, args), **k1_bound(N, M))
 
-    # the per-target entry point: bench leaves, a tile smaller than the
-    # kernel's 16 rows, a ragged L, targets with every column masked,
-    # one column, and more columns than a block has threads
-    sub_cases = [("per target, bench", 128, 32, 64, 512, False),
-                 ("per target, L=8", 16, 8, 8, 32, False),
-                 ("per target, ragged L=20", 12, 20, 16, 48, False),
-                 ("per target, targets masked", 128, 32, 64, 512, True),
-                 ("per target, Km=1", 9, 5, 1, 17, False),
-                 ("per target, Km=300", 3, 33, 300, 512, False)]
     res_sub = {}
-    for i, (name, T, L, Km, M, masked) in enumerate(sub_cases):
+    for i, (name, T, L, Km, M, masked) in enumerate(K1_SUB_CASES):
         inp, sub = k1_sub_inputs(i, T, L, Km, M, "cuda", masked)
         n0 = gk.launches_pregate
         err, g_r = check_against_twin(gk, name, inp, dt, args, sub)
@@ -509,6 +559,119 @@ def kernel_phase():
                            **k1_sub_bound(T, L, Km, M))
     res["max_err_all"] = err_all
     return res, res_sub, res_half
+
+
+# ----------------------------------------------------------------------
+# guard phase: K1's reads and writes inside guard bands
+# ----------------------------------------------------------------------
+
+GUARD_BYTES = 4096    # band on each side of every buffer of a guarded launch
+IN_FILL = 0xFF        # an input's bands: NaN as f32, -1 as i32
+OUT_FILL = 0xA5       # an output's bands, and its interior before a launch
+K1_GUARD_REPS = 8     # guarded launches at each shape
+
+
+def banded(shape, dtype, fill, device):
+    """(a tensor of ``shape`` GUARD_BYTES into a byte buffer filled with
+    ``fill``, the buffer)."""
+    import torch
+    nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    buf = torch.full((nbytes + 2 * GUARD_BYTES,), fill, dtype=torch.uint8,
+                     device=device)
+    return buf[GUARD_BYTES:GUARD_BYTES + nbytes].view(dtype).view(shape), buf
+
+
+def bands_intact(buf, fill):
+    return bool((buf[:GUARD_BYTES] == fill).all()
+                and (buf[-GUARD_BYTES:] == fill).all())
+
+
+def as_bytes(t):
+    import torch
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def guard_check(gk, name, inp, dt, args, sub=None, reps=K1_GUARD_REPS):
+    """K1's memory discipline at one shape, as far as the card shows it
+    without a sanitizer.  Every input sits between bands of IN_FILL, every
+    output between bands of OUT_FILL; ``reps`` launches, each into outputs
+    refilled with OUT_FILL (``used`` zeroed).  Each launch's seven outputs
+    must be bit for bit those of one unguarded wrapper call (a read outside
+    an input brings in NaN or another neighbour; a race parts launches),
+    every output element must be written, and every band must stay as it
+    was (a write outside an output)."""
+    import torch
+    sub = sub or {}
+    base = gk.radar_candidates(*inp, dt, **args, **sub)
+
+    def guarded_copy(t):
+        v, buf = banded(tuple(t.shape), t.dtype, IN_FILL, t.device)
+        v.copy_(t)
+        return v, buf
+
+    g_inp = [guarded_copy(t) for t in (*inp, dt)]
+    g_sub = {k: guarded_copy(v) for k, v in sub.items()
+             if hasattr(v, "data_ptr")}
+    outs = [banded(tuple(f.shape), f.dtype, OUT_FILL, f.device)
+            for f in base]
+    out = gk.RadarCandidates(*(v for v, _ in outs))
+    kw = {k: (g_sub[k][0] if k in g_sub else v) for k, v in sub.items()}
+    for r in range(reps):
+        for _, buf in outs:
+            buf.fill_(OUT_FILL)
+        out.used_meas.zero_()
+        gk.launch(out, *(v for v, _ in g_inp), *args.values(), **kw)
+        torch.cuda.synchronize()
+        for f, (v, buf), b in zip(base._fields, outs, base):
+            bad = int((as_bytes(v) != as_bytes(b)).sum())
+            check(bad == 0, f"K1 guard {name}, launch {r}: {bad} bytes of "
+                            f"{f} differ from the unguarded call's")
+            check(bands_intact(buf, OUT_FILL),
+                  f"K1 guard {name}, launch {r}: written outside {f}")
+        for what, (_, buf) in zip(("x", "P", "cnllr", "pd", "mask", "z",
+                                   "zmask", "dt", *g_sub), (*g_inp,
+                                                           *g_sub.values())):
+            check(bands_intact(buf, IN_FILL),
+                  f"K1 guard {name}, launch {r}: written around input {what}")
+    return reps
+
+
+def k1_guard_cases():
+    """Every shape the guard phase takes, with its inputs made on demand:
+    (name, a function giving (inputs, per-target arguments or {}))."""
+    cases = []
+    for i, (name, N, M, kw) in enumerate(K1_CASES):
+        cases.append((name, lambda i=i, N=N, M=M, kw=kw: (
+            k1_inputs(i, N, M, "cuda", **kw), {})))
+    for i, (name, T, L, Km, M, masked) in enumerate(K1_SUB_CASES):
+        cases.append((name, lambda i=i, c=(T, L, Km, M, masked):
+                      k1_sub_inputs(i, *c[:4], "cuda", c[4])))
+    # the swarm benchmark's per-target shape and the saturation points'
+    # shared-scan shapes
+    cases.append(("per target, swarm", lambda: k1_sub_inputs(
+        31, 1024, 16, 64, 2048, "cuda")))
+    for i, T in enumerate(SAT_POINTS):
+        cases.append((f"saturation T={T}", lambda i=i, T=T: (
+            k1_inputs(40 + i, 16 * T, 2 * T, "cuda"), {})))
+    return cases
+
+
+def guard_phase(card):
+    """K1 inside guard bands (``guard_check``) at every shape of the kernel
+    phase, at the swarm benchmark's and at the saturation points'."""
+    import torch
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    dt = torch.full((), 2.5, device="cuda")
+    t0, n = time.perf_counter(), 0
+    for name, make in k1_guard_cases():
+        inp, sub = make()
+        n += guard_check(gk, name, inp, dt, K1_ARGS, sub)
+        del inp, sub
+    torch.cuda.empty_cache()
+    print(f"K1 guard: {n} launches at {len(k1_guard_cases())} shapes inside "
+          f"{GUARD_BYTES}-byte guard bands, each bit for bit the unguarded "
+          f"call's, every band intact ({time.perf_counter() - t0:.1f} s, "
+          f"{card})", flush=True)
 
 
 @contextlib.contextmanager
@@ -1995,7 +2158,7 @@ MC_PURE_FROM, MC_PURE_SCANS = 12, 5
 
 def mc_ais_phase():
     from pymht_tpu_torch.utils.scenes import bench_ais_batch
-    bs = bench_ais_batch(MC_AIS_BATCH, n_scans=MC_AIS_SCANS - 1).to("cuda")
+    bs = bench_ais_batch(MC_AIS_BATCH, n_scans=MC_AIS_SCANS - 1)
     return scene_batch_phase("mc-ais", bs, "lagrangian",
                              (0, MC_AIS_BATCH - 1), cpu_batch=(4, 4))
 
@@ -2015,7 +2178,7 @@ def mc_ipm_phase():
     from pymht_tpu_torch.core import select as sel_mod
     from pymht_tpu_torch.ops import gate_kernel as gk
     from pymht_tpu_torch.utils.scenes import demo_batch
-    bs = demo_batch(MC_IPM_BATCH).to("cuda")
+    bs = demo_batch(MC_IPM_BATCH)
     kept = {MC_PURE_FROM: None}
     r = scene_batch_phase("mc-ipm", bs, "ipm", range(MC_IPM_BATCH),
                           solver="select_ipm", kept=kept)
@@ -2073,22 +2236,6 @@ SWARM_STATE_ATOL = 1e-3
 SHARD_OUTPUTS = ("track_mask", "track_id", "track_x", "sel_hist_meas",
                  "sel_obj", "sel_bound", "sel_feasible", "dead",
                  "confirmed_mask", "confirmed_x", "confirmed_meas")
-
-
-def free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def init_group(backend, rank, world, port):
-    import datetime
-    import torch.distributed as dist
-    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=world, rank=rank,
-                            timeout=datetime.timedelta(
-                                seconds=SHARD_TIMEOUT_S))
 
 
 def scene_inputs(scene, device, n_scans, use_ais):
@@ -2248,11 +2395,97 @@ def check_swarm_contract(single, sharded, what):
     return shares
 
 
-def sharded_bench_scene(axis, card):
+def to_device(tree, device):
+    """A state dataclass or a NamedTuple of tensors on ``device``,
+    contiguous (K1 takes only contiguous leaves; a CPU op may leave other
+    strides than its CUDA counterpart)."""
+    if dataclasses.is_dataclass(tree):
+        return tree.replace(**{f.name: getattr(tree, f.name).to(device)
+                               .contiguous()
+                               for f in dataclasses.fields(tree)})
+    return type(tree)(*(f.to(device).contiguous() for f in tree))
+
+
+def sharded_parts(axis, cpu_axis, shapes, params, st0, ist0, inputs):
+    """The sharded step on the card (NCCL) and on the CPU (gloo) in
+    lockstep from the same start: per scan the collectives on each and the
+    objectives' difference.  At the first scan where the two part (tracks,
+    labels or the number of collectives), grow and the distributed select
+    run on each device from the CPU's state before that scan: whether the
+    grown forests differ (the largest |difference| of the live leaves'
+    scores), and whether the distributed select, given the SAME forest on
+    both devices, selects the same leaves with the same objective, bound
+    and collectives.  Returns what it found."""
+    from pymht_tpu_torch.core.grow import grow
+    from pymht_tpu_torch.parallel.distributed_select import (
+        distributed_select_compact)
+    from pymht_tpu_torch.parallel.sharded_tracker import (
+        make_sharded_tracker_step, shard_state)
+    step_g = make_sharded_tracker_step(axis, shapes, params)
+    step_c = make_sharded_tracker_step(cpu_axis, shapes, params)
+    sg, ig = shard_state(st0, axis), ist0
+    sc, ic = to_device(sg, "cpu"), to_device(ig, "cpu")
+    found = dict(first_part=None, first_label_part=None,
+                 collectives_card=[], collectives_cpu=[], obj_diff=[])
+    for k, (scan, _) in enumerate(inputs):
+        pre = sc
+        scan_c = to_device(scan, "cpu")
+        n_g, n_c = axis.count, cpu_axis.count
+        sg, ig, og = step_g(sg, ig, scan, None)
+        sc, ic, oc = step_c(sc, ic, scan_c, None)
+        n_g, n_c = axis.count - n_g, cpu_axis.count - n_c
+        found["collectives_card"].append(n_g)
+        found["collectives_cpu"].append(n_c)
+        og = {key: v.cpu().numpy() for key, v in og.items()}
+        oc = {key: v.numpy() for key, v in oc.items()}
+        found["obj_diff"].append(float(og["sel_obj"]) - float(oc["sel_obj"]))
+        live = oc["track_mask"]
+        same_labels = (np.array_equal(og["track_mask"], live)
+                       and np.array_equal(og["sel_hist_meas"][live],
+                                          oc["sel_hist_meas"][live]))
+        if not same_labels and found["first_label_part"] is None:
+            found.update(first_label_part=k, labels_differ=int(
+                (og["sel_hist_meas"][live, -1]
+                 != oc["sel_hist_meas"][live, -1]).sum()))
+        if (n_g == n_c and same_labels) or found["first_part"] is not None:
+            continue
+        found.update(first_part=k, obj_card=float(og["sel_obj"]),
+                     obj_cpu=float(oc["sel_obj"]))
+        # grow from the CPU's state before scan k, on both devices
+        gc = grow(pre, scan_c, None, shapes, params).state
+        gg = grow(to_device(pre, "cuda"), scan, None, shapes, params).state
+        lm = gc.leaf_mask.numpy()
+        found.update(
+            grow_labels_equal=bool(
+                np.array_equal(gg.leaf_mask.cpu().numpy(), lm)
+                and np.array_equal(gg.hist_meas.cpu().numpy()[lm],
+                                   gc.hist_meas.numpy()[lm])),
+            grow_score_max_diff=float(np.abs(
+                gg.leaf_cnllr.cpu().numpy()[lm]
+                - gc.leaf_cnllr.numpy()[lm]).max()))
+        # the distributed select on the same (CPU-grown) forest, then each
+        # device on the forest it grew itself
+        for what, forest_g in (("same_forest", to_device(gc, "cuda")),
+                               ("own_forests", gg)):
+            n_g, n_c = axis.count, cpu_axis.count
+            rg = distributed_select_compact(forest_g, shapes, params, axis)
+            n_g = axis.count - n_g
+            rc = distributed_select_compact(gc, shapes, params, cpu_axis)
+            found[what] = dict(
+                sel_equal=bool(np.array_equal(rg[0].cpu().numpy(),
+                                              rc[0].numpy())),
+                obj_card=float(rg[1]), obj_cpu=float(rc[1]),
+                lb_card=float(rg[2]), lb_cpu=float(rc[2]),
+                collectives_card=n_g,
+                collectives_cpu=cpu_axis.count - n_c)
+    return found
+
+def sharded_bench_scene(axis, cpu_axis, card):
     """bench.py's radar-only scene (13 scans) through the sharded step at
     one rank, its K1 launches counted, its track quality held to the
     radar-only floor through the scene's own Tracker's archive, its
-    ms/scan beside the unsharded scan_step's on the same scans."""
+    ms/scan beside the unsharded scan_step's on the same scans; then the
+    same step on the CPU in lockstep (``sharded_parts``)."""
     from types import SimpleNamespace
     from pymht_tpu_torch.ops import gate_kernel as gk
     from pymht_tpu_torch.parallel.sharded_tracker import (gather_state,
@@ -2291,7 +2524,22 @@ def sharded_bench_scene(axis, card):
           f"({card})")
     check(m["track_percent"] >= MIN_COVERAGE and m["rms"] <= MAX_RMS,
           f"sharded-1 bench scene: track quality below the floor: {m}")
-    return dict(metrics=m, ms_per_scan=float(np.median(stats["ms"][2:])),
+    parts = sharded_parts(axis, cpu_axis, shapes, params, st0, ist0, inputs)
+    print(f"sharded-1 bench scene, card against CPU in lockstep: "
+          f"{json.dumps(parts)}")
+    if parts["first_part"] is not None:
+        # where the two part, the select given the same forest must decide
+        # the same on both devices: the part comes from the values carried
+        # into that scan (PERF.md, section 6), not from its decisions
+        same = parts["same_forest"]
+        check(same["sel_equal"]
+              and same["collectives_card"] == same["collectives_cpu"]
+              and math.isclose(same["obj_card"], same["obj_cpu"],
+                               rel_tol=OBJ_RTOL),
+              f"sharded-1 bench scene: the distributed select parts on the "
+              f"same forest: {same}")
+    return dict(metrics=m, parts=parts,
+                ms_per_scan=float(np.median(stats["ms"][2:])),
                 unsharded_ms_per_scan=float(np.median(walls[2:])),
                 n_scans=len(outs), launches=launches, reads=stats["reads"],
                 unsharded_reads=reads, collectives=stats["collectives"],
@@ -2309,9 +2557,10 @@ def sharded1_phase(card, ckpt_path):
     from pymht_tpu_torch.ops import gate_kernel as gk
     from pymht_tpu_torch.parallel.collectives import Axis
     from pymht_tpu_torch.parallel.sharded_tracker import shard_state
+    from pymht_tpu_torch.scripts._common import free_port, init_rank
     from pymht_tpu_torch.utils import checkpoint
     torch.cuda.set_device(0)
-    init_group("nccl", 0, 1, free_port())
+    init_rank("nccl", 0, 1, free_port(), timeout=SHARD_TIMEOUT_S)
     try:
         axis = Axis()
         check(dist.get_backend() == "nccl" and axis.size == 1,
@@ -2367,7 +2616,7 @@ def sharded1_phase(card, ckpt_path):
               f"{1e3 * times['plain_ms']:.3f} us; bound "
               f"{1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} bytes, by "
               f"{bound['bound_by']}); max |err| {max(err, e):.3g} ({card})")
-        bench = sharded_bench_scene(axis, card)
+        bench = sharded_bench_scene(axis, cpu_axis, card)
     finally:
         dist.destroy_process_group()
     return dict(launches=launches + bench["launches"],
@@ -2485,6 +2734,7 @@ def sharded2_phase(s1, ckpt_path, card):
     the measurement exchange and dryrun(2) on both meshes."""
     import tempfile
     import torch.multiprocessing as mp
+    from pymht_tpu_torch.scripts._common import free_port
     with tempfile.TemporaryDirectory() as d:
         ctx = mp.start_processes(shard2_rank, args=(free_port(), d,
                                                     ckpt_path),
@@ -2532,11 +2782,381 @@ def sharded2_phase(s1, ckpt_path, card):
                 bytes=r0["bytes"])
 
 
-def main():
+# ----------------------------------------------------------------------
+# swarm phase (BASELINE config 5 at the JAX script's width)
+# ----------------------------------------------------------------------
+
+# The swarm benchmark's scene (utils/scenes.swarm_scene at its defaults:
+# 1000 targets in T=1024 slots, L=16, M=2048, A=128, W=6, G=2, the
+# pre-gate at Km=64, 8 scans).  The JAX package (CPU, scan_many with
+# method='lagrangian' and AIS: tests/jax_swarm_reference.py) scores a
+# one-to-one coverage of 0.992875 and an rms of 3.9560 m on it (999
+# tracks alive at the last scan); the floors sit a little below.
+SWARM_SCANS = 8
+SWARM_CPU_SCANS = 3          # scans held to the port's CPU run
+MIN_COVERAGE_SWARM = 0.992
+MAX_RMS_SWARM = 4.0
+SWARM_ORACLE_LIMIT = 60.0    # seconds of HiGHS on the swarm forest
+
+
+def swarm_phase(card):
+    """bench_swarm's ``run`` on the card at its defaults: K1's per-target
+    entry point once per scan at N = 16,384, Km = 64 (and held against
+    its twin on one scan's tensors and on seeded ones, timed against its
+    bound); the first SWARM_CPU_SCANS scans' tracks and labels (radar and
+    MMSI) against the port's CPU run; coverage and rms above their
+    floors; the oracle gap under SWARM_ORACLE_LIMIT."""
+    import torch
+    from pymht_tpu_torch.core.tracker import outputs_to_host
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.scripts import bench_swarm
+    from pymht_tpu_torch.utils import scenes
+    scene = scenes.swarm_scene(n_scans=SWARM_SCANS)
+    shapes = scene.shapes
+    T, L, Km, M = (shapes.max_targets, shapes.max_leaves,
+                   shapes.radar_cand_width, shapes.max_meas)
+    knobs = dict(bench_swarm.DEFAULTS, n_scans=SWARM_SCANS,
+                 oracle_limit=SWARM_ORACLE_LIMIT)
+    gk.launches = gk.launches_pregate = 0
+    t0 = time.perf_counter()
+    with noting_k1_launches(gk) as noted:
+        res, outs = bench_swarm.run(torch.device("cuda"), knobs, scene)
+    launches, launches_sub = gk.launches, gk.launches_pregate
+    wall_s = time.perf_counter() - t0
+    # a warm-up and 3 timed streams of 8 scans, then the oracle's forest:
+    # 7 scans streamed and one grown
+    runs = 4 * SWARM_SCANS + SWARM_SCANS
+    check(launches == launches_sub == runs,
+          f"swarm: K1's per-target entry point launched {launches_sub} "
+          f"times ({launches} in all) over {runs} scans")
+    check(res["k1_launches_per_scan"] == 1.0,
+          f"swarm: {res['k1_launches_per_scan']} K1 launches per scan")
+    err = check_noted_launches(gk, noted, "swarm", (T * L, M), (3,))
+    for inp, _, _, sub in noted:
+        check(tuple(sub["z_sub"].shape) == (T, Km, 2),
+              f"swarm: K1 ran at z_sub {tuple(sub['z_sub'].shape)}")
+    del noted
+    check(all(bool(f) for f in outs.sel_feasible), "swarm: infeasible scan")
+    check(not any(np.isnan(f).any() for f in outs if f.dtype.kind == "f"),
+          "swarm: NaN in the outputs")
+
+    # the port's CPU run of the first scans
+    tr_c, scan_c, ais_c = bench_swarm.stream_inputs(
+        scene, torch.device("cpu"), True, n_scans=SWARM_CPU_SCANS)
+    cpu = outputs_to_host(bench_swarm.stream(tr_c, scan_c, ais_c, True)[2])
+    for k in range(SWARM_CPU_SCANS):
+        live = outs.track_mask[k]
+        check(np.array_equal(live, cpu.track_mask[k])
+              and np.array_equal(outs.track_id[k][live],
+                                 cpu.track_id[k][live]),
+              f"swarm scan {k}: tracks differ from the CPU run")
+        for f in ("sel_hist_meas", "sel_hist_mmsi"):
+            check(np.array_equal(getattr(outs, f)[k][live],
+                                 getattr(cpu, f)[k][live]),
+                  f"swarm scan {k}: {f} differs from the CPU run")
+        check(np.allclose(outs.track_x[k][live], cpu.track_x[k][live],
+                          rtol=STATE_RTOL, atol=STATE_ATOL),
+              f"swarm scan {k}: states differ from the CPU run")
+        check(math.isclose(float(outs.sel_obj[k]), float(cpu.sel_obj[k]),
+                           rel_tol=OBJ_RTOL, abs_tol=1e-3),
+              f"swarm scan {k}: objective differs from the CPU run")
+    fused = int((outs.sel_hist_mmsi[:, :, -1] > 0).sum())
+    check(fused > 0, "swarm: no selected AIS label")
+    check(res["truth_coverage"] >= MIN_COVERAGE_SWARM
+          and res["rms_matched_m"] <= MAX_RMS_SWARM,
+          f"swarm: quality below the floor: coverage "
+          f"{res['truth_coverage']}, rms {res['rms_matched_m']}")
+    gap, proven = res["opt_gap_vs_exact_oracle"], res["oracle_proven_optimal"]
+    if proven:
+        check(gap is not None and gap <= GAP_LIMIT,
+              f"swarm: gap {gap} against the proven optimum")
+
+    # K1 at the swarm shape: seeded, timed, against its bound
+    args = K1_ARGS
+    dt = torch.full((), 2.5, device="cuda")
+    inp, sub = k1_sub_inputs(31, T, L, Km, M, "cuda")
+    e, _ = check_against_twin(gk, f"per target, swarm (T={T}, L={L}, "
+                              f"Km={Km}, M={M})", inp, dt, args, sub)
+    times = kernel_times(gk, inp, dt, args, sub)
+    bound = k1_sub_bound(T, L, Km, M)
+    print(f"swarm (bench_swarm at its defaults: {res['n_targets']} targets, "
+          f"T={T}, L={L}, M={M}, A={shapes.max_ais}, Km={Km}, AIS, "
+          f"{SWARM_SCANS} scans streamed): {res['value']} ms/scan (median of "
+          f"3 streams after a warm-up), host reads per scan "
+          f"{res['host_reads_per_scan']}, K1 per-target launches "
+          f"{launches_sub} ({res['k1_launches_per_scan']} per scan); "
+          f"coverage {res['truth_coverage']} (floor {MIN_COVERAGE_SWARM}), "
+          f"rms {res['rms_matched_m']} m (ceiling {MAX_RMS_SWARM}), "
+          f"{res['tracks_alive_last_scan']} tracks at the last scan, "
+          f"{fused} selected AIS labels; median dual gap "
+          f"{res['median_dual_gap']}; oracle_proven_optimal: {proven}, gap "
+          f"{gap} (HiGHS limit {SWARM_ORACLE_LIMIT} s); smoothing "
+          f"{res['smooth_1000tracks_one_dispatch_ms']} ms; scans 1-"
+          f"{SWARM_CPU_SCANS} = the CPU run; {wall_s:.1f} s in all ({card})")
+    print(json.dumps({"swarm": res}))
+    print(f"K1 per target at the swarm shape (N={T * L}, Km={Km}, M={M}), "
+          f"device time: kernel alone {1e3 * times['kernel_ms']:.3f} us hot, "
+          f"{1e3 * times['kernel_flushed_ms']:.3f} us over 8 sets; wrapper "
+          f"{1e3 * times['ms']:.3f} us, twin {1e3 * times['plain_ms']:.3f} "
+          f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
+          f"bytes, by {bound['bound_by']}); max |err| {max(err, e):.3g} "
+          f"({card})")
+    return dict(res=res, launches=launches, n_scans=runs,
+                max_err=max(err, e), shape=(T * L, Km, M), **times, **bound)
+
+
+# ----------------------------------------------------------------------
+# scripts phase
+# ----------------------------------------------------------------------
+
+SAT_POINTS = (1024, 4096)    # bench_saturation points run on the card
+
+
+@contextlib.contextmanager
+def environment(**env):
+    """``os.environ`` with ``env`` set inside the block."""
+    import os
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def run_script(gk, name, main_fn, argv, env):
+    """One script's ``main`` in this process, on the card (its default),
+    with its knobs: (its output lines, K1 launches as (entry point, N, M,
+    Km), seconds)."""
+    import io
+    gk.launches = gk.launches_pregate = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with environment(**env), noting_k1_launches(gk) as noted, \
+            contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    shapes = [("per target" if "z_sub" in sub else "shared", inp[0].shape[0],
+               inp[5].shape[0], sub["z_sub"].shape[1] if sub else None)
+              for inp, _, _, sub in noted]
+    del noted
+    check(gk.launches == len(shapes), f"{name}: K1 counted {gk.launches} "
+          f"launches, {len(shapes)} noted")
+    out = buf.getvalue().splitlines()
+    print(f"scripts: {name} {' '.join(argv)} "
+          f"{' '.join(f'{k}={v}' for k, v in env.items())}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, {len(shapes)} K1 launches")
+    for line in out:
+        print(f"  {line}")
+    return out, shapes, time.perf_counter() - t0
+
+
+def json_lines(out):
+    return [json.loads(line) for line in out if line.startswith("{")]
+
+
+def scripts_phase(card, workdir):
+    """The port's scripts and examples on the card through their ``main``:
+    eval_configs (small), bench_saturation at SAT_POINTS, the A/B of the
+    distributed selects and the scaling bench at one NCCL rank, both
+    examples with --no-plot.  Each must print its lines; K1 at the
+    saturation points' shapes against its twin, timed, with its bound."""
+    import torch
+    from pymht_tpu_torch.examples import (demo_streaming_deployment,
+                                          demo_tracking)
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.scripts import (ab_distributed_select,
+                                         bench_saturation, bench_scaling,
+                                         eval_configs)
+    launch_shapes, seconds = {}, {}
+
+    def run(name, fn, argv=(), **env):
+        out, shapes, s = run_script(gk, name, fn, list(argv), env)
+        launch_shapes[name], seconds[name] = shapes, s
+        return out
+
+    ev = json_lines(run("eval_configs", eval_configs.main))
+    check([c["config"] for c in ev] == [
+        "1_crossing", "2_10tgt_clutter", "3_50tgt_dense", "4_mc_batch",
+        "5_ais_swarm", "2_ipm_xcheck"], "eval_configs: configs missing")
+    check(ev[3]["tracks_alive"] >= 0.9 * ev[3]["expected"],
+          f"eval_configs: Monte-Carlo tracks lost: {ev[3]}")
+    sat = json_lines(run("bench_saturation", bench_saturation.main,
+                         SAT_POINTS=",".join(map(str, SAT_POINTS)),
+                         SAT_REPS="1"))
+    check([r.get("targets") for r in sat[:-1]] == list(SAT_POINTS)
+          and sat[-1]["metric"] == "chip_saturation_curve"
+          and all("error" not in r for r in sat[:-1]),
+          f"bench_saturation: {sat}")
+    ab = json_lines(run("ab_distributed_select",
+                        ab_distributed_select.main))[-1]
+    check(ab["shape"]["ranks"] == 1 and ab["converged"]["full"]["feasible"]
+          and ab["converged"]["compact"]["feasible"],
+          f"ab_distributed_select: {ab['converged']}")
+    check(ab["obj_rel_delta"] <= ab_distributed_select.OBJ_RTOL,
+          f"ab_distributed_select: 'full' and 'compact' objectives differ "
+          f"by {ab['obj_rel_delta']} (relative): {ab['converged']}")
+    sc = json_lines(run("bench_scaling", bench_scaling.main))
+    check(len(sc) == 1 and sc[0]["devices"] == 1 and sc[0]["value"] > 0,
+          f"bench_scaling: {sc}")
+    demo = run("demo_tracking", demo_tracking.main,
+               ["--no-plot", "--out", workdir])
+    check(any("active tracks after 21 scans" in line for line in demo),
+          "demo_tracking: no track summary")
+    stream = run("demo_streaming_deployment", demo_streaming_deployment.main)
+    check(any(line == "checkpoint resume bitwise-identical: True"
+              for line in stream), "demo_streaming_deployment: resume")
+
+    # K1 at the saturation points: every launch there at N=16T, M=2T
+    args = K1_ARGS
+    dt = torch.full((), 2.5, device="cuda")
+    sat_k1, err = {}, 0.0
+    for i, T in enumerate(SAT_POINTS):
+        N, M = 16 * T, 2 * T
+        n = sum(1 for s in launch_shapes["bench_saturation"]
+                if s[:3] == ("shared", N, M))
+        check(n > 0, f"bench_saturation: K1 never ran at N={N}, M={M}")
+        inp = k1_inputs(40 + i, N, M, "cuda")
+        e, _ = check_against_twin(gk, f"saturation T={T}", inp, dt, args)
+        err = max(err, e)
+        sat_k1[T] = dict(launches=n, **kernel_times(gk, inp, dt, args),
+                         **k1_bound(N, M))
+        r = sat_k1[T]
+        print(f"K1 at the saturation point T={T} (N={N}, M={M}), device "
+              f"time: kernel alone {1e3 * r['kernel_ms']:.3f} us hot, "
+              f"{1e3 * r['kernel_flushed_ms']:.3f} us over 8 sets; wrapper "
+              f"{1e3 * r['ms']:.3f} us, twin {1e3 * r['plain_ms']:.3f} us; "
+              f"bound {1e3 * r['bound_ms']:.3f} us ({r['bytes']} bytes, by "
+              f"{r['bound_by']}); {n} launches in the script ({card})")
+        del inp
+        torch.cuda.empty_cache()
+    launches = {k: len(v) for k, v in launch_shapes.items()}
+    print(f"scripts: K1 launches {launches}; seconds "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} } ({card})")
+    return dict(launch_shapes=launch_shapes, launches=launches,
+                sat_k1=sat_k1, max_err=err, saturation=sat, ab=ab,
+                scaling=sc, seconds=seconds)
+
+
+def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
+                 gaps, mc, mcb, mca, mcp, mci, s1, s2, swarm, scripts):
+    """The line before the card's: K1's two entry points, each with its
+    launches on the main paths (counted from 0 around each phase's run),
+    the shapes it ran at, its largest |err| against the twin, its times
+    and its bound."""
+    def script_shapes(entry):
+        seen = {}
+        for name, shapes in scripts["launch_shapes"].items():
+            for e, N, M, Km in shapes:
+                if e == entry:
+                    key = (name, N, M if Km is None else Km)
+                    seen[key] = seen.get(key, 0) + 1
+        return [dict(phase=f"scripts/{n}", N=N, cols=c, launches=k)
+                for (n, N, c), k in seen.items()]
+
+    shared_phases = [("slice", res, 4096, 512), ("ais", ais, 4096, 512),
+                     ("stream", stream, 4096, 512),
+                     ("degrade", deg, "4096 then 2048", 512),
+                     ("roof", roof, 4096, 512), ("ipm demo", ipm, 1024, 64),
+                     ("pure", pure, 4096, 512),
+                     ("checkpoint", ckpt, 4096, 512),
+                     ("sharded-1", s1, "8192 swarm, 4096 bench", 512),
+                     ("sharded-2", s2, "4096 per rank", 512)]
+    shared_shapes = [dict(phase=n, N=N, cols=M, launches=r["launches"])
+                     for n, r, N, M in shared_phases]
+    shared_shapes.append(dict(phase="ipm xcheck", N=512, cols=64,
+                              launches=ipm["launches_xcheck"]))
+    shared_shapes += script_shapes("shared")
+    sub_phases = [("pre-gate", ais["launches_pregate"], 4096, 64),
+                  ("mc", mc["launches"], 32768, 28),
+                  ("mc-bench", mcb["launches"], 131072, 512),
+                  ("mc-ais", mca["launches"], 131072, 512),
+                  ("mc-pregate", mcp["launches"], 131072, 64),
+                  ("mc-ipm", mci["launches"], 8192, 64),
+                  ("mc-pure", mci["launches_pure"], 8192, 64),
+                  ("swarm", swarm["launches"], 16384, 64)]
+    sub_shapes = [dict(phase=n, N=N, cols=c, launches=k)
+                  for n, k, N, c in sub_phases] + script_shapes("per target")
+    sat = {f"saturation_T{T}_{key}": r[key]
+           for T, r in scripts["sat_k1"].items()
+           for key in ("kernel_ms", "kernel_flushed_ms", "ms", "plain_ms",
+                       "bound_ms", "bound_by", "launches")}
+    shared = {
+        "name": "gate_score",
+        "route": "cuda",
+        "source": "pymht_tpu_torch/csrc/gate_score.cu",
+        "replaces": "pymht_tpu/ops/gate_kernel.py:34",
+        "launches": sum(d["launches"] for d in shared_shapes),
+        "shapes": shared_shapes,
+        # over every comparison with the twin at this entry point: the
+        # kernel phase's shapes, the real scans of the 'ipm' runs and of
+        # the sharded phases, the saturation points
+        "max_abs_err": max(k1["max_err_all"], ipm["k1_max_err"],
+                           s1["max_err"], s2["max_err"], scripts["max_err"]),
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "library_ms": None,
+        "kernel_ms": k1["kernel_ms"],
+        "kernel_flushed_ms": k1["kernel_flushed_ms"],
+        "half_beam_kernel_ms": k1h["kernel_ms"],
+        "half_beam_bound_ms": k1h["bound_ms"],
+        "oracle_gaps": gaps,
+        "sharded_1_ms": s1["k1_ms"],
+        "sharded_1_kernel_ms": s1["k1_kernel_ms"],
+        "sharded_1_plain_ms": s1["k1_plain_ms"],
+        "sharded_1_bound_ms": s1["k1_bound_ms"],
+        "sharded_2_bound_ms": k1_bound(4096, 512)["bound_ms"],
+        **sat}
+    sub = {
+        "name": "gate_score_sub",
+        "route": "cuda",
+        "source": "pymht_tpu_torch/csrc/gate_score.cu",
+        "replaces": "pymht_tpu/ops/gate_kernel.py:34 (per-target columns, "
+                    "the counterpart of pymht_tpu/ops/ais_fused.py:438)",
+        "launches": sum(d["launches"] for d in sub_shapes),
+        "shapes": sub_shapes,
+        # the kernel phase's shapes, the batches (seeded and real scans)
+        # and the swarm benchmark (seeded and a real scan)
+        "max_abs_err": max(k1p["max_err"], mc["max_err"], mcb["max_err"],
+                           mca["max_err"], mcp["max_err"], mci["max_err"],
+                           swarm["max_err"]),
+        # at the swarm benchmark's shape, T=1024, L=16, Km=64, M=2048
+        "ms": swarm["ms"],
+        "plain_ms": swarm["plain_ms"],
+        "bound_ms": swarm["bound_ms"],
+        "bound_by": swarm["bound_by"],
+        "library_ms": None,
+        "kernel_ms": swarm["kernel_ms"],
+        "kernel_flushed_ms": swarm["kernel_flushed_ms"],
+        "bench_pregate_ms": k1p["ms"],
+        "bench_pregate_kernel_ms": k1p["kernel_ms"],
+        "bench_pregate_plain_ms": k1p["plain_ms"],
+        "bench_pregate_bound_ms": k1p["bound_ms"],
+        **{f"{key}_{name}": r[name]
+           for key, r in (("mc", mc), ("mc_bench", mcb), ("batch_ais", mca),
+                          ("batch_pregate", mcp), ("batch_ipm", mci))
+           for name in ("ms", "kernel_ms", "kernel_flushed_ms", "plain_ms",
+                        "bound_ms")},
+        **{f"batch_{key}_{name}": r[name]
+           for key, r in (("ais", mca), ("pregate", mcp), ("ipm", mci))
+           for name in ("ms_per_scan", "reads_per_scan", "peak_gib")}}
+    return {"kernels": [shared, sub]}
+
+
+def main(argv):
     import os
     import tempfile
     import torch
     t_start = time.perf_counter()
+    if argv not in ([], ["--k1-guard"]):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
+    guard_only = argv == ["--k1-guard"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a "
               "GPU", file=sys.stderr)
@@ -2590,6 +3210,11 @@ def main():
           f"{1e3 * k1p['bound_ms']:.3f} us ({k1p['bytes']} bytes at 3.35 "
           f"TB/s, bound by {k1p['bound_by']}): the kernel reaches "
           f"{k1p['bound_ms'] / k1p['kernel_ms']:.3f} of it")
+    guard_phase(card)
+    if guard_only:
+        print(f"chip_smoke --k1-guard: {time.perf_counter() - t_start:.1f} s "
+              f"in all")
+        return 0
 
     res = slice_phase()
     ais = ais_phase()
@@ -2612,6 +3237,8 @@ def main():
         s1_path = os.path.join(d, "sharded-1")
         s1 = sharded1_phase(card, s1_path)
         s2 = sharded2_phase(s1, s1_path, card)
+        swarm = swarm_phase(card)
+        scripts = scripts_phase(card, d)
     for what, r in (("slice (radar only)", res), ("AIS scene", ais)):
         syncs = r["syncs"]
         print(f"{what} on the card: {r['ms_per_scan']:.2f} ms/scan (median "
@@ -2642,123 +3269,9 @@ def main():
           "the port imported the JAX package (pymht_tpu)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "gate_score",
-        "route": "cuda",
-        "source": "pymht_tpu_torch/csrc/gate_score.cu",
-        "replaces": "pymht_tpu/ops/gate_kernel.py:34",
-        # launches on the main paths: the radar-only slice and the AIS
-        # scene (shared-scan entry point), then the pre-gated AIS scans
-        # (per-target entry point), then this slice's paths: the streamed
-        # AIS scene, the dynamic-window-and-degrade run and the roof run,
-        # then the 'ipm' runs (demo scene, 2_ipm_xcheck beside
-        # 'lagrangian'), the 'lagrangian_pure' run and the checkpointed
-        # streams, then the two Monte-Carlo batches (per-target entry
-        # point, one launch per batched scan), then the batches with the
-        # AIS branch, the pre-gate and the solvers (the same entry point)
-        # and the target-sharded step: the swarm and bench scenes at one
-        # NCCL rank, the swarm scene at two ranks (one launch per rank
-        # and scan)
-        "launches": res["launches"] + ais["launches"] + stream["launches"]
-        + deg["launches"] + roof["launches"] + ipm["launches"]
-        + ipm["launches_xcheck"] + pure["launches"] + ckpt["launches"]
-        + mc["launches"] + mcb["launches"] + mca["launches"]
-        + mcp["launches"] + mci["launches"] + mci["launches_pure"]
-        + s1["launches"] + s2["launches"],
-        "launches_slice": res["launches"],
-        "launches_ais": ais["launches"],
-        "launches_pregate": ais["launches_pregate"],
-        "launches_stream": stream["launches"],
-        "launches_degrade": deg["launches"],
-        "launches_half_beam": deg["launches_half_beam"],
-        "launches_roof": roof["launches"],
-        "launches_ipm": ipm["launches"],
-        "launches_xcheck": ipm["launches_xcheck"],
-        "launches_pure": pure["launches"],
-        "launches_checkpoint": ckpt["launches"],
-        "launches_mc": mc["launches"],
-        "launches_mc_bench": mcb["launches"],
-        "launches_batch_ais": mca["launches"],
-        "launches_batch_pregate": mcp["launches"],
-        "launches_batch_ipm": mci["launches"],
-        "launches_batch_pure": mci["launches_pure"],
-        "launches_sharded_1": s1["launches"],
-        "launches_sharded_1_swarm": s1["launches_swarm"],
-        "launches_sharded_1_bench": s1["bench"]["launches"],
-        "launches_sharded_2": s2["launches"],
-        "launches_sharded_2_per_rank": s2["launches_per_rank"],
-        # a batched scan counts as one scan, a scan of each of the two
-        # ranks as one
-        "launches_per_scan": (res["launches"] + ais["launches"]
-                              + stream["launches"] + deg["launches"]
-                              + roof["launches"] + ipm["launches"]
-                              + ipm["launches_xcheck"] + pure["launches"]
-                              + ckpt["launches"] + mc["launches"]
-                              + mcb["launches"] + mca["launches"]
-                              + mcp["launches"] + mci["launches"]
-                              + mci["launches_pure"] + s1["launches"]
-                              + s2["launches"])
-        / (res["n_scans"] + ais["n_scans"] + stream["n_scans"]
-           + deg["n_scans"] + roof["n_scans"] + ipm["n_scans"]
-           + ipm["n_scans_xcheck"] + pure["n_scans"] + ckpt["n_scans"]
-           + mc["n_scans"] + mcb["n_scans"] + mca["n_scans"]
-           + mcp["n_scans"] + mci["n_scans"] + mci["n_scans_pure"]
-           + s1["n_scans"] + 2 * s2["n_scans"]),
-        "oracle_gaps": gaps,
-        # over every comparison with the twin: the kernel phase's shapes,
-        # the real scans' tensors of the 'ipm' runs and the five batches
-        # (seeded and real scans)
-        "max_abs_err": max(k1["max_err_all"], ipm["k1_max_err"],
-                           mc["max_err"], mcb["max_err"], mca["max_err"],
-                           mcp["max_err"], mci["max_err"], s1["max_err"],
-                           s2["max_err"]),
-        "seeded_max_abs_err": k1["max_err_all"],
-        "real_scans_max_abs_err": ipm["k1_max_err"],
-        "mc_max_abs_err": mc["max_err"],
-        "mc_bench_max_abs_err": mcb["max_err"],
-        "half_beam_kernel_ms": k1h["kernel_ms"],
-        "half_beam_bound_ms": k1h["bound_ms"],
-        "ms": k1["ms"],
-        "kernel_ms": k1["kernel_ms"],
-        "kernel_flushed_ms": k1["kernel_flushed_ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": None,
-        "pregate_ms": k1p["ms"],
-        "pregate_kernel_ms": k1p["kernel_ms"],
-        "pregate_kernel_flushed_ms": k1p["kernel_flushed_ms"],
-        "pregate_plain_ms": k1p["plain_ms"],
-        "pregate_bound_ms": k1p["bound_ms"],
-        "pregate_bound_by": k1p["bound_by"],
-        "pregate_max_abs_err": k1p["max_err"],
-        "mc_ms": mc["ms"],
-        "mc_kernel_ms": mc["kernel_ms"],
-        "mc_kernel_flushed_ms": mc["kernel_flushed_ms"],
-        "mc_plain_ms": mc["plain_ms"],
-        "mc_bound_ms": mc["bound_ms"],
-        "mc_bench_ms": mcb["ms"],
-        "mc_bench_kernel_ms": mcb["kernel_ms"],
-        "mc_bench_kernel_flushed_ms": mcb["kernel_flushed_ms"],
-        "mc_bench_plain_ms": mcb["plain_ms"],
-        "mc_bench_bound_ms": mcb["bound_ms"],
-        **{f"{key}_{name}": r[name]
-           for key, r in (("batch_ais", mca), ("batch_pregate", mcp),
-                          ("batch_ipm", mci))
-           for name in ("ms", "kernel_ms", "kernel_flushed_ms", "plain_ms",
-                        "bound_ms", "max_err", "ms_per_scan",
-                        "reads_per_scan", "peak_gib")},
-        # K1 at the sharded shapes: N = 8192 (T=1024, L=8) at one rank,
-        # 4096 per rank at two, both against M = 512
-        "sharded_1_max_abs_err": s1["max_err"],
-        "sharded_1_ms": s1["k1_ms"],
-        "sharded_1_kernel_ms": s1["k1_kernel_ms"],
-        "sharded_1_plain_ms": s1["k1_plain_ms"],
-        "sharded_1_bound_ms": s1["k1_bound_ms"],
-        "sharded_1_bound_by": s1["k1_bound_by"],
-        "sharded_2_max_abs_err": s2["max_err"],
-        "sharded_2_bound_ms": k1_bound(4096, 512)["bound_ms"],
-        "sharded_2_bound_by": k1_bound(4096, 512)["bound_by"]}]}))
+    print(json.dumps(kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof,
+                                  ipm, pure, ckpt, gaps, mc, mcb, mca, mcp,
+                                  mci, s1, s2, swarm, scripts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -2766,4 +3279,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -137,6 +137,14 @@ def _hist_usage(state: TrackerState, shapes: TrackerShapes, tgt_filter=None):
     return out.view(*lead, n + 1)[..., :n].reshape(*lead, T, W, P)
 
 
+def target_usage(state: TrackerState, shapes: TrackerShapes):
+    """([T, n_slots] bool: does any live leaf of target t use slot s?,
+    n_slots)."""
+    use = _hist_usage(state, shapes)
+    *lead, T, W, P = use.shape
+    return use.reshape(*lead, T, W * P), W * P
+
+
 def _slot_flat_labels(state: TrackerState, shapes: TrackerShapes):
     """Flat slot id per (leaf, window column) for radar and AIS labels:
     w*(M+A) + (m-1) and w*(M+A) + M + (a-1); no label or dead leaf -> n
@@ -866,15 +874,17 @@ def _lagrangian_continue(c: _LagCarry, obj_offset, patience):
 
 def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
                         iters=60, theta=1.5, patience=4, repair_rounds=8,
-                        repair_cadence=4, axis=None):
+                        repair_cadence=4, axis=None, force_iters=False):
     """Subgradient ascent over the CAP contested slots only.  ``Uc [T, L,
     CAP]`` is the 0/1 usage of contested slot c by leaf (t, l), masked to
     live leaves of participating targets.  With ``axis`` the same loop
     runs on this rank's targets of a forest split over the axis (the
     JAX function's ``axis_name``): 2 x [CAP] values reduced per iteration
     (+ 2 x [CAP] pmins per repair round), every loop exit read on a
-    reduced, hence replicated, value.  Returns (sel, feasible, obj, lower
-    bound, lam)."""
+    reduced, hence replicated, value.  ``force_iters`` runs exactly
+    ``iters`` bodies, without the convergence and patience exits and so
+    without a host read of them (A/B instrumentation, never set in
+    production).  Returns (sel, feasible, obj, lower bound, lam)."""
     dev = f.device
     lead = f.shape[:-2]
     n_live = eff_leaf.sum(dim=-1).float()
@@ -890,7 +900,8 @@ def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
                   torch.full(lead, theta, dtype=torch.float32, device=dev),
                   zero_i)
     c = sync.while_loop(
-        lambda c: _lagrangian_continue(c, obj_offset, patience),
+        None if force_iters
+        else lambda c: _lagrangian_continue(c, obj_offset, patience),
         lambda c, active: _lagrangian_step(cp, repair_rounds,
                                            repair_cadence, c, active),
         c, max_iters=iters)

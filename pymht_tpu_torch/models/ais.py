@@ -5,10 +5,16 @@ from __future__ import annotations
 
 import torch
 
-from .constants import default_dtype, N_OBS_AIS
+from .constants import default_dtype, N_OBS_AIS, N_STATE
+from .pv import Phi  # noqa: F401  (the same CV transition, re-exported)
 
 sigmaR_AIS_true_highAccuracy = 1.0
 sigmaR_AIS_true_lowAccuracy = 3.0
+
+
+def C(device) -> torch.Tensor:
+    """AIS observation matrix: the full state."""
+    return torch.eye(N_OBS_AIS, N_STATE, dtype=default_dtype, device=device)
 
 
 def R(highAccuracy, device) -> torch.Tensor:

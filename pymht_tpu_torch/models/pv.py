@@ -26,11 +26,19 @@ def C_RADAR(device) -> torch.Tensor:
     return torch.eye(2, 4, dtype=default_dtype, device=device)
 
 
+H_radar = C_RADAR
+
+
 def P0(device) -> torch.Tensor:
     """Initial state covariance diag(p, p, 0.3 p, 0.3 p)."""
     d = torch.full((4,), _P0_VAR, dtype=default_dtype, device=device)
     d[2:] = 0.3 * _P0_VAR       # filled on the device: no host copy
     return torch.diag(d)
+
+
+def GPS_COVARIANCE_PRECISE(device) -> torch.Tensor:
+    """Half the initial state covariance."""
+    return P0(device) * 0.5
 
 
 def Q(T, sigmaQ=sigmaQ_tracker, device=None) -> torch.Tensor:

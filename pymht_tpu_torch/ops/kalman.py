@@ -101,6 +101,13 @@ def nis(z_tilde, S_inv):
     return torch.einsum('...mi,...ij,...mj->...m', z_tilde, S_inv, z_tilde)
 
 
+def filter_update(x_bar, K, z_tilde):
+    """State update for many residuals of one prediction: x_bar (..., n),
+    K (..., n, m), z_tilde (..., M, m) -> (..., M, n)."""
+    return x_bar[..., None, :] + torch.einsum('...nm,...Mm->...Mn', K,
+                                              z_tilde)
+
+
 def nllr(lambda_ex, P_d, S, nis_values):
     """Association NLLR increment 0.5*NIS + ln(lambda_ex*sqrt(det 2 pi S)/P_d).
 
@@ -111,6 +118,13 @@ def nllr(lambda_ex, P_d, S, nis_values):
     log_lam = math.log(max(float(lambda_ex), 1e-20))
     log_term = log_lam + log_norm - torch.log(P_d)
     return 0.5 * nis_values + log_term[..., None]
+
+
+def nllr_ais(S, nis_values):
+    """AIS-association NLLR increment 0.5*NIS + ln sqrt(det 2 pi S)."""
+    m = S.shape[-1]
+    log_norm = 0.5 * (m * _LOG2PI + torch.log(det_psd(S)))
+    return 0.5 * nis_values + log_norm[..., None]
 
 
 def nllr_missed(P_d):

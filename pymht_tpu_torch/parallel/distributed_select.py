@@ -51,8 +51,11 @@ def distributed_lagrangian(state, shapes: TrackerShapes,
                            params: TrackerParams, axis: Axis,
                            iters: int = 60, theta: float = 1.5,
                            patience: int = 6, repair_rounds: int = 8,
-                           repair_cadence: int = 2, lam0=None):
+                           repair_cadence: int = 2, lam0=None,
+                           force_iters: bool = False):
     """The full-slot distributed Lagrangian on this rank's targets.
+    ``force_iters`` runs exactly ``iters`` bodies, without the
+    convergence and patience exits (A/B instrumentation only).
 
     Returns (sel [T_local], obj, lower bound, feasible — all three
     global —, lam [n_slots]: the final duals, equal on every rank, for
@@ -187,7 +190,7 @@ def distributed_lagrangian(state, shapes: TrackerShapes,
     c = (0, lam_init, sel_seed, obj_seed, feas_seed, lb_seed,
          torch.zeros((), dtype=torch.int64, device=dev))
     _, lam, best_sel, best_obj, best_feas, best_lb, _ = sync.while_loop(
-        go_on, step, c, max_iters=iters)
+        None if force_iters else go_on, step, c, max_iters=iters)
     return best_sel, best_obj, best_lb, best_feas, lam
 
 
@@ -214,7 +217,8 @@ def distributed_select_compact(state, shapes: TrackerShapes,
                                patience: int = 4, repair_rounds: int = 8,
                                repair_cadence: int = 4,
                                contested_cap: int = 256, lam0=None,
-                               fast_path: bool = True):
+                               fast_path: bool = True,
+                               force_iters: bool = False):
     """Production distributed selection on this rank's targets: the
     fast path, the compact contested-slot Lagrangian with [CAP]-sized
     collectives, then core/select.select_hybrid's contested-cap overflow
@@ -223,7 +227,8 @@ def distributed_select_compact(state, shapes: TrackerShapes,
     loosens it).  The contested set is built densely (one psum of the
     per-slot target counts) below ``core.select._INT32_WALL`` elements of
     the local [T, n_slots], and from min/max global-target-id scatters
-    with one pmin / pmax pair from the wall on.
+    with one pmin / pmax pair from the wall on.  ``force_iters`` runs
+    the Lagrangian for exactly ``iters`` bodies (A/B instrumentation).
 
     Returns (sel [T_local], obj, lower bound, feasible — all three
     global —, lam [n_slots]: the final duals, equal on every rank)."""
@@ -258,7 +263,7 @@ def distributed_select_compact(state, shapes: TrackerShapes,
             f, Uc, lam_c0, state.spine_leaf, tm, eff_leaf, 0.0,
             iters=iters, theta=theta, patience=patience,
             repair_rounds=repair_rounds, repair_cadence=repair_cadence,
-            axis=axis)
+            axis=axis, force_iters=force_iters)
         lam_full = torch.zeros((S + 1,), dtype=torch.float32, device=dev)
         lam_full.scatter_add_(0, torch.where(col_ok, col_slot, S),
                               torch.where(col_ok, lam_c, 0.0))

@@ -65,10 +65,11 @@ def while_loop(cond, body, carry, max_iters=None, test_first=True):
     scenarios still running (None: all of them, or one 0-d problem), so
     that a branch or loop nested in it can leave the others out.  With
     ``test_first=False`` the first body runs untested (a loop whose first
-    test is known to hold)."""
+    test is known to hold).  ``cond=None`` runs exactly ``max_iters``
+    bodies and reads nothing on the host."""
     it, active = 0, None
     while max_iters is None or it < max_iters:
-        if it > 0 or test_first:
+        if cond is not None and (it > 0 or test_first):
             p = cond(carry)
             if p.dim() == 0:
                 if not flag(p):

@@ -110,6 +110,99 @@ def swarm_shard_scene(n_scans: int = 4, seed: int = 42,
             [F_inv @ t.state for t in targets], [t.mmsi for t in targets])
 
 
+class SwarmScene(NamedTuple):
+    """What ``swarm_scene`` draws: the configuration, the scans and AIS
+    groups (``ais_groups[i]`` for ``scans[i]``; a scan past the last group
+    has none), the simulator's truth, the seeds and MMSIs for
+    ``Tracker.pre_initialize(scans[0].time - period, seeds, mmsi=mmsi)``,
+    the targets' initial states (the smoother's priors) and the generator
+    after the draws (bench_swarm.py draws the smoother's detection mask
+    from it)."""
+    shapes: TrackerShapes
+    params: TrackerParams
+    scans: list
+    ais_groups: list
+    sim_list: list
+    seeds: list
+    mmsi: list
+    x0: np.ndarray
+    rng: np.random.Generator
+
+
+def swarm_scene(n_targets: int = 1000, n_scans: int = 8, m_cap: int = 2048,
+                a_cap: int = 128, pregate: int = 64, use_ais: bool = True,
+                seed: int = 77, t_cap: int = 1024,
+                ais_prefilter: int = 0) -> SwarmScene:
+    """bench_swarm.py's scene (BASELINE config 5, "1000-target swarm with
+    AIS priors"; bench_swarm.py:42-95): T = ``t_cap`` slots, L=16,
+    M = ``m_cap``, A = ``a_cap``, W=6, G=2, 64 prelims, 512 initiators,
+    the per-target pre-gate at Km = ``pregate`` (0: off); a 12 km radar,
+    P_d 0.9, lambda_phi 1.5e-6, N=4; min(``n_targets``, T - 16) seeded
+    targets over 85 % of the range, half with transponders, local clutter
+    0.2 per target, ``n_scans`` scans.  The defaults draw what the JAX
+    script draws, seed for seed; the messages are drawn either way, and
+    without ``use_ais`` none is handed over (``ais_groups`` is empty)."""
+    period, radar_range = 2.5, 12000.0
+    shapes = TrackerShapes(
+        max_targets=t_cap, max_leaves=16, max_meas=m_cap, max_ais=a_cap,
+        window=6, max_prelim=64, max_initiators=512, ais_per_leaf=2,
+        ais_prefilter_width=ais_prefilter, radar_cand_width=pregate)
+    params = TrackerParams(radar_period=period, P_d=0.9, lambda_phi=1.5e-6,
+                           lambda_nu=1e-6, N=4, radar_range=radar_range)
+    n_tgt = min(n_targets, t_cap - 16)
+    rng = np.random.default_rng(seed)
+    targets = sim.generate_initial_targets(
+        rng, n_tgt, (0.0, 0.0), radar_range * 0.85, 0.9, 0.1,
+        assign_mmsi=True, P_r=0.5)
+    sim_list = sim.simulate_targets(rng, targets, sim_time=n_scans * period,
+                                    dt=period)
+    scans = sim.simulate_scans(rng, sim_list, period, sigma_R=2.5,
+                               lambda_phi=1.5e-6, radar_range=radar_range,
+                               p0=(0.0, 0.0), lambda_local=0.2)
+    ais_groups = sim.simulate_ais(rng, sim_list, period,
+                                  init_time=sim_list[0][0].time)
+    F_inv = np.eye(4)
+    F_inv[0, 2] = F_inv[1, 3] = -period
+    return SwarmScene(shapes, params, scans[:n_scans],
+                      ais_groups if use_ais else [], sim_list,
+                      [F_inv @ t.state for t in targets],
+                      [t.mmsi for t in targets],
+                      np.array([t.state for t in targets], np.float32), rng)
+
+
+def saturation_scene(T_cap: int, beam: int = 16, pregate: int = 0,
+                     n_scans: int = 4):
+    """One point of bench_saturation.py's curve (bench_saturation.py:
+    53-75): T = ``T_cap`` slots, L = ``beam``, M = 2T, A=16, W=6, G=2, 64
+    prelims, 512 initiators, the pre-gate at min(``pregate``, 2T) (0:
+    off); a radar of 12 km x sqrt(T / 1024), so that the density of
+    targets and clutter stays that of the swarm scene; T - 16 targets
+    (seed 7) over 85 % of the range, local clutter 0.2 per target, no
+    transponders, ``n_scans`` scans.
+
+    Returns (shapes, params, scans, sim_list, seeds)."""
+    period = 2.5
+    radar_range = 12000.0 * float(np.sqrt(T_cap / 1024.0))
+    shapes = TrackerShapes(
+        max_targets=T_cap, max_leaves=beam, max_meas=2 * T_cap, max_ais=16,
+        window=6, max_prelim=64, max_initiators=512, ais_per_leaf=2,
+        radar_cand_width=min(pregate, 2 * T_cap) if pregate else 0)
+    params = TrackerParams(radar_period=period, P_d=0.9, lambda_phi=1.5e-6,
+                           lambda_nu=1e-6, N=4, radar_range=radar_range)
+    rng = np.random.default_rng(7)
+    targets = sim.generate_initial_targets(
+        rng, T_cap - 16, (0.0, 0.0), radar_range * 0.85, 0.9, 0.1)
+    sim_list = sim.simulate_targets(rng, targets, sim_time=n_scans * period,
+                                    dt=period)
+    scans = sim.simulate_scans(rng, sim_list, period, sigma_R=2.5,
+                               lambda_phi=1.5e-6, radar_range=radar_range,
+                               p0=(0.0, 0.0), lambda_local=0.2)
+    F_inv = np.eye(4)
+    F_inv[0, 2] = F_inv[1, 3] = -period
+    return (shapes, params, scans[:n_scans], sim_list,
+            [F_inv @ t.state for t in targets])
+
+
 def demo_scene(n_targets: int = 6, n_scans: int = 20, seed: int = 42,
                clutter: float = 2e-6):
     """examples/demo_tracking.py's scene at its defaults: T=32, L=32,
@@ -267,17 +360,19 @@ def _pick(tree, b):
     return type(tree)(*(f[b] for f in tree))
 
 
-def batch_scene(shapes, params, draws, device="cpu") -> BatchScene:
+def batch_scene(shapes, params, draws, device=None) -> BatchScene:
     """Stack ``draws``, each (scans, ais_groups, seeds, mmsi, sim_list)
     (``seeds=None``: no pre-initialisation, the initiator starts every
-    track), into a ``BatchScene`` on ``device``.  Every draw must have the
-    same number of scans."""
+    track), into a ``BatchScene`` on ``device`` (the GPU unless named).
+    Every draw must have the same number of scans."""
     import dataclasses
 
     import torch
 
     from ..core.grow import AisBatch, Scan
-    from ..core.tracker import Tracker
+    from ..core.tracker import Tracker, _resolve_device
+
+    device = _resolve_device(device, "batch_scene")
 
     period = params.radar_period
     M = shapes.max_meas
@@ -316,7 +411,7 @@ def batch_scene(shapes, params, draws, device="cpu") -> BatchScene:
                       origins)
 
 
-def bench_ais_batch(batch: int = 32, seed: int = 4321, device="cpu",
+def bench_ais_batch(batch: int = 32, seed: int = 4321, device=None,
                     **kw) -> BatchScene:
     """``batch`` draws of ``bench_scene_ais`` (T=128, L=32, M=512, A=32,
     G=2, W=7; ``kw`` passes its other arguments), draw b with seed
@@ -329,7 +424,7 @@ def bench_ais_batch(batch: int = 32, seed: int = 4321, device="cpu",
     return batch_scene(shapes, params, draws, device)
 
 
-def demo_batch(batch: int = 8, seed: int = 42, device="cpu",
+def demo_batch(batch: int = 8, seed: int = 42, device=None,
                **kw) -> BatchScene:
     """``batch`` draws of ``demo_scene`` (T=32, L=32, M=64, A=8, W=7, six
     targets with transponders; ``kw`` passes its other arguments), draw b

@@ -147,7 +147,8 @@ def _draw(kind, seed):
 @pytest.fixture(scope="module")
 def scene():
     return batch_scene(SHAPES, PARAMS, [_draw(k, 20 + i)
-                                        for i, k in enumerate(KINDS)])
+                                        for i, k in enumerate(KINDS)],
+                       device="cpu")
 
 
 def _shapes(km):

@@ -85,3 +85,51 @@ def test_filter_chain(seed):
         _close(tk.nllr(lam, torch.from_numpy(pd), pt[1], nis_t),
                jk.nllr(lam, pd, pj[1], nis_j), rtol=1e-4, atol=1e-3)
     _close(tk.nllr_missed(torch.from_numpy(pd)), jk.nllr_missed(pd))
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_filter_update_and_nllr_ais(seed):
+    """filter_update (one update per residual) and the AIS NLLR on the
+    same seeded predictions, 2x2 radar and 4x4 AIS innovations."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 50, (6, 5, 4)).astype(np.float32)
+    P = _spd(rng, (6, 5), 4)
+    z = rng.normal(0, 50, (7, 2)).astype(np.float32)
+    xb_j, Pb_j = jk.predict(jpv.Phi(2.5), jpv.Q(2.5), x, P)
+    xb_t, Pb_t = tk.predict(tpv.Phi(2.5), tpv.Q(2.5), torch.from_numpy(x),
+                            torch.from_numpy(P))
+    pj = jk.precalc(jpv.C_RADAR, jpv.R_RADAR(), xb_j, Pb_j)
+    pt = tk.precalc(tpv.C_RADAR("cpu"), tpv.R_RADAR("cpu"), xb_t, Pb_t)
+    zt_j = jk.residuals(z, pj[0])
+    zt_t = tk.residuals(torch.from_numpy(z), pt[0])
+    upd_t = tk.filter_update(xb_t, pt[3], zt_t)
+    assert upd_t.shape == (6, 5, 7, 4)
+    _close(upd_t, jk.filter_update(xb_j, pj[3], zt_j), rtol=1e-4, atol=1e-3)
+    _close(tk.nllr_ais(pt[1], tk.nis(zt_t, pt[2])),
+           jk.nllr_ais(pj[1], jk.nis(zt_j, pj[2])), rtol=1e-4, atol=1e-3)
+    # the AIS model's full-state innovation
+    a = rng.normal(0, 50, (3, 4)).astype(np.float32)
+    for hi in (True, False):
+        pja = jk.precalc(jais.C, jais.R(hi), xb_j, Pb_j)
+        pta = tk.precalc(tais.C("cpu"), tais.R(hi, "cpu"), xb_t, Pb_t)
+        nj = jk.nis(jk.residuals(a, pja[0]), pja[2])
+        nt = tk.nis(tk.residuals(torch.from_numpy(a), pta[0]), pta[2])
+        _close(tk.nllr_ais(pta[1], nt), jk.nllr_ais(pja[1], nj), rtol=1e-4,
+               atol=1e-3)
+        _close(tk.filter_update(xb_t, pta[3],
+                                tk.residuals(torch.from_numpy(a), pta[0])),
+               jk.filter_update(xb_j, pja[3], jk.residuals(a, pja[0])),
+               rtol=1e-4, atol=1e-3)
+
+
+def test_public_model_constants():
+    from pymht_tpu.models import constants as jc
+    from pymht_tpu_torch.models import constants as tc
+    for name in ("N_STATE", "N_OBS_RADAR", "N_OBS_AIS", "sigmaR_RADAR_true",
+                 "sigmaQ_true", "sigmaR_RADAR_tracker", "sigmaQ_tracker"):
+        assert getattr(tc, name) == getattr(jc, name), name
+    _close(tpv.H_radar("cpu"), jpv.H_radar, rtol=0, atol=0)
+    _close(tpv.GPS_COVARIANCE_PRECISE("cpu"), jpv.GPS_COVARIANCE_PRECISE,
+           rtol=0, atol=0)
+    _close(tais.C("cpu"), jais.C, rtol=0, atol=0)
+    _close(tais.Phi(2.5), jais.Phi(2.5), rtol=0, atol=0)

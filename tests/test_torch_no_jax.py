@@ -7,7 +7,10 @@ forest and smooths the tracks; then runs the default ``'ipm'`` and
 ``'lagrangian_pure'``, both exact oracles, a checkpoint round trip and
 the XML export; then draws a Monte-Carlo batch and tracks it with the
 batched step (parallel/), and steps a few scans through the target-sharded
-step on one gloo rank."""
+step on one gloo rank.  A second interpreter does the same for the
+modules and scripts of the last slice: the reference-decision oracle,
+plotting, the swarm and saturation benchmarks, the evaluation configs,
+the A/B and scaling scripts and both examples."""
 import os
 import subprocess
 import sys
@@ -182,5 +185,56 @@ def test_port_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", PROGRAM], cwd=REPO_ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+SCRIPTS_PROGRAM = r"""
+import sys
+sys.modules['jax'] = None
+sys.modules['pymht_tpu'] = None
+import os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pymht_tpu_torch.core.config import TrackerParams
+from pymht_tpu_torch.utils import plotting, scenes
+from pymht_tpu_torch.utils.ref_oracle import AisMsg, MetricsAdapter, RefOracle
+from pymht_tpu_torch.scripts import (ab_distributed_select, bench_saturation,
+                                     bench_scaling, bench_swarm, eval_configs)
+from pymht_tpu_torch.examples import demo_streaming_deployment, demo_tracking
+oracle = RefOracle(TrackerParams(radar_period=2.5), initiate=True)
+for k in range(4):
+    oracle.step(2.5 * (k + 1), np.array([[10.0 * k, 0.0], [0.0, 50.0]]),
+                [AisMsg(state=np.array([10.0 * k, 0.0, 4.0, 0.0]),
+                        time=2.5 * k + 1.0, mmsi=200000001)])
+assert oracle.sequences() is not None and MetricsAdapter(oracle) is not None
+os.environ.update(SWARM_ORACLE='0', SAT_POINTS='32', SAT_SCANS='2',
+                  SAT_REPS='1')
+bench_swarm.scene_of = lambda k: scenes.swarm_scene(12, 2, 1024, 16, t_cap=32)
+bench_swarm.main(['--device', 'cpu'])
+bench_saturation.main(['--device', 'cpu'])
+m = eval_configs.run_config('1_crossing', 2, 0.0, 1.0, 5, eval_configs.SMALL,
+                            radar_range=2000.0, device='cpu')
+assert m['n_tracked'] == 2
+with tempfile.TemporaryDirectory() as d:
+    demo_tracking.main(['--device', 'cpu', '--targets', '2', '--scans', '2',
+                        '--out', d, '--no-plot'])
+demo_streaming_deployment.main(['--device', 'cpu', '--targets', '4',
+                                '--scans', '2', '--chunk', '2'])
+loaded = sorted(m for m in sys.modules
+                if (m in ('jax', 'pymht_tpu')
+                    or m.startswith(('jax.', 'jaxlib', 'flax', 'pymht_tpu.')))
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print('ok')
+"""
+
+
+def test_scripts_and_examples_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    res = subprocess.run([sys.executable, "-c", SCRIPTS_PROGRAM],
+                         cwd=REPO_ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")

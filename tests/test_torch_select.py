@@ -147,3 +147,66 @@ def test_select_refuses_unported_methods(forests):
             <= 1e-3 * (1.0 + abs(float(want.obj)))
     with pytest.raises(ValueError):
         tsel.select(tst, TSHAPES, TPARAMS, method="simplex")
+
+
+def test_target_usage_matches_jax(forests):
+    for jst in forests:
+        tst = state_from_numpy(_np_fields(jst), "cpu")
+        use_t, n_t = tsel.target_usage(tst, TSHAPES)
+        use_j, n_j = jsel.target_usage(jst, SHAPES)
+        assert n_t == n_j == SHAPES.window * (SHAPES.max_meas
+                                              + SHAPES.max_ais)
+        np.testing.assert_array_equal(use_t.numpy(), np.asarray(use_j))
+
+
+def _compact_inputs(tst):
+    """The compact Lagrangian's inputs over every live target of the
+    port's forest (the distributed select's tier 3), as torch tensors."""
+    tm = tst.tgt_mask
+    usage = tsel._hist_usage(tst, TSHAPES)
+    Uc, col_slot, col_ok, _, eff_leaf = tsel._contested_leaf_usage(
+        tst, TSHAPES, tm, 256, usage)
+    lam0 = torch.zeros(Uc.shape[-1])
+    return (tsel.leaf_scores(tst, TPARAMS), Uc, lam0, tst.spine_leaf, tm,
+            eff_leaf)
+
+
+@pytest.mark.parametrize("iters", [3, 12])
+def test_forced_iterations_match_jax(forests, iters, monkeypatch):
+    """``force_iters=True`` runs exactly ``iters`` bodies (no convergence
+    or patience exit), as JAX's forced ``cond``; the result equals JAX's
+    forced loop on the same inputs.  Without it the production exits
+    stop the loop earlier on some forest."""
+    bodies, real = [], tsel._lagrangian_step
+
+    def counting(*a, **kw):
+        bodies.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tsel, "_lagrangian_step", counting)
+    early = 0
+    for jst in forests:
+        tst = state_from_numpy(_np_fields(jst), "cpu")
+        args = _compact_inputs(tst)
+        bodies.clear()
+        out_t = tsel._compact_lagrangian(*args, 0.0, iters=iters,
+                                         force_iters=True)
+        assert len(bodies) == iters
+        out_j = jsel._compact_lagrangian(
+            *(jnp.asarray(a.numpy()) for a in args), 0.0, iters=iters,
+            force_iters=True)
+        sel_t, feas_t, obj_t, lb_t, lam_t = out_t
+        sel_j, feas_j, obj_j, lb_j, lam_j = jax.device_get(out_j)
+        assert bool(feas_t) == bool(feas_j)
+        if not np.array_equal(sel_t.numpy(), np.asarray(sel_j)):
+            assert bool(feas_t)
+        np.testing.assert_allclose(float(obj_t), float(obj_j), rtol=1e-4,
+                                   atol=1e-3)
+        np.testing.assert_allclose(float(lb_t), float(lb_j), rtol=1e-4,
+                                   atol=1e-3)
+        np.testing.assert_allclose(lam_t.numpy(), np.asarray(lam_j),
+                                   rtol=1e-4, atol=1e-3)
+        bodies.clear()
+        tsel._compact_lagrangian(*args, 0.0, iters=iters)
+        early += len(bodies) < iters
+    assert early >= 1

@@ -476,3 +476,174 @@ def test_integrity_check_equal(fault):
         tintegrity.check_state_integrity(tr)
     with pytest.raises(AssertionError):
         tr.checkIntegrity()
+
+
+# ----------------------------------------------------------------------
+# utils/ref_oracle.py and utils/plotting.py
+# ----------------------------------------------------------------------
+
+def _eval_scene(sim_mod, n_targets, clutter, use_ais, seed=7, n_scans=10):
+    """eval_configs.build_scene's draws (config 2, and config 5 with
+    AIS) at 10 scans."""
+    period, radar_range = 2.5, 1000.0 if not use_ais else 1500.0
+    rng = np.random.default_rng(seed)
+    targets = sim_mod.generate_initial_targets(
+        rng, n_targets, (0., 0.), radar_range * 0.6, 0.9, 0.1,
+        assign_mmsi=use_ais)
+    sim_list = sim_mod.simulate_targets(rng, targets,
+                                        sim_time=n_scans * period, dt=period)
+    scans = sim_mod.simulate_scans(rng, sim_list, period, sigma_R=2.5,
+                                   lambda_phi=clutter,
+                                   radar_range=radar_range, p0=(0., 0.),
+                                   P_d=0.9)
+    groups = (sim_mod.simulate_ais(rng, sim_list, period,
+                                   sim_list[0][0].time) if use_ais else [])
+    return sim_list, scans, groups
+
+
+def _oracle_run(mod, config, scans, groups):
+    """RefOracle with initiation and termination over the scans, its AIS
+    messages those of the elapsed period."""
+    oracle = mod.RefOracle(config.TrackerParams(
+        radar_period=2.5, P_d=0.9, lambda_phi=2e-6, lambda_nu=1e-5, N=4,
+        radar_range=1500.0), initiate=True, terminate=True)
+    stream = jais_io.AisMessageStream(groups)
+    rows = []
+    for s in scans:
+        msgs = [mod.AisMsg(state=np.asarray(g.state, float),
+                           time=float(g.time), mmsi=int(g.mmsi),
+                           high_accuracy=bool(g.highAccuracy))
+                for g in stream.get_measurements(s.time)
+                if s.time - 2.5 < g.time < s.time]
+        oracle.step(s.time, s.measurements, msgs)
+        rows.append((oracle.selected(), oracle.objective()))
+    return oracle, rows
+
+
+@pytest.mark.parametrize("n_targets,clutter,use_ais",
+                         [(10, 2e-6, False), (8, 1e-6, True)],
+                         ids=["clutter", "ais"])
+def test_ref_oracle_equal(n_targets, clutter, use_ais):
+    """The port's reference-decision oracle (its own copy, on the port's
+    model matrices) makes the JAX package's decisions on the same scenes,
+    to the bit: selections, objectives, confirm and kill events, the
+    archived sequences and the metrics read through MetricsAdapter."""
+    from pymht_tpu.utils import ref_oracle as jref
+    from pymht_tpu_torch.utils import ref_oracle as tref
+    sim_list, scans, groups = _eval_scene(tsim, n_targets, clutter, use_ais)
+    oj, rows_j = _oracle_run(jref, jconfig, scans, groups)
+    ot, rows_t = _oracle_run(tref, tconfig, scans, groups)
+    assert len(rows_t) == len(rows_j) == len(scans)
+    for (sel_t, obj_t), (sel_j, obj_j) in zip(rows_t, rows_j):
+        assert obj_t == obj_j
+        assert len(sel_t) == len(sel_j)
+        for a, b in zip(sel_t, sel_j):
+            assert [x for x in a if not isinstance(x, np.ndarray)] == \
+                [x for x in b if not isinstance(x, np.ndarray)]
+            for x, y in zip(a, b):
+                if isinstance(x, np.ndarray):
+                    np.testing.assert_array_equal(x, y)
+    assert [e[:3] for e in ot.events] == [e[:3] for e in oj.events]
+    assert any(e[0] == "confirm" for e in ot.events)
+    mj = jmetrics.evaluate(jref.MetricsAdapter(oj), sim_list, 2.5,
+                           p0=(0., 0.), radar_range=1500.0)
+    mt = tmetrics.evaluate(tref.MetricsAdapter(ot), sim_list, 2.5,
+                           p0=(0., 0.), radar_range=1500.0)
+    assert mt == mj and mt["track_percent"] > 0.3
+    if use_ais:
+        assert any(mm for sel, _ in rows_t for _t, _m, mm, *_ in sel)
+
+
+def test_ref_oracle_source_differs_only_in_the_model_matrices():
+    """utils/ref_oracle.py: the JAX package's file below its docstring,
+    but for the lines that take the model matrices (f32 torch tensors on
+    the CPU, as float64 numpy)."""
+    import difflib
+    path = "utils/ref_oracle.py"
+
+    def code(root):
+        text = (REPO_ROOT / root / path).read_text()
+        return text[text.index("from __future__"):].splitlines()
+
+    changed = [l for l in difflib.unified_diff(
+        code("pymht_tpu"), code("pymht_tpu_torch"), lineterm="", n=0)
+        if l[:1] in "+-" and l[:3] not in ("+++", "---")]
+    assert 0 < len(changed) <= 60, changed
+    assert all("pv." in l or "ais_model." in l or "_f64" in l
+               or "_CPU" in l or "torch" in l or "else pv" in l
+               or "numpy" in l or not l[1:].strip()
+               or l[1:].strip().startswith("#")
+               for l in changed), changed
+
+
+class _Msg:
+    state = np.array([5.0, 6.0, 0.0, 0.0])
+
+
+def _line_data(ax):
+    return [np.asarray(line.get_xydata()) for line in ax.get_lines()]
+
+
+def test_plotting_draws_what_the_jax_package_draws():
+    """The eleven plot_* functions of the port on a port Tracker draw the
+    lines, texts and ellipses that the JAX package's draw on a JAX
+    Tracker stepped through the same scans (positions within 1e-3 m)."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from pymht_tpu import Tracker as JTracker
+    from pymht_tpu.utils import plotting as jplot
+    from pymht_tpu_torch import Tracker as TTracker
+    from pymht_tpu_torch.utils import plotting as tplot
+    rng = np.random.default_rng(4)
+    targets = tsim.generate_initial_targets(rng, 3, (0., 0.), 300.0, 0.9,
+                                            0.1)
+    sim_list = tsim.simulate_targets(rng, targets, sim_time=6 * 2.5, dt=2.5)
+    scans = tsim.simulate_scans(rng, sim_list, 2.5, sigma_R=2.0,
+                                lambda_phi=0.0, radar_range=500.0,
+                                p0=(0., 0.), local_clutter=False,
+                                global_clutter=False)
+    kw = dict(max_targets=8, max_leaves=16, max_meas=16, max_ais=2,
+              window=6, max_prelim=8, max_initiators=16)
+    pk = dict(radar_period=2.5, P_d=0.9, lambda_phi=1e-8, lambda_nu=1e-6,
+              radar_range=500.0)
+    trj = JTracker(jconfig.TrackerShapes(**kw), jconfig.TrackerParams(**pk),
+                   method="lagrangian", use_ais=False)
+    trt = TTracker(tconfig.TrackerShapes(**kw), tconfig.TrackerParams(**pk),
+                   method="lagrangian", use_ais=False, device="cpu")
+    for s in scans:
+        trj.add_measurement_list(s.time, s.measurements)
+        trt.add_measurement_list(s.time, s.measurements)
+    axes = []
+    for mod, tr in ((jplot, trj), (tplot, trt)):
+        fig, ax = plt.subplots()
+        mod.plot_ground_truth(ax, sim_list)
+        mod.plot_measurements(ax, scans)
+        mod.plot_tracks(ax, tr, smooth=True)
+        mod.plot_validation_regions(ax, tr)
+        mod.plot_velocity_arrows(ax, tr)
+        mod.plot_hypotheses(ax, tr)
+        mod.plot_terminated_tracks(ax, tr)
+        mod.plot_ais_updates(ax, [[_Msg()]])
+        mod.plot_initial_targets(ax, [t.state for t in targets])
+        mod.plot_track(ax, [0.0, 2.5], [[0., 0., 1., 1.], [2.5, 2.5, 1., 1.]],
+                       track_id=7, terminated=True)
+        mod.plot_validation_ellipse(ax, np.zeros(2), np.eye(2) * 4.0, 9.0)
+        axes.append(ax)
+    (aj, at) = axes
+    lj, lt = _line_data(aj), _line_data(at)
+    assert len(lt) == len(lj) and len(lt) > 20
+    for a, b in zip(lt, lj):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
+    assert [t.get_text() for t in at.texts] == [t.get_text()
+                                                 for t in aj.texts]
+    def patches(ax):       # ellipses and arrows, in data coordinates
+        return [(type(p).__name__, p.get_patch_transform().transform(
+            p.get_path().vertices)) for p in ax.patches]
+
+    pj, pt = patches(aj), patches(at)
+    assert [n for n, _ in pt] == [n for n, _ in pj]
+    assert sum(n == "Ellipse" for n, _ in pt) >= 3
+    for (_, a), (_, b) in zip(pt, pj):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3)
+    plt.close("all")
