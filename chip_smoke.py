@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # from the root of the repository
     python3 chip_smoke.py --k1-guard   # phases 1-3 only
+    python3 chip_smoke.py --k1-ab OLD/gate_score.cu [OUT.json]  # 1-3, a/b
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -19,11 +20,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    exceed the L2), one wrapper call, the twin, and the kernel's bound
    (its input and output bytes over the card's published 3.35 TB/s).
    The same for K1's per-target entry point (the spatial pre-gate's
-   ``z_sub [T, Km, 2]``) at T=128, L=32, Km=64 and at edge shapes.
+   ``z_sub [T, Km, 2]``) at T=128, L=32, Km=64 and at edge shapes
+   (K1_SUB_CASES: tiles across targets, a time step per target, odd Km,
+   a ragged last tile, one target per scenario on a flat [B * M] axis,
+   views off 16-byte boundaries, a plane too wide to stage); then that
+   entry point alone at its six timed shapes (the bench, swarm, mc,
+   mc-ipm, mc-pregate and mc-bench shapes), hot and flushed, against its
+   bound, with the start-up of an empty launch at each shape's tile plan.
    Then K1 inside guard bands (``guard_check``) at every one of those
    shapes, the swarm's and the saturation points': each of
    K1_GUARD_REPS launches bit for bit an unguarded call's, every band
    untouched (the card runs no sanitizer); ``--k1-guard`` stops here;
+   ``--k1-ab OLD`` first times the per-target entry point of the source
+   file OLD (an earlier gate_score.cu, built beside this one) against
+   this tree's and its plan variants at the six shapes, in turns, and
+   writes them to OUT.json if named;
 4. slice: bench.py's seeded 100-target scene (T=128, L=32, M=512, W=7)
    stepped through ``Tracker(method='lagrangian', use_ais=False)`` on the
    card, with K1's launch count read around that run, then the same
@@ -290,12 +301,16 @@ def k1_inputs(seed, N, M, device, zmask_all=None, mask_all=None):
                                   z, zmask)]
 
 
-def k1_sub_inputs(seed, T, L, Km, M, device, mask_targets=False):
+def k1_sub_inputs(seed, T, L, Km, M, device, mask_targets=False,
+                  dt=None):
     """A forest for K1's per-target entry point: the L leaves of a target
     lie within metres of each other, each target has a measurement where
     it will be, and its Km nearest valid measurements (grow's pre-gate)
     make ``z_sub``, ``zmask_sub`` and ``zidx``; with ``mask_targets``
-    every third target has all its columns masked."""
+    every third target has all its columns masked.  ``dt`` [T] (numpy):
+    each target's own time step, its measurement placed where that step
+    takes it (a target moves ~300 m/s, so a row that read a neighbour's
+    step would miss its gate); by default 2.5 s for all."""
     import torch
     rng = np.random.default_rng(seed)
     N = T * L
@@ -308,7 +323,8 @@ def k1_sub_inputs(seed, T, L, Km, M, device, mask_targets=False):
     mask = rng.uniform(size=N) < 0.9
     z = rng.normal(0, 300, (M, 2)).astype(np.float32)
     k = min(M, T)
-    pred = xt[:, 0, :2] + 2.5 * xt[:, 0, 2:]
+    step = 2.5 if dt is None else np.asarray(dt)[:, None]
+    pred = xt[:, 0, :2] + step * xt[:, 0, 2:]
     z[:k] = pred[:k] + rng.normal(0, 2, (k, 2))
     zmask = rng.uniform(size=M) < 0.95
     d2 = ((z[None] - pred[:, None]) ** 2).sum(-1)
@@ -324,6 +340,69 @@ def k1_sub_inputs(seed, T, L, Km, M, device, mask_targets=False):
     inp = [dev(a) for a in (x, P, cnllr, pd, mask, z, zmask)]
     return inp, dict(z_sub=dev(z[zidx]), zmask_sub=dev(zmask_sub),
                      zidx=dev(zidx.astype(np.int32)), leaves_per_target=L)
+
+
+def misaligned(t, shift):
+    """A copy of ``t`` whose data starts ``shift`` bytes past a 16-byte
+    boundary (``shift`` a multiple of its element size)."""
+    import torch
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + 32, dtype=torch.uint8, device=t.device)
+    at = (-buf.data_ptr()) % 16 + shift
+    v = buf[at:at + nbytes].view(t.dtype).view(t.shape)
+    v.copy_(t)
+    return v
+
+
+# bytes past a 16-byte boundary of each input of the unaligned case
+K1_SHIFTS = dict(x=4, P=4, cnllr=4, pd=8, mask=1, z=8, zmask=1, z_sub=8,
+                 zmask_sub=3, zidx=4, dt=4)
+K1_INPUTS = ("x", "P", "cnllr", "pd", "mask", "z", "zmask")
+
+
+def k1_sub_case(i, case, device):
+    """The inputs of case ``i`` of K1_SUB_CASES: (the seven tensors, dt,
+    the per-target arguments)."""
+    import torch
+    _, T, L, Km, M, opts = case
+    if opts.get("batch"):       # one target per scenario, zidx on [T * M]
+        inp, dt, sub = k1_batch_inputs(i, T, L, M, device)
+    else:
+        steps = 1.0 + 0.75 * (np.arange(T) % 4) if opts.get("dt") else None
+        inp, sub = k1_sub_inputs(i, T, L, Km, M, device,
+                                 opts.get("masked", False), steps)
+        dt = (torch.full((), 2.5, device=device) if steps is None else
+              torch.tensor(steps, dtype=torch.float32, device=device))
+    if opts.get("unaligned"):
+        inp = [misaligned(t, K1_SHIFTS[k]) for k, t in zip(K1_INPUTS, inp)]
+        sub = {k: misaligned(v, K1_SHIFTS[k]) if hasattr(v, "data_ptr")
+               else v for k, v in sub.items()}
+        dt = misaligned(dt, K1_SHIFTS["dt"])
+    return inp, dt, sub
+
+
+def burst_ms(launch_one, outs, launches=200, reps=7):
+    """Device time of one launch: ``launches`` back-to-back calls of
+    ``launch_one(outs[i % len(outs)])`` between two events, queued behind
+    a device spin, over their count (median of ``reps``)."""
+    import torch
+
+    def burst():
+        for i in range(launches):
+            launch_one(outs[i % len(outs)])
+
+    burst()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        burst()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
 
 
 def median_ms(fn, reps=30, warmup=3):
@@ -349,36 +428,27 @@ def median_ms(fn, reps=30, warmup=3):
 
 
 def kernel_alone_ms(gk, inp, dt, scalars, n_sets, launches=200, reps=7,
-                    sub=None):
-    """Device time of one K1 launch: ``launches`` back-to-back launches
-    between two events, queued behind the device spin, over their count
-    (a single 3-7 us launch between events measures the events).  The
-    launches rotate over ``n_sets`` sets of output buffers: one set keeps
-    the 8.4 MB plane hot in the 50 MB L2, eight sets (76 MB) make every
-    launch write lines that the L2 does not hold.  ``sub``: the
-    per-target arguments, for that entry point."""
-    import torch
+                    sub=None, plan=None):
+    """Device time of one K1 launch (``burst_ms``: a single 3-7 us launch
+    between events measures the events).  The launches rotate over
+    ``n_sets`` sets of output buffers: one set keeps the 8.4 MB plane hot
+    in the 50 MB L2, eight sets (76 MB) make every launch write lines that
+    the L2 does not hold.  ``sub``: the per-target arguments, for that
+    entry point, and ``plan`` its tile plan (by default the wrapper's)."""
     N, M = inp[0].shape[0], inp[5].shape[0]
-    sub = sub or {}
+    sub = dict(sub or {})
     Km = sub["z_sub"].shape[1] if sub else None
+    if plan is not None:
+        sub["plan"] = plan
     outs = [gk.empty_outputs(N, M, "cuda", Km=Km) for _ in range(n_sets)]
+    return burst_ms(lambda o: gk.launch(o, *inp, dt, *scalars, **sub), outs,
+                    launches, reps)
 
-    def burst():
-        for i in range(launches):
-            gk.launch(outs[i % n_sets], *inp, dt, *scalars, **sub)
 
-    burst()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
-        a.record()
-        burst()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / launches)
-    return float(np.median(times))
+def startup_ms(gk, plan):
+    """Device time of an empty launch at ``plan``'s grid, block and shared
+    memory: the floor under the per-target kernel's time."""
+    return burst_ms(lambda _: gk.launch_startup(plan), [None])
 
 
 def k1_bound(N, M):
@@ -507,16 +577,84 @@ K1_CASES = [("bench", 4096, 512, {}), ("half beam", 2048, 512, {}),
             ("one measurement", 4096, 1, {}),
             ("measurements masked", 4096, 512, {"zmask_all": False}),
             ("leaves masked", 4096, 512, {"mask_all": False})]
-# (name, T, L, Km, M, targets masked) of the per-target entry point: bench
-# leaves, a tile smaller than the kernel's 16 rows, a ragged L, targets
-# with every column masked, one column, and more columns than a block has
-# threads
-K1_SUB_CASES = [("per target, bench", 128, 32, 64, 512, False),
-                ("per target, L=8", 16, 8, 8, 32, False),
-                ("per target, ragged L=20", 12, 20, 16, 48, False),
-                ("per target, targets masked", 128, 32, 64, 512, True),
-                ("per target, Km=1", 9, 5, 1, 17, False),
-                ("per target, Km=300", 3, 33, 300, 512, False)]
+# (name, T, L, Km, M, options) of the per-target entry point: bench
+# leaves, fewer leaves than a tile, a ragged L, targets with every column
+# masked, one column, more columns than a block has threads; then the
+# redesign's edges (design point 6 of csrc/gate_score.cu): tiles that
+# cross target boundaries (L = 1, 5, 33), a time step per target
+# (dt_step = 1; a row that read its neighbour's dt or columns would leave
+# its gate), odd Km and Km = 1 (zmask_sub's tiles off 16-byte
+# boundaries), a ragged last tile (N = 111 against R = 16), one target
+# per scenario at L = 4096, Km = 512 with zidx on a flat [B * M] axis,
+# every input a view off a 16-byte boundary (K1_SHIFTS), and a plane tile
+# too wide to stage (Km = 4000).  Options: "masked" (every third target's
+# columns), "dt" (one step per target), "batch" (k1_batch_inputs: T
+# scenarios, Km = M), "unaligned".
+K1_SUB_CASES = [("per target, bench", 128, 32, 64, 512, {}),
+                ("per target, L=8", 16, 8, 8, 32, {}),
+                ("per target, ragged L=20", 12, 20, 16, 48, {}),
+                ("per target, targets masked", 128, 32, 64, 512,
+                 {"masked": True}),
+                ("per target, Km=1", 9, 5, 1, 17, {}),
+                ("per target, Km=300", 3, 33, 300, 512, {}),
+                ("per target, L=1", 300, 1, 64, 512, {}),
+                ("per target, L=5", 77, 5, 64, 512, {}),
+                ("per target, L=33", 40, 33, 64, 512, {}),
+                ("per target, dt per target", 64, 5, 16, 256, {"dt": True}),
+                ("per target, L=1, dt per target", 200, 1, 28, 256,
+                 {"dt": True}),
+                ("per target, odd Km=15", 50, 7, 15, 128, {}),
+                ("per target, Km=1, L=1", 100, 1, 1, 64, {}),
+                ("per target, ragged last tile", 37, 3, 512, 600, {}),
+                ("per target, one per scenario, L=4096", 3, 4096, 512, 512,
+                 {"batch": True}),
+                ("per target, unaligned views", 20, 16, 33, 96,
+                 {"unaligned": True}),
+                ("per target, plane not staged", 2, 16, 4000, 4096, {})]
+
+
+def k1_sub_shapes():
+    """The per-target entry point's six timed shapes (PERF.md, Findings):
+    (name, a function giving (inputs, dt, per-target arguments), the
+    bound's (T, L, Km, M, time steps))."""
+    import torch
+
+    def one_step(T, L, Km, M, seed):
+        inp, sub = k1_sub_inputs(seed, T, L, Km, M, "cuda")
+        return inp, torch.full((), 2.5, device="cuda"), sub
+
+    return [
+        ("per target, bench", lambda: one_step(128, 32, 64, 512, 0),
+         (128, 32, 64, 512, 1)),
+        ("swarm", lambda: one_step(1024, 16, 64, 2048, 31),
+         (1024, 16, 64, 2048, 1)),
+        ("mc", lambda: k1_batch_inputs(17, MC_BATCH, 128, 28, "cuda"),
+         (MC_BATCH, 128, 28, MC_BATCH * 28, MC_BATCH)),
+        ("mc-ipm", lambda: k1_batch_inputs(17, MC_IPM_BATCH, 1024, 64,
+                                           "cuda"),
+         (MC_IPM_BATCH, 1024, 64, MC_IPM_BATCH * 64, MC_IPM_BATCH)),
+        ("mc-pregate", lambda: k1_pregate_batch_inputs(
+            17, MC_PREGATE_BATCH, 128, 32, 512, 64, "cuda"),
+         (MC_PREGATE_BATCH * 128, 32, 64, MC_PREGATE_BATCH * 512,
+          MC_PREGATE_BATCH * 128)),
+        ("mc-bench", lambda: k1_batch_inputs(17, MC_BENCH_BATCH, 4096, 512,
+                                             "cuda"),
+         (MC_BENCH_BATCH, 4096, 512, MC_BENCH_BATCH * 512, MC_BENCH_BATCH))]
+
+
+def sub_shape_times(gk, inp, dt, sub, plan=None):
+    """The per-target kernel alone at one shape, hot and flushed, on
+    ``plan`` (by default the wrapper's), and the empty launch at that
+    plan's grid, block and shared memory."""
+    N = inp[0].shape[0]
+    T, Km = sub["z_sub"].shape[:2]
+    plan = plan or gk.card_plan(0, T, N // T, Km)
+    scalars = tuple(K1_ARGS.values())
+    return dict(kernel_ms=kernel_alone_ms(gk, inp, dt, scalars, 1, sub=sub,
+                                          plan=plan),
+                kernel_flushed_ms=kernel_alone_ms(gk, inp, dt, scalars, 8,
+                                                  sub=sub, plan=plan),
+                startup_ms=startup_ms(gk, plan), plan=plan._asdict())
 
 
 def kernel_phase():
@@ -544,10 +682,11 @@ def kernel_phase():
                        **kernel_times(gk, inp, dt, args), **k1_bound(N, M))
 
     res_sub = {}
-    for i, (name, T, L, Km, M, masked) in enumerate(K1_SUB_CASES):
-        inp, sub = k1_sub_inputs(i, T, L, Km, M, "cuda", masked)
+    for i, case in enumerate(K1_SUB_CASES):
+        name, T, L, Km, M, _ = case
+        inp, dt_i, sub = k1_sub_case(i, case, "cuda")
         n0 = gk.launches_pregate
-        err, g_r = check_against_twin(gk, name, inp, dt, args, sub)
+        err, g_r = check_against_twin(gk, name, inp, dt_i, args, sub)
         check(gk.launches_pregate == n0 + 1,
               f"K1 {name}: the per-target entry point was not launched")
         check(bool(g_r[:, 1:].any()), f"K1 {name}: nothing gated")
@@ -558,7 +697,178 @@ def kernel_phase():
                            **kernel_times(gk, inp, dt, args, sub),
                            **k1_sub_bound(T, L, Km, M))
     res["max_err_all"] = err_all
+
+    # the per-target entry point at its six timed shapes
+    timed = []
+    for name, make, shape in k1_sub_shapes():
+        inp, dt_s, sub = make()
+        r = dict(shape=name, **sub_shape_times(gk, inp, dt_s, sub),
+                 **k1_sub_bound(*shape[:4], n_dt=shape[4]))
+        timed.append(r)
+        print(f"K1 per target at {name} (T={shape[0]}, L={shape[1]}, "
+              f"Km={shape[2]}), device time, {card_line()}: kernel alone "
+              f"{1e3 * r['kernel_ms']:.3f} us hot, "
+              f"{1e3 * r['kernel_flushed_ms']:.3f} us flushed; bound "
+              f"{1e3 * r['bound_ms']:.3f} us ({r['bytes']} bytes, by "
+              f"{r['bound_by']}): {r['bound_ms'] / r['kernel_ms']:.3f} of it "
+              f"hot, {r['bound_ms'] / r['kernel_flushed_ms']:.3f} flushed; "
+              f"start-up (an empty launch at the plan's grid, block and "
+              f"shared memory) {1e3 * r['startup_ms']:.3f} us; plan "
+              f"{r['plan']}", flush=True)
+        del inp, sub
+    res_sub["timed"] = timed
     return res, res_sub, res_half
+
+
+# ----------------------------------------------------------------------
+# K1's per-target entry point against an earlier version of its source
+# ----------------------------------------------------------------------
+
+K1_AB_ROWS = (16, 32, 64, 128)    # tile rows of the plan variants timed
+
+
+def k1_ab_variants(plan0):
+    """The plan variants ``k1_ab_phase`` times at a shape whose default
+    plan is ``plan0``: every rows with a block per tile and with the
+    persistent two-stage ring, at 128 and 256 threads, the plane staged
+    or not as the default; and the default plan with the plane's staging
+    the other way (bulk copy from shared memory, or direct stores)."""
+    st = plan0["staged"]
+    return ([dict(rows=R, stages=S, threads=th, staged=st)
+             for th in (128, 256) for R in K1_AB_ROWS for S in (1, 2)]
+            + [dict(rows=plan0["rows"], stages=plan0["stages"],
+                    threads=plan0["threads"], staged=not st)])
+
+
+def parent_sub_launcher(src):
+    """The per-target entry point of an earlier ``gate_score.cu`` (``src``;
+    its C signature before tile plans), built with the same flags: a
+    function ``(out, inp, dt, sub)`` that launches it like ``gk.launch``."""
+    import ctypes
+    import torch
+    from pymht_tpu_torch.kernels import build
+    lib = ctypes.CDLL(str(build.build("gate_score_parent", src=src)))
+    f = lib.gate_score_sub_launch
+    ptr, f32, i32 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    f.argtypes = [ptr] * 9 + [f32] * 4 + [ptr] * 7 + [i32] * 5 + [ptr]
+    f.restype = i32
+    a = K1_ARGS
+
+    def launch(out, inp, dt, sub):
+        z_sub = sub["z_sub"]
+        T, Km = z_sub.shape[:2]
+        err = f(*(t.data_ptr() for t in inp[:5]), z_sub.data_ptr(),
+                sub["zmask_sub"].data_ptr(), sub["zidx"].data_ptr(),
+                dt.data_ptr(), a["q_scale"], a["r_var"], a["eta2"],
+                math.log(a["lambda_ex"]), *(t.data_ptr() for t in out), T,
+                sub["leaves_per_target"], Km, inp[5].shape[0],
+                dt.stride(0) if dt.dim() == 1 else 0,
+                torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the parent's per-target kernel: CUDA error {err}")
+
+    return launch
+
+
+def same_outputs(a, b):
+    """Seven outputs bit for bit equal."""
+    import torch
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def k1_ab_phase(parent_src, card, out_json=None):
+    """The per-target entry point of this tree against ``parent_src``'s at
+    the six timed shapes, in turns (parent, this tree, its plan variants,
+    this tree, parent): kernel alone hot and flushed, the start-up of this
+    tree's plan, each variant's outputs bit for bit the default plan's and
+    the parent's gating, counts and used mask equal to this tree's.
+    Writes the numbers to ``out_json`` if given."""
+    import os
+    import torch
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    parent = parent_sub_launcher(parent_src)
+    scalars = tuple(K1_ARGS.values())
+    rows = []
+    for name, make, shape in k1_sub_shapes():
+        inp, dt, sub = make()
+        N, M = inp[0].shape[0], inp[5].shape[0]
+        T, Km = sub["z_sub"].shape[:2]
+        L = N // T
+        bound = k1_sub_bound(*shape[:4], n_dt=shape[4])
+        new = gk.radar_candidates(*inp, dt, **K1_ARGS, **sub)
+        outs = [gk.empty_outputs(N, M, "cuda", Km=Km) for _ in range(8)]
+        parent(outs[0], inp, dt, sub)
+        torch.cuda.synchronize()
+        g_p, g_n = outs[0].scores < gk.BIG / 2, new.scores < gk.BIG / 2
+        check(torch.equal(g_p, g_n)
+              and torch.equal(outs[0].gated_counts, new.gated_counts)
+              and torch.equal(outs[0].used_meas, new.used_meas),
+              f"K1 a/b {name}: the parent's gating differs from this tree's")
+        diff = max(float((u - v).abs().max()) for u, v in
+                   zip((outs[0].scores[g_n], *outs[0][1:5]),
+                       (new.scores[g_n], *new[1:5])))
+
+        def par(o):
+            parent(o, inp, dt, sub)
+
+        r = dict(shape=name, bound_ms=bound["bound_ms"], max_diff=diff,
+                 parent_ms=[burst_ms(par, outs[:1])],
+                 parent_flushed_ms=[burst_ms(par, outs)])
+        first = sub_shape_times(gk, inp, dt, sub)
+        variants = []
+        for kw in k1_ab_variants(first["plan"]):
+            plan = gk.card_plan(0, T, L, Km, **kw)
+            if (plan.rows, plan.stages, plan.staged) != (
+                    kw["rows"], kw["stages"], kw["staged"]):
+                continue                 # does not fit, or R above N
+            out = gk.empty_outputs(N, M, "cuda", Km=Km)
+            gk.launch(out, *inp, dt, *scalars, **sub, plan=plan)
+            torch.cuda.synchronize()
+            check(same_outputs(out, new),
+                  f"K1 a/b {name}: plan {plan} differs from the default "
+                  f"plan's outputs")
+            variants.append(dict(
+                plan._asdict(),
+                kernel_ms=kernel_alone_ms(gk, inp, dt, scalars, 1, sub=sub,
+                                          plan=plan),
+                kernel_flushed_ms=kernel_alone_ms(gk, inp, dt, scalars, 8,
+                                                  sub=sub, plan=plan)))
+        second = sub_shape_times(gk, inp, dt, sub)
+        r["parent_ms"].append(burst_ms(par, outs[:1]))
+        r["parent_flushed_ms"].append(burst_ms(par, outs))
+        r.update(plan=first["plan"],
+                 kernel_ms=[first["kernel_ms"], second["kernel_ms"]],
+                 kernel_flushed_ms=[first["kernel_flushed_ms"],
+                                    second["kernel_flushed_ms"]],
+                 startup_ms=[first["startup_ms"], second["startup_ms"]],
+                 variants=variants)
+        rows.append(r)
+        b = r["bound_ms"]
+        print(f"K1 a/b at {name}, {card}: parent "
+              f"{', '.join(f'{1e3 * t:.3f}' for t in r['parent_ms'])} us hot "
+              f"({', '.join(f'{b / t:.3f}' for t in r['parent_ms'])} of "
+              f"{1e3 * b:.3f} us), "
+              f"{', '.join(f'{1e3 * t:.3f}' for t in r['parent_flushed_ms'])}"
+              f" flushed; this tree "
+              f"{', '.join(f'{1e3 * t:.3f}' for t in r['kernel_ms'])} us hot "
+              f"({', '.join(f'{b / t:.3f}' for t in r['kernel_ms'])}), "
+              f"{', '.join(f'{1e3 * t:.3f}' for t in r['kernel_flushed_ms'])}"
+              f" flushed, start-up "
+              f"{', '.join(f'{1e3 * t:.3f}' for t in r['startup_ms'])} us; "
+              f"max |parent - this| {diff:.3g}", flush=True)
+        for v in variants:
+            print(f"    rows {v['rows']:3d} stages {v['stages']} threads "
+                  f"{v['threads']:3d} staged {v['staged']:d} "
+                  f"cols 2^{v['cols_log2']} "
+                  f"grid {v['grid']:5d} smem {v['smem']:6d}: "
+                  f"{1e3 * v['kernel_ms']:.3f} us hot, "
+                  f"{1e3 * v['kernel_flushed_ms']:.3f} flushed", flush=True)
+        del inp, sub, new, outs
+        torch.cuda.empty_cache()
+    if out_json:
+        os.makedirs(os.path.dirname(out_json) or ".", exist_ok=True)
+        with open(out_json, "w") as fh:
+            json.dump(dict(card=card, shapes=rows), fh, indent=1)
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -571,14 +881,15 @@ OUT_FILL = 0xA5       # an output's bands, and its interior before a launch
 K1_GUARD_REPS = 8     # guarded launches at each shape
 
 
-def banded(shape, dtype, fill, device):
-    """(a tensor of ``shape`` GUARD_BYTES into a byte buffer filled with
-    ``fill``, the buffer)."""
+def banded(shape, dtype, fill, device, shift=0):
+    """(a tensor of ``shape`` GUARD_BYTES + ``shift`` into a byte buffer
+    filled with ``fill``, the buffer)."""
     import torch
     nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-    buf = torch.full((nbytes + 2 * GUARD_BYTES,), fill, dtype=torch.uint8,
-                     device=device)
-    return buf[GUARD_BYTES:GUARD_BYTES + nbytes].view(dtype).view(shape), buf
+    buf = torch.full((nbytes + 2 * GUARD_BYTES + shift,), fill,
+                     dtype=torch.uint8, device=device)
+    at = GUARD_BYTES + shift
+    return buf[at:at + nbytes].view(dtype).view(shape), buf[shift:]
 
 
 def bands_intact(buf, fill):
@@ -605,7 +916,8 @@ def guard_check(gk, name, inp, dt, args, sub=None, reps=K1_GUARD_REPS):
     base = gk.radar_candidates(*inp, dt, **args, **sub)
 
     def guarded_copy(t):
-        v, buf = banded(tuple(t.shape), t.dtype, IN_FILL, t.device)
+        v, buf = banded(tuple(t.shape), t.dtype, IN_FILL, t.device,
+                        shift=t.data_ptr() % 16)
         v.copy_(t)
         return v, buf
 
@@ -638,21 +950,25 @@ def guard_check(gk, name, inp, dt, args, sub=None, reps=K1_GUARD_REPS):
 
 def k1_guard_cases():
     """Every shape the guard phase takes, with its inputs made on demand:
-    (name, a function giving (inputs, per-target arguments or {}))."""
+    (name, a function giving (inputs, dt or None for 2.5 s, per-target
+    arguments or {}))."""
     cases = []
     for i, (name, N, M, kw) in enumerate(K1_CASES):
         cases.append((name, lambda i=i, N=N, M=M, kw=kw: (
-            k1_inputs(i, N, M, "cuda", **kw), {})))
-    for i, (name, T, L, Km, M, masked) in enumerate(K1_SUB_CASES):
-        cases.append((name, lambda i=i, c=(T, L, Km, M, masked):
-                      k1_sub_inputs(i, *c[:4], "cuda", c[4])))
+            k1_inputs(i, N, M, "cuda", **kw), None, {})))
+    for i, case in enumerate(K1_SUB_CASES):
+        cases.append((case[0], lambda i=i, c=case: k1_sub_case(i, c,
+                                                               "cuda")))
     # the swarm benchmark's per-target shape and the saturation points'
     # shared-scan shapes
-    cases.append(("per target, swarm", lambda: k1_sub_inputs(
-        31, 1024, 16, 64, 2048, "cuda")))
+    def swarm():
+        inp, sub = k1_sub_inputs(31, 1024, 16, 64, 2048, "cuda")
+        return inp, None, sub
+
+    cases.append(("per target, swarm", swarm))
     for i, T in enumerate(SAT_POINTS):
         cases.append((f"saturation T={T}", lambda i=i, T=T: (
-            k1_inputs(40 + i, 16 * T, 2 * T, "cuda"), {})))
+            k1_inputs(40 + i, 16 * T, 2 * T, "cuda"), None, {})))
     return cases
 
 
@@ -664,9 +980,10 @@ def guard_phase(card):
     dt = torch.full((), 2.5, device="cuda")
     t0, n = time.perf_counter(), 0
     for name, make in k1_guard_cases():
-        inp, sub = make()
-        n += guard_check(gk, name, inp, dt, K1_ARGS, sub)
-        del inp, sub
+        inp, dt_i, sub = make()
+        n += guard_check(gk, name, inp, dt if dt_i is None else dt_i,
+                         K1_ARGS, sub)
+        del inp, dt_i, sub
     torch.cuda.empty_cache()
     print(f"K1 guard: {n} launches at {len(k1_guard_cases())} shapes inside "
           f"{GUARD_BYTES}-byte guard bands, each bit for bit the unguarded "
@@ -3137,6 +3454,13 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
         "bench_pregate_kernel_ms": k1p["kernel_ms"],
         "bench_pregate_plain_ms": k1p["plain_ms"],
         "bench_pregate_bound_ms": k1p["bound_ms"],
+        # the kernel alone at the six timed shapes (kernel phase), with the
+        # start-up of an empty launch at each shape's plan
+        "timed_shapes": [
+            {key: r[key] for key in ("shape", "kernel_ms",
+                                     "kernel_flushed_ms", "startup_ms",
+                                     "bound_ms", "bound_by", "plan")}
+            for r in k1p["timed"]],
         **{f"{key}_{name}": r[name]
            for key, r in (("mc", mc), ("mc_bench", mcb), ("batch_ais", mca),
                           ("batch_pregate", mcp), ("batch_ipm", mci))
@@ -3153,10 +3477,12 @@ def main(argv):
     import tempfile
     import torch
     t_start = time.perf_counter()
-    if argv not in ([], ["--k1-guard"]):
+    ab = argv[1:] if argv[:1] == ["--k1-ab"] and len(argv) in (2, 3) \
+        else None
+    if argv not in ([], ["--k1-guard"]) and ab is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
-    guard_only = argv == ["--k1-guard"]
+    guard_only = argv == ["--k1-guard"] or ab is not None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a "
               "GPU", file=sys.stderr)
@@ -3211,6 +3537,8 @@ def main(argv):
           f"TB/s, bound by {k1p['bound_by']}): the kernel reaches "
           f"{k1p['bound_ms'] / k1p['kernel_ms']:.3f} of it")
     guard_phase(card)
+    if ab is not None:
+        k1_ab_phase(ab[0], card, *ab[1:])
     if guard_only:
         print(f"chip_smoke --k1-guard: {time.perf_counter() - t_start:.1f} s "
               f"in all")

@@ -65,21 +65,22 @@ def _flags(src: Path) -> tuple:
     return NVCC_FLAGS if src.suffix == ".cu" else HOST_FLAGS
 
 
-def library_path(name: str) -> Path:
-    src = _source(name)
+def library_path(name: str, src=None) -> Path:
+    src = Path(src) if src else _source(name)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(_flags(src)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, src=None) -> Path:
     """Compile ``csrc/<name>.cu`` (nvcc) or ``csrc/<name>.cpp`` (the host
-    compiler) unless an up-to-date library exists.  Raises RuntimeError
+    compiler), or the source file ``src`` under the library name
+    ``name``, unless an up-to-date library exists.  Raises RuntimeError
     with the compiler's stderr when the build fails."""
-    so = library_path(name)
+    so = library_path(name, src)
     if so.is_file():
         return so
-    src = _source(name)
+    src = Path(src) if src else _source(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)

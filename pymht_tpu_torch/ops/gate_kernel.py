@@ -30,11 +30,16 @@ against row ``n // leaves_per_target`` of ``z_sub`` (what
 through ``zidx``.  ``launches_pregate`` counts that entry point's share of
 ``launches``.  The same entry point steps a batch of scenarios, one
 "target" per scenario (core/grow.py): then ``radar_period`` is a ``[T]``
-tensor, each target's own time step.
+tensor, each target's own time step.  That entry point runs on a tile
+plan made here (``sub_plan``): tiles of R leaves that run across targets,
+the lanes that walk a row's columns, the grid, the shared memory and
+whether blocks persist with a two-stage ring.  The launcher recomputes
+the plan's shared-memory layout and refuses a plan that disagrees.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -49,7 +54,141 @@ launches_pregate = 0  # of those, launches of the per-target entry point
 
 _PTR, _F32, _INT = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _ARGTYPES = [_PTR] * 8 + [_F32] * 4 + [_PTR] * 7 + [_INT, _INT, _PTR]
-_ARGTYPES_SUB = [_PTR] * 9 + [_F32] * 4 + [_PTR] * 7 + [_INT] * 5 + [_PTR]
+_ARGTYPES_SUB = [_PTR] * 9 + [_F32] * 4 + [_PTR] * 7 + [_INT] * 13 + [_PTR]
+
+# The per-target kernel's tile plan (csrc/gate_score.cu, design point 6).
+SUB_MAX_THREADS = 256        # a block's most threads (SUB_MAX_THREADS)
+SMEM_BLOCK_LIMIT = 232_448   # shared memory one H100 block may opt into
+SMEM_SM = 233_472            # shared memory of one H100 SM
+SMEM_BLOCK_RESERVED = 1_024  # what the runtime keeps of it per block
+H100_SMS = 132
+SUB_ALIGN = 128              # a staged buffer's placement (SUB_ALIGN)
+SUB_SLOTS = SUB_MAX_THREADS // 32  # count partials per row (SUB_SLOTS)
+SUB_COLS = 4                 # columns a thread works on at once (SUB_COLS)
+
+
+class SubPlan(NamedTuple):
+    """How one launch of the per-target kernel cuts its work."""
+    rows: int        # R: leaves per tile, a multiple of 16
+    threads: int     # threads per block
+    cols_log2: int   # 2**cols_log2 threads share a row's columns
+    tiles: int       # ceil(N / R)
+    grid: int        # blocks: one per tile, or persistent ones
+    smem: int        # bytes of dynamic shared memory per block
+    targets: int     # the most targets one tile touches
+    stages: int      # 2: persistent blocks with a two-stage ring
+    staged: bool     # the targets' columns and the plane tile in shared
+    #                  memory (False at Km >= 256 and where even 16 rows
+    #                  do not fit: the plane is stored directly)
+
+
+def _round_up(nbytes, align):
+    return -(-nbytes // align) * align
+
+
+def _round16(nbytes):
+    return _round_up(nbytes, 16)
+
+
+def sub_smem_bytes(rows, targets, Km, stages, staged):
+    """Dynamic shared memory of one block, as the kernel lays it out
+    (``sub_layout`` in csrc/gate_score.cu): two mbarriers, 32 bytes of row
+    and SUB_SLOTS count partials per row, one mark per (target, column),
+    rounded up to SUB_ALIGN, then ``stages`` copies of the stage, each
+    buffer in a region SUB_ALIGN bytes longer than it, rounded up to
+    SUB_ALIGN bytes."""
+    def region(nbytes):
+        return _round_up(nbytes, SUB_ALIGN) + SUB_ALIGN
+    z = targets * Km
+    stage = sum(map(region, (rows * 16, rows * 64, rows * 4, rows * 4,
+                             rows)))
+    if staged:
+        stage += sum(map(region, (z * 8, z, z * 4, rows * (Km + 1) * 4)))
+    stage += sum(map(region, (rows * 16, rows * 64, rows * 32, rows * 64,
+                              rows * 4)))
+    head = 16 + rows * (32 + 4 * SUB_SLOTS) + (z if staged else 0)
+    return _round_up(head, SUB_ALIGN) + stages * stage
+
+
+def sub_threads(Km):
+    """Threads per block: 128 where a tile's work is a long stream of
+    columns (Km >= 256) or few (Km <= 32), so that four blocks share an
+    SM; 256 between.  Measured on the H100 (PERF.md, Findings)."""
+    return 128 if Km <= 32 or Km >= 256 else 256
+
+
+def sub_rows(N, Km, sms=H100_SMS):
+    """Leaves per tile: 16 at Km >= 256, else 64, or fewer where the
+    shape would not give every SM a tile (N below 64 per SM)."""
+    if Km >= 256:
+        return 16
+    return min(64, max(16, _round16(-(-N // sms))))
+
+
+def sub_staged(Km):
+    """Whether the plane tile is staged in shared memory and written by
+    bulk copy (Km < 256), or stored directly, its columns read from global
+    memory (Km >= 256, where a row is over a kilobyte: measured 1 % faster
+    at Km = 512 on the H100, PERF.md Findings)."""
+    return Km < 256
+
+
+def sub_stages(tiles, Km, sms=H100_SMS):
+    """2 (persistent blocks, two-stage ring) where there are at least
+    eight tiles per SM and 32 < Km < 256; else 1 (a block per tile)."""
+    return 2 if tiles >= 8 * sms and 32 < Km < 256 else 1
+
+
+def _cols_log2(rows, Km, threads):
+    """How many threads share a row's columns (a power of two up to the
+    block, leaving each thread at most 32 rows, one bit each in a word;
+    a thread takes SUB_COLS columns at a time): the count that gives each
+    thread the fewest pair steps (its rows times its columns), the widest
+    among equals."""
+    best = None
+    for lg in range(threads.bit_length() - 1, -1, -1):
+        cs = 1 << lg
+        rows_each = -(-rows // (threads // cs))
+        steps = rows_each * -(-Km // (cs * SUB_COLS)) * SUB_COLS
+        if rows_each <= 32 and (best is None or steps < best[0]):
+            best = (steps, lg)
+    return best[1]
+
+
+def sub_plan(T, L, Km, sms=H100_SMS, blocks_per_sm=None, rows=None,
+             stages=None, threads=None, staged=None) -> SubPlan:
+    """The tile plan of the per-target kernel for T targets of L leaves
+    against Km columns each.  ``rows``, ``stages``, ``threads`` and
+    ``staged`` override ``sub_rows`` / ``sub_stages`` / ``sub_threads`` /
+    ``sub_staged``.  A persistent grid holds ``sms`` times
+    ``blocks_per_sm`` blocks (the CUDA runtime's figure on the card; here
+    estimated from shared memory and threads when None).  Where the plan
+    does not fit a block's shared memory it takes fewer stages, then 16
+    rows, then stores the plane directly (``staged`` False)."""
+    N = T * L
+    threads = threads or sub_threads(Km)
+    R0 = min(rows or sub_rows(N, Km, sms), max(16, _round16(N)))
+    S0 = stages or sub_stages(-(-N // R0), Km, sms)
+    tries = ((R0, S0, True), (R0, 1, True), (16, S0, True), (16, 1, True),
+             (16, S0, False), (16, 1, False))
+    if not (sub_staged(Km) if staged is None else staged):
+        tries = ((R0, S0, False), (R0, 1, False)) + tries[-2:]
+    for R, S, staged in tries:
+        targets = min(T, (R + L - 2) // L + 1)
+        smem = sub_smem_bytes(R, targets, Km, S, staged)
+        if smem <= SMEM_BLOCK_LIMIT:
+            break
+    tiles = -(-N // R)
+    grid = tiles
+    if S == 2:
+        if blocks_per_sm is None:
+            blocks_per_sm = min(2048 // threads,
+                                SMEM_SM // (smem + SMEM_BLOCK_RESERVED))
+        grid = min(tiles, max(1, blocks_per_sm) * sms)
+    return SubPlan(rows=R, threads=threads,
+                   cols_log2=_cols_log2(R, Km, threads), tiles=tiles,
+                   grid=grid, smem=smem, targets=targets, stages=S,
+                   staged=staged)
 
 
 class RadarCandidates(NamedTuple):
@@ -149,6 +288,11 @@ def _lib():
         lib.gate_score_sub_launch.restype = _INT
         lib.gate_score_occupancy.argtypes = [ctypes.POINTER(_INT)] * 2
         lib.gate_score_occupancy.restype = _INT
+        lib.gate_score_sub_occupancy.argtypes = (
+            [_INT] * 3 + [ctypes.POINTER(_INT)] * 2)
+        lib.gate_score_sub_occupancy.restype = _INT
+        lib.gate_score_sub_startup_launch.argtypes = [_INT] * 3 + [_PTR]
+        lib.gate_score_sub_startup_launch.restype = _INT
     return lib
 
 
@@ -161,6 +305,44 @@ def occupancy(device=None):
                                        ctypes.byref(per_sm)) != 0:
             raise RuntimeError("gate_score: the occupancy query failed")
     return sms.value, per_sm.value
+
+
+def sub_occupancy(plan: SubPlan, device=None):
+    """(SMs of the device, blocks of the per-target kernel each SM holds
+    at once at ``plan``'s threads and shared memory), as the CUDA runtime
+    reports them."""
+    sms, per_sm = _INT(0), _INT(0)
+    with torch.cuda.device(device):
+        err = _lib().gate_score_sub_occupancy(
+            plan.threads, plan.smem, int(plan.staged), ctypes.byref(sms),
+            ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"gate_score: the per-target occupancy query "
+                           f"failed: CUDA error {err}")
+    return sms.value, per_sm.value
+
+
+@functools.lru_cache(maxsize=256)
+def card_plan(device_index, T, L, Km, rows=None, stages=None,
+              threads=None, staged=None) -> SubPlan:
+    """``sub_plan`` with the SMs and the occupancy of the card."""
+    kw = dict(rows=rows, stages=stages, threads=threads, staged=staged)
+    plan = sub_plan(T, L, Km, **kw)
+    sms, per_sm = sub_occupancy(plan, device_index)
+    return sub_plan(T, L, Km, sms=sms, blocks_per_sm=per_sm, **kw)
+
+
+def launch_startup(plan: SubPlan, device=None):
+    """Launch an empty kernel at ``plan``'s grid, block and shared memory
+    on the current stream: the floor under a launch of the per-target
+    kernel.  Not a K1 launch, and not counted."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().gate_score_sub_startup_launch(plan.grid, plan.threads,
+                                                   plan.smem, stream)
+    if err != 0:
+        raise RuntimeError(f"gate_score: the start-up launch failed: CUDA "
+                           f"error {err}")
 
 
 def _check(name, t, dtype, shape, align, dev):
@@ -190,7 +372,7 @@ def empty_outputs(N, M, dev, Km=None) -> RadarCandidates:
 
 def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
            q_scale, r_var, eta2, lambda_ex, z_sub=None, zmask_sub=None,
-           zidx=None, leaves_per_target=None):
+           zidx=None, leaves_per_target=None, plan=None):
     """Launch K1 on the current stream into ``out`` (from
     ``empty_outputs``).  ``dt`` is a 0-d f32 tensor on the device, or for
     the per-target entry point also ``[T]`` (one time step per target;
@@ -198,8 +380,9 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
     scalars go by value.  Nothing is copied from the host.
     With ``z_sub`` the per-target entry point is launched (``out`` from
     ``empty_outputs(N, M, dev, Km)``; ``zidx`` int32 with values in
-    [0, M)).  Raises for a shape the kernel's 32-bit leaf and
-    measurement indices cannot address."""
+    [0, M)), on ``plan`` (a ``SubPlan``; by default ``card_plan``'s).
+    Raises for a shape the kernel's 32-bit leaf and measurement indices
+    cannot address."""
     global launches, launches_pregate
     dev = x.device
     N, M = x.shape[0], z.shape[0]
@@ -224,13 +407,18 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
                       ("zmask_sub", zmask_sub, torch.bool, (T, Km), 1),
                       ("zidx", zidx, torch.int32, (T, Km), 4),
                       ("dt", dt_one, torch.float32, tuple(dt_one.shape), 4))
+        leaf_align = 4
     else:
         Km, per_target = M, (("dt", dt, torch.float32, (), 4),)
-    # alignment: the kernel loads x and P as float4 and z as float2, and
-    # stores the per-leaf float outputs as float4
+        leaf_align = 16
+    # alignment: the shared-scan kernel loads x and P as float4; both
+    # entry points read z as float2 and store the per-leaf float outputs
+    # as float4.  The per-target kernel copies its inputs in bulk from any
+    # address: a buffer's part before its first 16-byte boundary goes by
+    # plain loads (csrc/gate_score.cu, design point 6c)
     for name, t, dtype, shape, align in (
-            ("x", x, torch.float32, (N, 4), 16),
-            ("P", P, torch.float32, (N, 4, 4), 16),
+            ("x", x, torch.float32, (N, 4), leaf_align),
+            ("P", P, torch.float32, (N, 4, 4), leaf_align),
             ("cnllr", cnllr, torch.float32, (N,), 4),
             ("pd", pd, torch.float32, (N,), 4),
             ("mask", mask, torch.bool, (N,), 1),
@@ -254,10 +442,15 @@ def launch(out: RadarCandidates, x, P, cnllr, pd, mask, z, zmask, dt,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if sub:
+            p = plan or card_plan(torch.cuda.current_device(), T, L, Km)
             err = lib.gate_score_sub_launch(
                 *leaves, z_sub.data_ptr(), zmask_sub.data_ptr(),
                 zidx.data_ptr(), dt.data_ptr(), *scalars, *outs, T, L, Km, M,
-                dt_step, stream)
+                dt_step, p.rows, p.threads, p.cols_log2, p.grid, p.smem,
+                p.targets, p.stages, int(p.staged), stream)
+            if err == -1:
+                raise RuntimeError(f"gate_score: the per-target kernel "
+                                   f"refused the tile plan {p}")
         else:
             err = lib.gate_score_launch(
                 *leaves, z.data_ptr(), zmask.data_ptr(), dt.data_ptr(),

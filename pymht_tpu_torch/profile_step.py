@@ -10,6 +10,7 @@
     python -m pymht_tpu_torch.profile_step --batch 32 --ais
     python -m pymht_tpu_torch.profile_step --batch 32 --pregate 64
     python -m pymht_tpu_torch.profile_step --batch 8 --demo --method ipm
+    python -m pymht_tpu_torch.profile_step --swarm   # the swarm benchmark
 
 Runs the radar-only bench scene (``Tracker(use_ais=False)``) or, with
 ``--ais``, the AIS-fusion scene (``Tracker(use_ais=True)``, A=32, G=2;
@@ -26,8 +27,11 @@ step here so that its device work can be read beside the rest).  With
 configuration), with ``--ais`` B draws of the AIS-fusion scene
 (``scenes.bench_ais_batch``) and with ``--demo`` B draws of the demo
 scene (``scenes.demo_batch``, AIS on, 21 scans), each under ``--method``
-and ``--pregate``; a "scan" below is then one batched scan.  Over the
-steady scans (3 onwards) it reports:
+and ``--pregate``; a "scan" below is then one batched scan.  With
+``--swarm`` it profiles the swarm benchmark's 8 scans, streamed in one
+``scan_many`` as ``scripts/bench_swarm.run`` streams them (once to warm
+up, once under the profiler; no phases alone, and every scan counts).
+Over the steady scans (3 onwards) it reports:
 
 * per phase (grow, select, terminate + prune, initiate), the wall time of
   that phase alone, run on the step's own inputs and closed by
@@ -40,6 +44,7 @@ Prints one JSON object.  Nothing here runs on the tracker's hot path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -111,11 +116,15 @@ def main(argv=None):
                          "configuration instead of bench.py's shapes")
     ap.add_argument("--demo", action="store_true",
                     help="with --batch: draws of the demo scene (AIS on)")
+    ap.add_argument("--swarm", action="store_true",
+                    help="the swarm benchmark's streamed scans")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.swarm:
+        return _swarm()
     if args.batch:
         return _batched(args)
     if args.ais:
@@ -207,6 +216,45 @@ def _device_summary(events, top, n):
         "top_device_ops": [
             {"name": e.key[:90], "device_ms_per_scan": _dev_us(e) / 1e3 / n,
              "calls_per_scan": e.count / n} for e in top]}
+
+
+def _swarm():
+    """The swarm benchmark's scans, streamed as ``bench_swarm.run`` streams
+    them, once to warm up and once under the profiler."""
+    from .scripts import bench_swarm as bs
+    k = bs.knobs()
+    scene = bs.scene_of(k)
+    n = len(scene.scans)
+
+    def once(prof=contextlib.nullcontext()):
+        tracker, scan_b, ais_b = bs.stream_inputs(scene, "cuda",
+                                                  k["use_ais"])
+        torch.cuda.synchronize()
+        with prof:
+            reads, t = sync.count, time.perf_counter()
+            bs.stream(tracker, scan_b, ais_b, k["use_ais"], k["dyn_win"])
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        return wall, sync.count - reads
+
+    warm_ms, _ = once()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    wall_ms, reads = once(prof)
+    busy_ms, events, top = _device_time(prof)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "scene": "swarm",
+        "scans_profiled": n,
+        "wall_ms_per_scan_warm_up": warm_ms / n,
+        "wall_ms_per_scan": wall_ms / n,
+        "device_busy_ms_per_scan": busy_ms / n,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "host_reads_per_scan": reads / n,
+        **_device_summary(events, top, n),
+    }, indent=1))
+    return 0
 
 
 def _batched(args):

@@ -219,10 +219,13 @@ def _cluster_leaves(inp, T, L, seed):
     inp[6][:k] = True
 
 
-# (seed, T, L, M, Km, targets whose columns are all masked)
+# (seed, T, L, M, Km, targets whose columns are all masked); the last
+# three: one leaf per target, L = 5 at Km = 64, an odd Km
 PER_TARGET_CASES = [(0, 4, 8, 24, 6, ()), (1, 8, 8, 16, 15, ()),
                     (2, 3, 20, 32, 8, ()), (3, 4, 8, 24, 6, (0, 2)),
-                    (4, 5, 4, 7, 1, ()), (5, 6, 5, 12, 12, ())]
+                    (4, 5, 4, 7, 1, ()), (5, 6, 5, 12, 12, ()),
+                    (6, 40, 1, 96, 64, ()), (7, 12, 5, 80, 64, ()),
+                    (8, 9, 6, 40, 21, ())]
 
 
 @pytest.mark.parametrize("seed,T,L,M,Km,masked", PER_TARGET_CASES)
@@ -269,6 +272,52 @@ def test_per_target_twin_matches_jax_planes(jax_gk, seed, T, L, M, Km,
     if Km == M:      # all measurements kept: the same gate, re-ordered
         assert torch.equal(out.used_meas, full.used_meas)
         assert torch.equal(out.gated_counts, full.gated_counts)
+
+
+def _sub_args(inp, T, L, Km, seed, device="cpu"):
+    z_sub, zmask_sub, zidx = _per_target(inp, T, L, Km, seed)
+    return dict(z_sub=torch.from_numpy(z_sub).to(device),
+                zmask_sub=torch.from_numpy(zmask_sub).to(device),
+                zidx=torch.from_numpy(zidx).to(device), leaves_per_target=L)
+
+
+def test_per_target_dt_equals_one_target_at_a_time():
+    """The twin with one time step per target ([T] radar_period, as a
+    batch of scenarios passes it) against the twin run on each target
+    alone with its own scalar step: gating, counts and used identical,
+    the rest within f32 rounding of two einsum orders."""
+    T, L, M, Km = 6, 5, 24, 6
+    inp = _inputs(9, N=T * L, M=M)
+    _cluster_leaves(inp, T, L, 9)
+    steps = np.float32([1.0, 1.75, 2.5, 3.25, 1.0, 1.75])
+    sub = _sub_args(inp, T, L, Km, 9)
+    args = dict(ARGS, radar_period=torch.from_numpy(steps))
+    out = tk.radar_candidates(*_torch(inp), **args, **sub)
+    assert out.scores.shape == (T * L, Km + 1)
+    used = torch.zeros(M, dtype=torch.bool)
+    for t in range(T):
+        rows = slice(t * L, (t + 1) * L)
+        one = tk.radar_candidates(
+            *[torch.from_numpy(np.ascontiguousarray(a[rows])) for a in
+              inp[:5]], *_torch(inp[5:]),
+            **dict(ARGS, radar_period=float(steps[t])),
+            z_sub=sub["z_sub"][t:t + 1], zmask_sub=sub["zmask_sub"][t:t + 1],
+            zidx=sub["zidx"][t:t + 1], leaves_per_target=L)
+        g, g1 = out.scores[rows] < BIG * 0.5, one.scores < BIG * 0.5
+        assert torch.equal(g, g1)
+        assert torch.equal(out.gated_counts[rows], one.gated_counts)
+        torch.testing.assert_close(out.scores[rows][g1], one.scores[g1])
+        for name in ("x_bar", "P_bar", "K", "P_hat"):
+            torch.testing.assert_close(getattr(out, name)[rows],
+                                       getattr(one, name), msg=name)
+        used |= one.used_meas
+    assert torch.equal(out.used_meas, used) and used.any()
+    # the steps differ, so a target stepped at its neighbour's gates else
+    shifted = tk.radar_candidates(
+        *_torch(inp), **dict(ARGS, radar_period=torch.from_numpy(
+            np.roll(steps, 1))), **sub)
+    assert not torch.equal(shifted.scores < BIG * 0.5,
+                           out.scores < BIG * 0.5)
 
 
 def test_per_target_wrapper_refuses_bad_arguments():
@@ -387,6 +436,80 @@ def test_per_target_kernel_matches_twin_on_card(T, L, M, Km, masked):
     assert (tk.launches, tk.launches_pregate) == (n0 + 1, p0 + 1)
     ref = tk.radar_candidates_reference(*inp, **ARGS, **sub)
     assert out.scores.shape == (N, Km + 1)
+    for name in ("x_bar", "P_bar", "K", "P_hat"):
+        torch.testing.assert_close(getattr(out, name), getattr(ref, name),
+                                   rtol=1e-5, atol=1e-4, msg=name)
+    g, g_r = out.scores < BIG * 0.5, ref.scores < BIG * 0.5
+    assert torch.equal(g, g_r) and g_r[:, 1:].any()
+    assert torch.equal(out.scores[~g_r], ref.scores[~g_r])
+    torch.testing.assert_close(out.scores[g_r], ref.scores[g_r], rtol=1e-5,
+                               atol=1e-4)
+    assert torch.equal(out.gated_counts, ref.gated_counts)
+    assert torch.equal(out.used_meas, ref.used_meas)
+
+
+def _misaligned(t, shift):
+    """A copy of ``t`` whose data starts ``shift`` bytes past a 16-byte
+    boundary."""
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + 32, dtype=torch.uint8, device=t.device)
+    at = (-buf.data_ptr()) % 16 + shift
+    v = buf[at:at + nbytes].view(t.dtype).view(t.shape)
+    v.copy_(t)
+    return v
+
+
+# the per-target kernel's edges (csrc/gate_score.cu, design point 6):
+# (T, L, M, Km, option) -- tiles across targets (L = 1, 5, 33), one time
+# step per target, odd Km, Km = 1 at L = 1, a ragged last tile at
+# Km = 512, one target per scenario at L = 4096 on a flat [B * M] axis,
+# every input off a 16-byte boundary, and a plane too wide to stage
+EDGE_CASES = [(300, 1, 512, 64, None), (77, 5, 512, 64, None),
+              (40, 33, 512, 64, None), (64, 5, 256, 16, "dt"),
+              (200, 1, 256, 28, "dt"), (50, 7, 128, 15, None),
+              (100, 1, 64, 1, None), (37, 3, 600, 512, None),
+              (3, 4096, 512, 512, "batch"), (20, 16, 96, 33, "unaligned"),
+              (2, 16, 4096, 4000, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,L,M,Km,option", EDGE_CASES)
+def test_per_target_kernel_edges_on_card(T, L, M, Km, option):
+    """The redesigned per-target kernel against the twin on the card at
+    its edges: gating, counts and used identical, the rest within rtol
+    1e-5 / atol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    N = T * L
+    args = dict(ARGS)
+    inp = _inputs(T + L, N=N, M=M)
+    if option == "batch":     # one target per scenario, zidx on [T * M]
+        inp = _torch(inp, "cuda")
+        sub = dict(z_sub=inp[5].view(1, M, 2).repeat(T, 1, 1),
+                   zmask_sub=inp[6].view(1, M).repeat(T, 1),
+                   zidx=torch.arange(T * M, dtype=torch.int32,
+                                     device="cuda").view(T, M),
+                   leaves_per_target=L)
+        args["radar_period"] = torch.linspace(2.5, 3.0, T, device="cuda")
+        inp[5] = inp[5].repeat(T, 1)
+        inp[6] = inp[6].repeat(T)
+    else:
+        _cluster_leaves(inp, T, L, T)
+        sub = _sub_args(inp, T, L, Km, T, "cuda")
+        inp = _torch(inp, "cuda")
+        if option == "dt":
+            args["radar_period"] = 1.0 + 0.75 * (
+                torch.arange(T, device="cuda") % 4).float()
+        if option == "unaligned":
+            inp = [_misaligned(t, s) for t, s in zip(inp, (4, 4, 4, 8, 1,
+                                                           8, 1))]
+            sub = {k: _misaligned(v, dict(z_sub=8, zmask_sub=3, zidx=4)[k])
+                   if torch.is_tensor(v) else v for k, v in sub.items()}
+    p0 = tk.launches_pregate
+    out = tk.radar_candidates(*inp, **args, **sub)
+    torch.cuda.synchronize()
+    assert tk.launches_pregate == p0 + 1
+    ref = tk.radar_candidates_reference(*inp, **args, **sub)
     for name in ("x_bar", "P_bar", "K", "P_hat"):
         torch.testing.assert_close(getattr(out, name), getattr(ref, name),
                                    rtol=1e-5, atol=1e-4, msg=name)
