@@ -174,7 +174,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     floors (set from tests/jax_swarm_reference.py); the exact oracle's gap
     under a 60 s limit (<= 1e-3 when HiGHS proves the optimum);
 25. scripts: every script and example of the port through its ``main``
-    on the card: eval_configs (small), bench_saturation at T=1024 and
+    on the card: the headline bench (``scripts/bench``, bench.py's twin)
+    at its defaults (100 targets, T=128, L=32, M=512: path A stepped over
+    13 scans, paths B, B2 and C streamed over 12 a warm-up and 3 times)
+    with K1 157 times through its shared-scan entry point at (4096, 512),
+    one launch per scan on every path, the oracle gap <= 1e-3, path A's
+    labels those of the slice phase's CPU run and path C's those of the
+    port's CPU run of path C; then with BENCH_PREGATE=64 BENCH_SCANS=4,
+    K1's per-target entry point once per scan (53 launches);
+    eval_configs (small), bench_saturation at T=1024 and
     4096, ab_distributed_select and bench_scaling at one NCCL rank,
     demo_tracking and demo_streaming_deployment with --no-plot; each
     prints its lines; K1's launch shapes counted, and K1 against its twin
@@ -1138,7 +1146,7 @@ def slice_phase():
     return dict(launches=launches,
                 ms_per_scan=1e3 * float(np.median(wall[2:])),
                 syncs=gpu.host_syncs, n_scans=len(scans), metrics=m,
-                gpu=gpu, cpu=cpu, grown=grown)
+                gpu=gpu, cpu=cpu, cpu_outs=cpu_outs, grown=grown)
 
 
 def selected_labels(outs):
@@ -3227,6 +3235,13 @@ def swarm_phase(card):
 # ----------------------------------------------------------------------
 
 SAT_POINTS = (1024, 4096)    # bench_saturation points run on the card
+# bench.py:236-250's keys, and the three the twin adds
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "dispatch_ms_per_scan",
+              "ais_ms_per_scan", "clusters_on_ms_per_scan",
+              "ais_msgs_per_scan", "median_dual_gap",
+              "opt_gap_vs_exact_oracle", "n_targets", "method", "hardware",
+              "host_reads_per_scan", "k1_launches_per_scan"}
+BENCH_PREGATE_SCANS = 4      # streamed scans of the pre-gated bench run
 
 
 @contextlib.contextmanager
@@ -3275,12 +3290,98 @@ def json_lines(out):
     return [json.loads(line) for line in out if line.startswith("{")]
 
 
-def scripts_phase(card, workdir):
+def unstacked(outs):
+    """Stacked step outputs as a list of one scan's each."""
+    return [type(outs)(*(f[i] for f in outs))
+            for i in range(outs.track_mask.shape[0])]
+
+
+def bench_check(res, launch_shapes, entry, n_scans, what):
+    """The twin's line: the keys, a time, one K1 launch per scan on every
+    path, each at the bench shape through ``entry`` (N=4096, M=512, or Km
+    columns per target); (n_scans + 1) stepped and 4 x 3 x n_scans
+    streamed launches in all."""
+    check(set(res) == BENCH_KEYS, f"{what}: keys {sorted(res)}")
+    check(res["value"] > 0 and res["dispatch_ms_per_scan"] > 0
+          and res["ais_ms_per_scan"] > 0
+          and res["clusters_on_ms_per_scan"] > 0, f"{what}: times {res}")
+    check(res["k1_launches_per_scan"] == {"A": 1.0, "B": 1.0, "B2": 1.0,
+                                          "C": 1.0},
+          f"{what}: K1 launches per scan {res['k1_launches_per_scan']}")
+    total = (n_scans + 1) + 4 * 3 * n_scans
+    check(len(launch_shapes) == total
+          and all(s == entry for s in launch_shapes),
+          f"{what}: K1 launched {len(launch_shapes)} times (expected "
+          f"{total}, each {entry}): {sorted(set(launch_shapes))}")
+    return total
+
+
+def bench_runs(card, res, run, launch_shapes):
+    """The headline bench through ``run`` (scripts_phase's) at its
+    defaults: its line (``bench_check``), its oracle gap within GAP_LIMIT,
+    its path A's labels those of the slice phase's CPU run (``res``), its
+    path C's those of the port's CPU run of path C; then pre-gated for
+    BENCH_PREGATE_SCANS scans (``bench_check``)."""
+    import torch
+    from pymht_tpu_torch.scripts import bench
+    kept = {}
+
+    def bench_main(argv):
+        kept["res"], kept["outs"] = bench.main(argv)
+
+    # the headline bench at its defaults: 100 targets, T=128, L=32, M=512
+    (line,) = json_lines(run("bench", bench_main))
+    b, outs = kept.pop("res"), kept.pop("outs")
+    check(line == b, "bench: the printed line is not run()'s result")
+    k = bench.DEFAULTS
+    n_bench = bench_check(b, launch_shapes["bench"],
+                          ("shared", 4096, 512, None), k["n_scans"], "bench")
+    gap = b["opt_gap_vs_exact_oracle"]
+    check(gap is not None and gap <= GAP_LIMIT,
+          f"bench: gap against the exact oracle {gap}")
+    a_card = selected_labels(unstacked(outs["A"]))
+    check(a_card == selected_labels(res["cpu_outs"]),
+          "bench: path A's labels differ from the slice phase's CPU run")
+    tr_c, scan_c, ais_c = bench.ais_stream_inputs(torch.device("cpu"), k,
+                                                  bench.ais_scene(k))
+    c_cpu = bench.streamed(tr_c, scan_c, ais_c, True, reps=0)[3]
+    del tr_c, scan_c, ais_c
+    c_card = selected_labels(unstacked(outs["C"]))
+    check(c_card == selected_labels(unstacked(c_cpu)),
+          "bench: path C's labels differ from the port's CPU run of path C")
+    check(bool((outs["C"].sel_hist_mmsi > 0).any()),
+          "bench: path C selected no AIS label")
+    del outs
+    print(f"bench (defaults: 100 targets, T=128, L=32, M=512, A=32): "
+          f"{b['value']} ms/scan streamed, {b['dispatch_ms_per_scan']} "
+          f"dispatched, {b['ais_ms_per_scan']} with AIS, "
+          f"{b['clusters_on_ms_per_scan']} with clusters; host reads per "
+          f"scan {b['host_reads_per_scan']}; gaps: dual "
+          f"{b['median_dual_gap']}, oracle {gap}; K1 {n_bench} launches, "
+          f"all shared-scan at (4096, 512); paths A ({len(a_card)} scans) "
+          f"and C ({len(c_card)}) = the CPU runs ({card})")
+    # pre-gated: K1's per-target entry point once per scan on every path
+    (bp,) = json_lines(run("bench_pregate", bench_main,
+                           BENCH_PREGATE="64",
+                           BENCH_SCANS=str(BENCH_PREGATE_SCANS)))
+    kept.clear()
+    n_pregate = bench_check(bp, launch_shapes["bench_pregate"],
+                            ("per target", 4096, 512, 64),
+                            BENCH_PREGATE_SCANS, "bench BENCH_PREGATE=64")
+    print(f"bench BENCH_PREGATE=64 BENCH_SCANS={BENCH_PREGATE_SCANS}: "
+          f"{bp['value']} ms/scan streamed, {bp['dispatch_ms_per_scan']} "
+          f"dispatched, {bp['ais_ms_per_scan']} with AIS; oracle gap "
+          f"{bp['opt_gap_vs_exact_oracle']}; K1 {n_pregate} launches, all "
+          f"per target at Km=64 ({card})")
+
+
+def scripts_phase(card, workdir, res):
     """The port's scripts and examples on the card through their ``main``:
-    eval_configs (small), bench_saturation at SAT_POINTS, the A/B of the
-    distributed selects and the scaling bench at one NCCL rank, both
-    examples with --no-plot.  Each must print its lines; K1 at the
-    saturation points' shapes against its twin, timed, with its bound."""
+    the headline bench (``bench_runs``), eval_configs (small),
+    bench_saturation at SAT_POINTS, the A/B of the distributed selects and
+    the scaling bench at one NCCL rank, both examples with --no-plot.
+    Each must print its lines; K1 at the saturation points' shapes
+    against its twin, timed, with its bound."""
     import torch
     from pymht_tpu_torch.examples import (demo_streaming_deployment,
                                           demo_tracking)
@@ -3294,6 +3395,8 @@ def scripts_phase(card, workdir):
         out, shapes, s = run_script(gk, name, fn, list(argv), env)
         launch_shapes[name], seconds[name] = shapes, s
         return out
+
+    bench_runs(card, res, run, launch_shapes)
 
     ev = json_lines(run("eval_configs", eval_configs.main))
     check([c["config"] for c in ev] == [
@@ -3566,7 +3669,7 @@ def main(argv):
         s1 = sharded1_phase(card, s1_path)
         s2 = sharded2_phase(s1, s1_path, card)
         swarm = swarm_phase(card)
-        scripts = scripts_phase(card, d)
+        scripts = scripts_phase(card, d, res)
     for what, r in (("slice (radar only)", res), ("AIS scene", ais)):
         syncs = r["syncs"]
         print(f"{what} on the card: {r['ms_per_scan']:.2f} ms/scan (median "

@@ -200,8 +200,9 @@ torch.set_num_threads(1)
 from pymht_tpu_torch.core.config import TrackerParams
 from pymht_tpu_torch.utils import plotting, scenes
 from pymht_tpu_torch.utils.ref_oracle import AisMsg, MetricsAdapter, RefOracle
-from pymht_tpu_torch.scripts import (ab_distributed_select, bench_saturation,
-                                     bench_scaling, bench_swarm, eval_configs)
+from pymht_tpu_torch.scripts import (ab_distributed_select, bench,
+                                     bench_saturation, bench_scaling,
+                                     bench_swarm, eval_configs)
 from pymht_tpu_torch.examples import demo_streaming_deployment, demo_tracking
 oracle = RefOracle(TrackerParams(radar_period=2.5), initiate=True)
 for k in range(4):
@@ -210,10 +211,12 @@ for k in range(4):
                         time=2.5 * k + 1.0, mmsi=200000001)])
 assert oracle.sequences() is not None and MetricsAdapter(oracle) is not None
 os.environ.update(SWARM_ORACLE='0', SAT_POINTS='32', SAT_SCANS='2',
-                  SAT_REPS='1')
+                  SAT_REPS='1', BENCH_TARGETS='4', BENCH_SCANS='2',
+                  BENCH_MEAS='64')
 bench_swarm.scene_of = lambda k: scenes.swarm_scene(12, 2, 1024, 16, t_cap=32)
 bench_swarm.main(['--device', 'cpu'])
 bench_saturation.main(['--device', 'cpu'])
+bench.main(['--device', 'cpu'])
 m = eval_configs.run_config('1_crossing', 2, 0.0, 1.0, 5, eval_configs.SMALL,
                             radar_range=2000.0, device='cpu')
 assert m['n_tracked'] == 2
