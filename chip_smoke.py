@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py              # from the root of the repository
     python3 chip_smoke.py --k1-guard   # phases 1-3 only
+    python3 chip_smoke.py --graph      # phases 1-2, 4 and 4b only
     python3 chip_smoke.py --k1-ab OLD/gate_score.cu [OUT.json]  # 1-3, a/b
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
-2. build: K1 (csrc/gate_score.cu) compiled by nvcc for sm_90a;
+2. build: K1 (csrc/gate_score.cu) and the conditional nodes
+   (csrc/graph_flow.cu) compiled by nvcc for sm_90a, together;
 3. kernel: K1's seven outputs against its plain torch twin on the card,
    at the bench shape (4096 leaves x 512 measurements), at every other
    shape a later phase launches it at (2048 x 512 after degrade(),
@@ -41,6 +43,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    scene through the port on the CPU (plain twins): same track ids and
    selected labels, states within tolerance, every selection feasible,
    no NaN, track quality above its floor;
+4b. graph: the same scene through the captured step (core/graph.py: one
+   CUDA graph per step, every loop and branch a conditional node of
+   csrc/graph_flow.cu) against the eager ``scan_step`` on the card and
+   against the slice phase's CPU run: the same labels on every scan,
+   outputs and final state within GRAPH_RTOL / GRAPH_ATOL of the eager
+   run, one host read, one replay and one K1 launch per scan; the same
+   with ``degrade()`` before scan GRAPH_DEGRADE_AFTER (a new capture at
+   L=16); ``scan_many`` graphed against the stepped run; the condition
+   kernel against the eager form on a loop and branch whose exits change
+   with the data, and one loop iteration timed both ways; stepped and
+   streamed walls of both forms, host reads, the graph pool's bytes and
+   the capture time (``--graph`` runs only phases 1-2, 4 and 4b);
 5. AIS: bench.py's AIS-fusion scene (the same shapes with A=32 messages
    per scan and G=2, every target with a transponder) through
    ``Tracker(use_ais=True)`` on the card and on the CPU: the same checks,
@@ -196,6 +210,7 @@ SHARD_TIMEOUT_S, so ranks that diverge fail the run instead of hanging.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -1012,16 +1027,62 @@ def noting_k1_launches(gk):
         return t.clone() if hasattr(t, "clone") else t
 
     def noting(out, *a, **sub):
-        noted.append(([keep(t) for t in a[:7]], keep(a[7]),
-                      dict(zip(names, a[8:12])),
-                      {k: keep(v) for k, v in sub.items() if v is not None}))
+        if not torch.cuda.is_current_stream_capturing():   # see below
+            noted.append(([keep(t) for t in a[:7]], keep(a[7]),
+                          dict(zip(names, a[8:12])),
+                          {k: keep(v) for k, v in sub.items()
+                           if v is not None}))
         return real(out, *a, **sub)
 
+    import torch
     gk.launch = noting
+    GRAPH_NOTES["open"].append(noted)   # a replay notes its graph's launches
     try:
         yield noted
     finally:
         gk.launch = real
+        GRAPH_NOTES["open"].remove(noted)
+
+
+# A replay of a captured step (core/graph.py) makes no call to gk.launch.
+# ``install_graph_notes`` keeps the arguments of every K1 launch made while
+# a StepGraph captures, with that graph; each replay then adds them to the
+# lists of the open ``noting_k1_launches`` blocks, one entry per launch it
+# makes (the tensors are the graph's buffers: their shapes count, their
+# contents are the last replay's).
+GRAPH_NOTES = {"capture": [], "open": []}
+
+
+def install_graph_notes():
+    import torch
+    from pymht_tpu_torch.core import graph as graph_mod
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    real_launch = gk.launch
+    real_init = graph_mod.StepGraph.__init__
+    real_call = graph_mod.StepGraph.__call__
+    names = ("q_scale", "r_var", "eta2", "lambda_ex")
+
+    def launch(out, *a, **sub):
+        if torch.cuda.is_current_stream_capturing():
+            GRAPH_NOTES["capture"].append((
+                list(a[:7]), a[7], dict(zip(names, a[8:12])),
+                {k: v for k, v in sub.items() if v is not None}))
+        return real_launch(out, *a, **sub)
+
+    def init(self, *a, **kw):
+        GRAPH_NOTES["capture"] = []
+        real_init(self, *a, **kw)
+        self.k1_noted = GRAPH_NOTES["capture"]
+
+    def call(self, *a, **kw):
+        out = real_call(self, *a, **kw)
+        for noted in GRAPH_NOTES["open"]:
+            noted.extend(self.k1_noted)
+        return out
+
+    gk.launch = launch
+    graph_mod.StepGraph.__init__ = init
+    graph_mod.StepGraph.__call__ = call
 
 
 def check_noted_launches(gk, noted, what, shape, picks):
@@ -1389,19 +1450,12 @@ def degrade_run(device, launch_sizes=None):
 def degrade_phase():
     from pymht_tpu_torch.ops import gate_kernel as gk
     # the leaves of every K1 launch of the run, noted beside the count
-    sizes, real_launch = [], gk.launch
-
-    def noting_launch(out, x, *args, **kw):
-        sizes.append(x.shape[0])
-        return real_launch(out, x, *args, **kw)
-
     gk.launches = gk.launches_pregate = 0
-    gk.launch = noting_launch
-    try:
+    with noting_k1_launches(gk) as noted:
         gpu = degrade_run("cuda")
-    finally:
-        gk.launch = real_launch
     launches = gk.launches
+    sizes = [inp[0].shape[0] for inp, _, _, _ in noted]
+    del noted
     n, T, (L0, L1) = gpu["n_scans"], gpu["T"], gpu["L"]
     check(launches == n and sizes == [T * L0] * DEGRADE_AFTER
           + [T * L1] * (n - DEGRADE_AFTER),
@@ -1464,6 +1518,274 @@ def roof_phase():
           f"after scans {fired} (L {shapes.max_leaves} -> "
           f"{tr.shapes.max_leaves}); runtime log: {tr.runtime.summary()}")
     return dict(launches=launches, n_scans=len(scans))
+
+
+# ----------------------------------------------------------------------
+# graph phase: the scan step captured as one CUDA graph
+# ----------------------------------------------------------------------
+
+GRAPH_DEGRADE_AFTER = 6      # scans before degrade() in the graph phase
+# graphed against eager on the card: the same kernels in the same order,
+# but cluster's cuBLAS products run on a body stream with a workspace of
+# their own, where cuBLAS may take another reduction split
+GRAPH_RTOL, GRAPH_ATOL = 1e-6, 1e-6
+COND_LOOP_ITERS = 1000       # iterations of the timed WHILE / host loops
+
+
+def eager_step(tr, s):
+    """One scan of ``tr`` through the plain ``scan_step`` (the eager form
+    the graph is held to); returns its outputs on the host."""
+    from pymht_tpu_torch.core.tracker import outputs_to_host, scan_step
+    scan, _ = tr._unpack_inputs(tr._pack_inputs(float(s.time) - tr.t0,
+                                                s.measurements))
+    tr.state, tr.init_state, out = scan_step(
+        tr.state, tr.init_state, scan, None, tr.shapes, tr.params,
+        method="lagrangian", use_ais=False)
+    return outputs_to_host(out)
+
+
+def graph_runs(scene, degrade_at=None):
+    """The radar-only scene stepped twice on the card: the graphed
+    Tracker and the eager ``scan_step``, ``degrade()`` before scan
+    ``degrade_at`` in both.  Returns a dict of both runs' outputs, walls
+    and host reads per scan, K1 launches and condition-kernel runs of the
+    graphed run, and the graphed tracker."""
+    import torch
+    from pymht_tpu_torch import sync
+    from pymht_tpu_torch.kernels import graph_flow
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    shapes, params, scans, _, seeds = scene
+    run = {}
+    for form in ("eager", "graphed"):
+        tr = new_tracker("cuda", shapes, params, scans, seeds, use_ais=False)
+        outs, walls, reads = [], [], []
+        gk.launches = gk.launches_pregate = 0
+        graph_flow.reset_runs()
+        for i, s in enumerate(scans):
+            if i == degrade_at:
+                check(tr.degrade(), "graph: degrade() did not shrink the beam")
+                check(not tr._graphs, "graph: degrade() kept the old graph")
+            t0, r0 = time.perf_counter(), sync.count
+            outs.append(tr.add_measurement_list(s.time, s.measurements)
+                        if form == "graphed" else eager_step(tr, s))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            reads.append(sync.count - r0)
+        run[form] = dict(tracker=tr, outs=outs, walls=walls, reads=reads,
+                         launches=gk.launches, cond_runs=graph_flow.runs())
+    return run
+
+
+def same_graph_outputs(a, b, what):
+    """Integer and boolean step outputs equal, floats within GRAPH_RTOL /
+    GRAPH_ATOL (NaN-free: check_run holds that)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for name, u, v in zip(x._fields, x, y):
+            ok = (np.allclose(u, v, rtol=GRAPH_RTOL, atol=GRAPH_ATOL)
+                  if u.dtype.kind == "f" else np.array_equal(u, v))
+            check(ok, f"{what} scan {i}: {name} differs")
+
+
+def same_states(a, b, what):
+    for f in dataclasses.fields(a):
+        u = getattr(a, f.name).cpu().numpy()
+        v = getattr(b, f.name).cpu().numpy()
+        ok = (np.allclose(u, v, rtol=GRAPH_RTOL, atol=GRAPH_ATOL)
+              if u.dtype.kind == "f" else np.array_equal(u, v))
+        check(ok, f"{what}: state field {f.name} differs")
+
+
+def condition_kernel_times(card):
+    """The condition kernel (csrc/graph_flow.cu) against its plain form:
+    a WHILE node and a nested IF whose exits change with each replay's
+    data, against the same function run eagerly (the plain form reads each
+    exit on the host); then one loop iteration timed both ways: a WHILE
+    node of COND_LOOP_ITERS iterations of one add (CUDA events around a
+    replay) against a host loop of as many iterations of the same add,
+    each reading its exit (``sync.flag``)."""
+    import torch
+    from pymht_tpu_torch import sync
+    from pymht_tpu_torch.kernels import graph_flow
+
+    def fn(n):
+        def body(c, _):
+            x, acc = c
+            acc = sync.cond(x % 3 == 0, lambda: acc + 10 * x,
+                            lambda: acc - x)
+            return x + 1, acc
+        x, acc = sync.while_loop(lambda c: c[0] < n, body,
+                                 (torch.zeros_like(n), torch.zeros_like(n)),
+                                 max_iters=50)
+        once = sync.while_loop(lambda c: c[0] < 0, lambda c, _: (c[0] + 7,),
+                               (n.clone(),), test_first=False)[0]
+        return torch.stack([x, acc, once])
+
+    n = torch.zeros((), dtype=torch.int64, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    with graph_flow.capture(g):
+        out = fn(n)
+    err = 0
+    for v in (0, 1, 7, 20, 80):
+        n.fill_(v)
+        g.replay()
+        want = fn(torch.tensor(v, device="cuda"))
+        err = max(err, int((out - want).abs().max()))
+    check(err == 0, f"graph: the condition kernel's loop and branch differ "
+                    f"from the eager form by {err}")
+    x = torch.zeros((), dtype=torch.int64, device="cuda")
+    lim = torch.full((), COND_LOOP_ITERS, dtype=torch.int64, device="cuda")
+    g2 = torch.cuda.CUDAGraph()
+    with graph_flow.capture(g2):
+        y = sync.while_loop(lambda c: c[0] < lim, lambda c, _: (c[0] + 1,),
+                            (x,))[0]
+    g2.replay()
+    torch.cuda.synchronize()
+    check(int(y) == COND_LOOP_ITERS, f"graph: the timed loop ran {int(y)}")
+    ms = median_ms(g2.replay) / COND_LOOP_ITERS
+
+    def host_loop():
+        c = x.clone()
+        while sync.flag(c < lim):
+            c = c + 1
+    host_loop()
+    plain = []
+    for _ in range(5):        # host clock: each test waits for the device
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_loop()
+        plain.append(time.perf_counter() - t0)
+    plain_ms = 1e3 * float(np.median(plain)) / COND_LOOP_ITERS
+    del g, g2
+    # one run reads the 1-byte test and the 4-byte counter and writes the
+    # counter: 9 bytes at HBM's rate (no arithmetic worth the name)
+    bound_ms = 1e3 * 9 / HBM_BYTES_PER_S
+    print(f"graph: condition kernel against the eager form: max |err| "
+          f"{err}; one WHILE iteration of one add {1e3 * ms:.3f} us on the "
+          f"device, the host-read loop {1e3 * plain_ms:.3f} us per "
+          f"iteration; bound {1e3 * bound_ms:.6f} us (9 bytes) ({card})")
+    return dict(max_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms)
+
+
+def streamed_walls(scene, reps=3):
+    """Wall seconds of the first 12 scans streamed through ``scan_many``
+    (graphed: one replay per scan) and through a loop of the eager
+    ``scan_step`` with one output fetch at the end (the eager form of
+    ``scan_many``), each from the same input state, a warm-up and
+    ``reps`` times; and the graphed run's stacked outputs."""
+    import torch
+    from pymht_tpu_torch import sync
+    from pymht_tpu_torch.core.tracker import (StepOutputs, outputs_to_host,
+                                              scan_many, scan_step)
+    from pymht_tpu_torch.core.grow import Scan
+    shapes, params, scans, _, seeds = scene
+    tr = new_tracker("cuda", shapes, params, scans, seeds, use_ais=False)
+    scan_b, ais_b = tr.make_stream_inputs(scans[:-1])
+    S = scan_b.z.shape[0]
+
+    def graphed():
+        return scan_many(tr.state, tr.init_state, scan_b, ais_b, shapes,
+                         params, use_ais=False, compute_clusters=True)[2]
+
+    def eager():
+        st, ist, outs = tr.state, tr.init_state, []
+        for i in range(S):
+            st, ist, out = scan_step(st, ist, Scan(*(f[i] for f in scan_b)),
+                                     None, shapes, params,
+                                     method="lagrangian", use_ais=False)
+            outs.append(out)
+        return StepOutputs(*[torch.stack(f) for f in zip(*outs)])
+
+    walls, outs, reads = {}, {}, {}
+    for name, fn in (("graphed", graphed), ("eager", eager)):
+        ts = []
+        for k in range(reps + 1):
+            torch.cuda.synchronize()
+            t0, r0 = time.perf_counter(), sync.count
+            outs[name] = outputs_to_host(fn())
+            ts.append(time.perf_counter() - t0)
+            reads[name] = sync.count - r0
+        walls[name] = ts[1:]
+    return walls, outs, reads, S
+
+
+def graph_phase(res, card):
+    """The slice's main path as one captured graph per step (module
+    docstring, phase 8b): the graphed Tracker against the eager
+    ``scan_step`` on the card and against the slice phase's CPU run, with
+    and without a degrade(); ``scan_many`` graphed against stepped; host
+    reads, K1 launches and condition-kernel runs per scan; walls, pool
+    bytes and capture time."""
+    from pymht_tpu_torch.utils.scenes import bench_scene
+    scene = bench_scene()
+    n = len(scene[2])
+    run = graph_runs(scene)
+    gr, eg = run["graphed"], run["eager"]
+    check_run(gr["outs"], "graph")
+    for what, other in (("the eager card run", eg["outs"]),
+                        ("the slice phase's CPU run", res["cpu_outs"])):
+        check(selected_labels(gr["outs"]) == selected_labels(other),
+              f"graph: the graphed run's labels differ from {what}")
+    same_graph_outputs(gr["outs"], eg["outs"], "graph: graphed vs eager")
+    same_states(gr["tracker"].state, eg["tracker"].state,
+                "graph: final state, graphed vs eager")
+    check(max(gr["reads"]) <= 1 and gr["tracker"].host_syncs
+          == gr["reads"], f"graph: host reads per scan {gr['reads']}")
+    check(gr["launches"] == n, f"graph: K1 launched {gr['launches']} times "
+                               f"in {n} replays")
+    (g,) = gr["tracker"]._graphs.values()
+    check(g.replays == n, f"graph: {g.replays} replays for {n} scans")
+    pool = g.pool_bytes()
+    # degrade() half way, in both forms
+    deg = graph_runs(scene, degrade_at=GRAPH_DEGRADE_AFTER)
+    check(selected_labels(deg["graphed"]["outs"])
+          == selected_labels(deg["eager"]["outs"]),
+          "graph: after degrade() the labels differ from the eager run")
+    same_graph_outputs(deg["graphed"]["outs"], deg["eager"]["outs"],
+                       "graph degrade: graphed vs eager")
+    (g2,) = deg["graphed"]["tracker"]._graphs.values()
+    check(g2.shapes.max_leaves == scene[0].max_leaves // 2
+          and g2.replays == n - GRAPH_DEGRADE_AFTER
+          and deg["graphed"]["launches"] == n,
+          "graph: degrade() did not re-capture at the half beam")
+    # scan_many graphed against the stepped graphed run
+    walls_s, outs_s, reads_s, S = streamed_walls(scene)
+    same_graph_outputs(unstacked(outs_s["graphed"]), gr["outs"][:S],
+                       "graph: scan_many graphed vs stepped")
+    same_graph_outputs(unstacked(outs_s["eager"]), eg["outs"][:S],
+                       "graph: eager stream vs eager steps")
+    check(reads_s["graphed"] == 1, f"graph: scan_many read the host "
+                                   f"{reads_s['graphed']} times")
+    cond = condition_kernel_times(card)
+
+    def ms(walls):
+        return 1e3 * float(np.median(walls[2:]))
+    out = dict(
+        launches=gr["launches"], cond_runs=gr["cond_runs"], n_scans=n,
+        stepped_ms={k: ms(run[k]["walls"]) for k in run},
+        reads_per_scan={k: float(np.mean(run[k]["reads"])) for k in run},
+        streamed_ms={k: 1e3 * float(np.median(v)) / S
+                     for k, v in walls_s.items()},
+        stream_reads={k: v / S for k, v in reads_s.items()},
+        pool_bytes=pool, pool_bytes_half_beam=g2.pool_bytes(),
+        capture_s=g.capture_s, capture_s_half_beam=g2.capture_s, **cond)
+    print(f"graph: the radar-only bench scene (100 targets, T=128, L=32, "
+          f"M=512, {n} scans, 'lagrangian'), graphed Tracker against eager "
+          f"scan_step on the card and the CPU run: labels equal on every "
+          f"scan, floats within {GRAPH_ATOL}; stepped ms/scan (median of "
+          f"scans 3-{n}) graphed {out['stepped_ms']['graphed']:.3f}, eager "
+          f"{out['stepped_ms']['eager']:.3f}; streamed ms/scan (median of "
+          f"3 after a warm-up, {S} scans) graphed "
+          f"{out['streamed_ms']['graphed']:.3f}, eager "
+          f"{out['streamed_ms']['eager']:.3f}; host reads per scan stepped "
+          f"{out['reads_per_scan']}, streamed {out['stream_reads']}; K1 "
+          f"{gr['launches']} launches in {g.replays} replays; condition "
+          f"kernel {gr['cond_runs']} runs ({gr['cond_runs'] / n:.1f} per "
+          f"scan); graph pool {pool} bytes ({g2.pool_bytes()} at L=16), "
+          f"capture {g.capture_s:.2f} s ({g2.capture_s:.2f} s at L=16); "
+          f"degrade() after {GRAPH_DEGRADE_AFTER} scans re-captured and "
+          f"agrees ({card})", flush=True)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -3462,11 +3784,13 @@ def scripts_phase(card, workdir, res):
 
 
 def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
-                 gaps, mc, mcb, mca, mcp, mci, s1, s2, swarm, scripts):
+                 gaps, mc, mcb, mca, mcp, mci, s1, s2, swarm, scripts,
+                 graph):
     """The line before the card's: K1's two entry points, each with its
     launches on the main paths (counted from 0 around each phase's run),
     the shapes it ran at, its largest |err| against the twin, its times
-    and its bound."""
+    and its bound; and graph_flow.cu's condition kernel, with its runs on
+    the graph phase's graphed run (read from the device's count)."""
     def script_shapes(entry):
         seen = {}
         for name, shapes in scripts["launch_shapes"].items():
@@ -3572,7 +3896,26 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
         **{f"batch_{key}_{name}": r[name]
            for key, r in (("ais", mca), ("pregate", mcp), ("ipm", mci))
            for name in ("ms_per_scan", "reads_per_scan", "peak_gib")}}
-    return {"kernels": [shared, sub]}
+    cond = {
+        "name": "graph_flow_condition",
+        "route": "cuda",
+        "source": "pymht_tpu_torch/csrc/graph_flow.cu",
+        "replaces": "pymht_tpu/core/tracker.py:335 (jax.jit: the device-"
+                    "side exits of lax.while_loop and lax.cond; no Pallas "
+                    "kernel)",
+        "launches": graph["cond_runs"],
+        "max_abs_err": graph["max_err"],
+        "ms": graph["ms"],
+        "plain_ms": graph["plain_ms"],
+        "bound_ms": graph["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "runs_per_scan": graph["cond_runs"] / graph["n_scans"],
+        "stepped_ms_per_scan": graph["stepped_ms"],
+        "streamed_ms_per_scan": graph["streamed_ms"],
+        "host_reads_per_scan": graph["reads_per_scan"],
+        "graph_pool_bytes": graph["pool_bytes"]}
+    return {"kernels": [shared, sub, cond]}
 
 
 def main(argv):
@@ -3582,7 +3925,7 @@ def main(argv):
     t_start = time.perf_counter()
     ab = argv[1:] if argv[:1] == ["--k1-ab"] and len(argv) in (2, 3) \
         else None
-    if argv not in ([], ["--k1-guard"]) and ab is None:
+    if argv not in ([], ["--k1-guard"], ["--graph"]) and ab is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     guard_only = argv == ["--k1-guard"] or ab is not None
@@ -3600,10 +3943,15 @@ def main(argv):
           f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
-    so = build.build("gate_score")
-    print(f"build: gate_score.cu in {time.perf_counter() - t0:.2f} s "
-          f"(0 if already built) -> {so.name}")
+    # one nvcc per source, started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        so, so_flow = pool.map(build.build, ("gate_score", "graph_flow"))
+    print(f"build: gate_score.cu and graph_flow.cu in "
+          f"{time.perf_counter() - t0:.2f} s (0 if already built) -> "
+          f"{so.name}, {so_flow.name}")
     print(so.with_suffix(".log").read_text().strip())
+    print(so_flow.with_suffix(".log").read_text().strip())
+    install_graph_notes()
 
     from pymht_tpu_torch.ops import gate_kernel as gk
     sms, per_sm = gk.occupancy()
@@ -3639,6 +3987,12 @@ def main(argv):
           f"{1e3 * k1p['bound_ms']:.3f} us ({k1p['bytes']} bytes at 3.35 "
           f"TB/s, bound by {k1p['bound_by']}): the kernel reaches "
           f"{k1p['bound_ms'] / k1p['kernel_ms']:.3f} of it")
+    if argv == ["--graph"]:
+        res = slice_phase()
+        graph_phase(res, card)
+        print(f"chip_smoke --graph: {time.perf_counter() - t_start:.1f} s "
+              f"in all")
+        return 0
     guard_phase(card)
     if ab is not None:
         k1_ab_phase(ab[0], card, *ab[1:])
@@ -3648,6 +4002,7 @@ def main(argv):
         return 0
 
     res = slice_phase()
+    graph = graph_phase(res, card)
     ais = ais_phase()
     stream = stream_phase(ais)
     deg = degrade_phase()
@@ -3702,7 +4057,7 @@ def main(argv):
     print(card)
     print(json.dumps(kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof,
                                   ipm, pure, ckpt, gaps, mc, mcb, mca, mcp,
-                                  mci, s1, s2, swarm, scripts)))
+                                  mci, s1, s2, swarm, scripts, graph)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

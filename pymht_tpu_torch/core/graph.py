@@ -1,0 +1,163 @@
+"""``scan_step`` captured as one CUDA graph and replayed once per scan:
+the counterpart of the ``jax.jit`` on the JAX Tracker's step
+(pymht_tpu/core/tracker.py:333-335) and of ``scan_many``'s ``lax.scan``
+(:225-245).
+
+A ``StepGraph`` captures ``scan_step`` once per set of shapes, parameters
+and static flags, on buffers of its own: the state, the initiator state
+and one scan (z, mask, time).  Every loop and branch of the step becomes
+a conditional node tested on the device (``sync`` under
+``kernels/graph_flow.capture``), so a replay reads nothing on the host.
+The captured step ends by writing the next state over the state it read,
+as JAX's ``donate_argnums`` lets the jitted step do: after a replay
+``graph.state`` and ``graph.init_state`` ARE the next states, and
+``graph.out`` holds the scan's outputs until the next replay.  A capture
+that fails raises; nothing falls back to eager steps.
+
+The slice that is captured (``graphable``): one unbatched forest on the
+card, ``method='lagrangian'``, radar only (no AIS batch), no pre-gate,
+no ``select_kw``, any of ``prune_similar``, ``compute_clusters`` and
+``dynamic_window``.  Everything else steps eagerly.
+
+K1 is launched once inside the graph: ``gate_kernel.launches`` (and
+``launches_pregate``) are counted per replay from what the capture
+launched, so a count per scan stays true.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from .. import sync
+from ..kernels import graph_flow
+from ..ops import gate_kernel as gk
+from .grow import Scan
+
+GRAPHS_KEPT = 4          # graphs ``scan_many`` keeps, least recent dropped
+GRAPHS = {}              # ``scan_many``'s graphs by key, oldest first
+
+_warm = set()            # devices whose cuBLAS handle exists
+
+
+def graphable(state, shapes, method: str, use_ais: bool,
+              select_kw=None) -> bool:
+    """Does this step run as a captured graph (module docstring)?"""
+    Km = shapes.radar_cand_width
+    return (state.leaf_x.is_cuda and state.hist_meas.dim() == 3
+            and method == 'lagrangian' and not use_ais
+            and not 0 < Km < shapes.max_meas and not select_kw)
+
+
+def _fields(obj) -> list:
+    return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+
+
+def clone_state(obj):
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).clone()
+                                       for f in dataclasses.fields(obj)})
+
+
+class StepGraph:
+    """``scan_step`` on one scan, captured (module docstring).  ``flags``:
+    the keyword arguments of ``scan_step`` that are static
+    (``prune_similar``, ``compute_clusters``, ``dynamic_window``)."""
+
+    def __init__(self, state, init_state, shapes, params, flags: dict):
+        from .tracker import StepOutputs, scan_step
+        dev = state.leaf_x.device
+        self.shapes, self.params, self.flags = shapes, params, dict(flags)
+        self.state = clone_state(state)
+        self.init_state = clone_state(init_state)
+        M = shapes.max_meas
+        self.scan = Scan(z=torch.zeros((M, 2), device=dev),
+                         mask=torch.zeros((M,), dtype=torch.bool, device=dev),
+                         time=torch.zeros((), device=dev))
+        if dev not in _warm:     # the thread's cuBLAS handle, made outside
+            torch.ones(2, 2, device=dev) @ torch.ones(2, 2, device=dev)
+            _warm.add(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        reads, k1, k1_sub = sync.count, gk.launches, gk.launches_pregate
+        tic = time.perf_counter()
+        with graph_flow.capture(self.graph):
+            st, ist, out = scan_step(self.state, self.init_state, self.scan,
+                                     None, shapes, params,
+                                     method='lagrangian', use_ais=False,
+                                     **self.flags)
+            static = _fields(self.state) + _fields(self.init_state)
+            out = StepOutputs(*(
+                t.clone() if any(sync.same_storage(t, s) for s in static)
+                else t for t in out))
+            sync.write_over(_fields(self.state), tuple(_fields(st)),
+                            "the captured step")
+            sync.write_over(_fields(self.init_state), tuple(_fields(ist)),
+                            "the captured step")
+        self.capture_s = time.perf_counter() - tic
+        if sync.count != reads:
+            raise RuntimeError("StepGraph: the capture read the host")
+        self.k1, self.k1_pregate = (gk.launches - k1,
+                                    gk.launches_pregate - k1_sub)
+        gk.launches, gk.launches_pregate = k1, k1_sub   # nothing ran yet
+        self.out = out
+        self.replays = 0
+
+    def load(self, state, init_state):
+        """Make the graph's state buffers hold ``state`` and
+        ``init_state`` (device copies of the fields that are not the
+        buffers themselves)."""
+        for obj, buf in ((state, self.state), (init_state, self.init_state)):
+            for f in dataclasses.fields(buf):
+                src, dst = getattr(obj, f.name), getattr(buf, f.name)
+                if src is not dst:
+                    dst.copy_(src)
+
+    def __call__(self, z, mask, scan_time):
+        """One scan: copy it in, replay; returns the outputs' buffers."""
+        self.scan.z.copy_(z)
+        self.scan.mask.copy_(mask)
+        self.scan.time.copy_(scan_time)
+        self.graph.replay()
+        gk.launches += self.k1
+        gk.launches_pregate += self.k1_pregate
+        self.replays += 1
+        return self.out
+
+    def pool_bytes(self) -> int:
+        """Device memory held by the graph's private pool."""
+        pool = tuple(self.graph.pool())
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == pool)
+
+
+def get(graphs: dict, state, init_state, shapes, params, flags: dict,
+        kept: int = None) -> StepGraph:
+    """The graph of this configuration in ``graphs``, captured on first
+    use (with at most ``kept`` graphs kept, the least recent dropped)."""
+    key = (shapes, params, state.leaf_x.device, tuple(sorted(flags.items())))
+    g = graphs.pop(key, None)       # re-inserted last: the most recent
+    if g is None:
+        while kept is not None and len(graphs) >= kept:
+            graphs.pop(next(iter(graphs)))
+        g = StepGraph(state, init_state, shapes, params, flags)
+    graphs[key] = g
+    return g
+
+
+def replay_many(g: StepGraph, state, init_state, scans: Scan):
+    """``scan_many`` on the graph: one replay per scan, each scan copied
+    in and each output copied into row i of the stacked outputs, with
+    nothing read in between.  Returns (the graph's state buffers, its
+    initiator buffers, the stacked StepOutputs)."""
+    from .tracker import StepOutputs
+    g.load(state, init_state)
+    S = scans.z.shape[0]
+    stacked = None
+    for i in range(S):
+        out = g(scans.z[i], scans.mask[i], scans.time[i])
+        if stacked is None:
+            stacked = [torch.empty((S, *t.shape), dtype=t.dtype,
+                                   device=t.device) for t in out]
+        for row, t in zip(stacked, out):
+            row[i].copy_(t)
+    return g.state, g.init_state, StepOutputs(*stacked)

@@ -100,8 +100,10 @@ def _claim(mask, idx, ok):
     """``mask`` with entries ``idx[ok]`` set (a copy)."""
     *lead, M = mask.shape
     out = torch.cat([mask, mask.new_zeros((*lead, 1))], dim=-1)
+    # a device value, not a Python scalar: no host copy under capture
     out[(*lead_index(lead, mask.device, extra=1),
-         torch.where(ok, idx.long(), M))] = True
+         torch.where(ok, idx.long(), M))] = torch.ones(
+        (), dtype=torch.bool, device=mask.device)
     return out[..., :M]
 
 

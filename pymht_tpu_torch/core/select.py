@@ -131,9 +131,11 @@ def _hist_usage(state: TrackerState, shapes: TrackerShapes, tgt_filter=None):
                      base + M + state.hist_ais - 1, n)
     out = torch.zeros((math.prod(lead) * (n + 1),), dtype=torch.bool,
                       device=dev)
-    # int64 indices: n cannot overflow
-    out[_batch_offset(mi, lead, n + 1).reshape(-1)] = True
-    out[_batch_offset(ai, lead, n + 1).reshape(-1)] = True
+    # int64 indices: n cannot overflow; the value is a device scalar (a
+    # Python one would be copied from the host, which a capture refuses)
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    out[_batch_offset(mi, lead, n + 1).reshape(-1)] = one
+    out[_batch_offset(ai, lead, n + 1).reshape(-1)] = one
     return out.view(*lead, n + 1)[..., :n].reshape(*lead, T, W, P)
 
 
@@ -220,8 +222,9 @@ def _compact_usage(state: TrackerState, shapes: TrackerShapes, rank_pad,
     tids = torch.arange(T, device=dev)[:, None, None].expand(mi.shape) \
         .reshape(*lead, -1)
     uc = torch.zeros((*lead, T, cap + 1), dtype=torch.float32, device=dev)
+    one = torch.ones((), device=dev)
     for idx in (mi, ai):
-        uc[(*bi, tids, rank_pad[(*bi, idx.reshape(*lead, -1))])] = 1.0
+        uc[(*bi, tids, rank_pad[(*bi, idx.reshape(*lead, -1))])] = one
     return uc[..., :cap]
 
 
@@ -286,7 +289,8 @@ def cluster(state: TrackerState, shapes: TrackerShapes, usage=None):
     # the JAX loop's first test is always true
     labels, _ = sync.while_loop(
         lambda c: c[1], lambda c, _: _propagate_labels(adj, c),
-        (torch.where(tm, tids, T), None), test_first=False)
+        (torch.where(tm, tids, T), torch.ones_like(tm[..., 0])),
+        test_first=False)
     is_root = tm & (labels == tids)
     return labels.int(), is_root.sum(dim=-1).int()
 
@@ -802,13 +806,15 @@ def _repair(cp: _Compact, sel, lam, repair_rounds, active=None):
 
     sel = sync.while_loop(
         go_on, lambda c, _: _repair_round(cp, rc, c),
-        (sel, torch.zeros_like(cp.f, dtype=torch.bool), None),
+        (sel, torch.zeros_like(cp.f, dtype=torch.bool),
+         torch.ones_like(cp.eff_tgt[..., 0])),
         max_iters=repair_rounds, test_first=False)[0]
     return sel, ~(_usage_count(cp, sel) > 1.5).any(dim=-1)
 
 
 class _LagCarry(NamedTuple):
-    it: int
+    it: torch.Tensor          # [] i64: iterations run (a device value, so
+                              # that a captured body tests its cadence)
     lam: torch.Tensor
     best_sel: torch.Tensor
     best_obj: torch.Tensor
@@ -832,13 +838,14 @@ def _lagrangian_step(cp: _Compact, repair_rounds, repair_cadence,
     cnt = _usage_count(cp, sel)
     g = torch.where((cnt > 0) | (c.lam > 0), cnt - 1.0, 0.0)
     feas = ~(cnt > 1.5).any(dim=-1)
-    sel_c, feas_c = sel, feas
-    if c.it % repair_cadence == 0:
-        need = ~feas if active is None else ~feas & active
-        sel_c, feas_c = sync.cond(
-            need, lambda: _repair(cp, sel, c.lam, repair_rounds,
-                                  need if need.dim() else None),
-            lambda: (sel, feas))
+    # repair on cadence, as one branch every iteration
+    need = ~feas & (c.it % repair_cadence == 0)
+    if active is not None:
+        need = need & active
+    sel_c, feas_c = sync.cond(
+        need, lambda: _repair(cp, sel, c.lam, repair_rounds,
+                              need if need.dim() else None),
+        lambda: (sel, feas))
     obj = torch.where(feas_c, _obj_of(cp, sel_c), INF)
     better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
     material = feas_c & ((obj < c.best_obj
@@ -896,7 +903,7 @@ def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
     sel_seed, feas_seed = _repair(cp, sel_seed, lam0, repair_rounds)
     obj_seed = torch.where(feas_seed, _obj_of(cp, sel_seed), INF)
     zero_i = torch.zeros(lead, dtype=torch.int64, device=dev)
-    c = _LagCarry(0, lam0, sel_seed, obj_seed, feas_seed, lb_seed, zero_i,
+    c = _LagCarry(zero_i, lam0, sel_seed, obj_seed, feas_seed, lb_seed, zero_i,
                   torch.full(lead, theta, dtype=torch.float32, device=dev),
                   zero_i)
     c = sync.while_loop(
@@ -966,8 +973,9 @@ def _contested_leaf_usage(state: TrackerState, shapes: TrackerShapes, big,
             .expand(*lead, T * L, W).reshape(*lead, -1)
         Uc2 = torch.zeros((*lead, T * L, CAP + 1), dtype=torch.float32,
                           device=dev)
+        one = torch.ones((), device=dev)
         for idx in (mi, ai):
-            Uc2[(*bi, tlids, rank_pad[(*bi, idx.reshape(*lead, -1))])] = 1.0
+            Uc2[(*bi, tlids, rank_pad[(*bi, idx.reshape(*lead, -1))])] = one
         Uc = Uc2[..., :CAP].reshape(*lead, T, L, CAP)
     return Uc, col_slot, col_ok, n_cont, eff_leaf
 

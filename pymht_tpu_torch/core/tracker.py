@@ -31,6 +31,7 @@ from .merge import prune_similar as merge_similar
 from .select import cluster, select
 from .lifecycle import n_scan_prune, terminate
 from . import initiator as initiator_mod
+from . import graph as graph_mod
 
 
 class StepOutputs(NamedTuple):
@@ -210,8 +211,9 @@ def _merge_new_targets(new_x, new_mask, new_mmsi, threshold):
     close = (d < threshold) & new_mask[..., :, None] & new_mask[..., None, :]
     first = close.int().argmax(dim=-1)
     rep = first == torch.arange(K, device=new_x.device)
-    member_of = (torch.nn.functional.one_hot(first, K).float()
-                 * new_mask[..., None])
+    # a compare, not one_hot: on the CPU one_hot reads its input's range
+    member_of = ((first[..., None] == torch.arange(K, device=new_x.device))
+                 .float() * new_mask[..., None])
     counts = member_of.sum(dim=-2)
     if member_of.dim() == 2:
         summed = member_of.T @ new_x
@@ -232,7 +234,19 @@ def scan_many(state, init_state, scans: Scan, ais: Optional[AisBatch],
               select_kw: Optional[dict] = None):
     """Process a batch of scans (leading time axis on ``scans`` and on
     ``ais``) one ``scan_step`` after another, with nothing fetched in
-    between.  Returns (state, init_state, stacked StepOutputs)."""
+    between.  Returns (state, init_state, stacked StepOutputs).  On the
+    card, for the configurations ``graph.graphable`` names, each scan is
+    one replay of the step's captured graph (core/graph.py: the
+    counterpart of the JAX function's ``lax.scan``), and the states
+    returned are copies of the graph's buffers."""
+    if graph_mod.graphable(state, shapes, method, use_ais, select_kw):
+        g = graph_mod.get(graph_mod.GRAPHS, state, init_state, shapes, params,
+                          dict(compute_clusters=compute_clusters,
+                               dynamic_window=dynamic_window,
+                               prune_similar=prune_similar),
+                          kept=graph_mod.GRAPHS_KEPT)
+        st, ist, outs = graph_mod.replay_many(g, state, init_state, scans)
+        return graph_mod.clone_state(st), graph_mod.clone_state(ist), outs
     outs = []
     for i in range(scans.z.shape[0]):
         scan = Scan(*(f[i] for f in scans))
@@ -342,6 +356,16 @@ class Tracker:
     transfer); ``chunk_syncs`` the same per streamed chunk, as (scans,
     reads).  Every wall-clock trigger reads the time through
     ``self._clock``.
+
+    On the card, ``method='lagrangian'`` without AIS and without the
+    pre-gate steps as one captured CUDA graph per set of shapes and
+    flags, replayed once per scan with no host read inside
+    (core/graph.py, the counterpart of the JAX class's jitted step):
+    ``self.state`` and ``self.init_state`` are then the graph's buffers,
+    written over by each scan (copy a state to keep it), ``degrade``
+    captures anew, and ``stream`` replays a graph of its own per scan.
+    AIS, the pre-gate, ``'ipm'``, ``'lagrangian_pure'`` and ``'greedy'``
+    step eagerly, as on the CPU.
     """
 
     def __init__(self, shapes: TrackerShapes = TrackerShapes(),
@@ -366,6 +390,7 @@ class Tracker:
         self._degrade_cooldown = 0
         self._clock = time.perf_counter
         self._pending = None      # (device outputs, scan count)
+        self._graphs = {}         # captured steps (core/graph.py) by key
         self.state = empty_state(shapes, params, self.device)
         self.init_state = initiator_mod.empty_initiator(shapes, self.device)
         self.archives = {}          # id -> TrackArchive
@@ -452,8 +477,24 @@ class Tracker:
             high_accuracy=take((A,), torch.bool),
             mask=take((A,), torch.bool))
 
+    def _graphed(self, kw) -> bool:
+        return graph_mod.graphable(self.state, self.shapes, self.method,
+                                   self.use_ais, kw.get('select_kw'))
+
+    def _graph(self, flags: dict) -> graph_mod.StepGraph:
+        return graph_mod.get(self._graphs, self.state, self.init_state,
+                             self.shapes, self.params,
+                             dict(flags, prune_similar=self.prune_similar))
+
     def _step(self, packed, **kw):
         scan, ais = self._unpack_inputs(packed)
+        if self._graphed(kw):
+            g = self._graph(kw)
+            g.load(self.state, self.init_state)
+            out = g(scan.z, scan.mask, scan.time)
+            if self.pipeline_outputs:    # kept past the next replay
+                out = StepOutputs(*(t.clone() for t in out))
+            return g.state, g.init_state, out
         return scan_step(self.state, self.init_state, scan, ais,
                          self.shapes, self.params, method=self.method,
                          use_ais=self.use_ais,
@@ -586,6 +627,7 @@ class Tracker:
         if new_L >= L:
             return False
         self.flush()
+        self._graphs.clear()      # re-captured at the new shapes
         self.state = shrink_beam(self.state, new_L)
         kw = dict(max_leaves=new_L)
         if ais_per_leaf is not None:
@@ -691,13 +733,19 @@ class Tracker:
             tic = self._clock()
             n_sync = sync.count
             scan_b, ais_b = self.make_stream_inputs(sub, group)
-            self.state, self.init_state, outs = scan_many(
-                self.state, self.init_state, scan_b, ais_b, self.shapes,
-                self.params, method=self.method, use_ais=self.use_ais,
-                ais_initialization=self.ais_initialization,
-                compute_clusters=compute_clusters,
-                dynamic_window=dynamic_window,
-                prune_similar=self.prune_similar)
+            if self._graphed({}):
+                self.state, self.init_state, outs = graph_mod.replay_many(
+                    self._graph(dict(compute_clusters=compute_clusters,
+                                     dynamic_window=dynamic_window)),
+                    self.state, self.init_state, scan_b)
+            else:
+                self.state, self.init_state, outs = scan_many(
+                    self.state, self.init_state, scan_b, ais_b, self.shapes,
+                    self.params, method=self.method, use_ais=self.use_ais,
+                    ais_initialization=self.ais_initialization,
+                    compute_clusters=compute_clusters,
+                    dynamic_window=dynamic_window,
+                    prune_similar=self.prune_similar)
             outs_np = outputs_to_host(outs)
             self.chunk_syncs.append((len(sub), sync.count - n_sync))
             per_scan = (self._clock() - tic) / len(sub)

@@ -2,7 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, which is loaded with
-``ctypes``; each ``csrc/<name>.cpp`` is host C++ (the exact solvers of
+``ctypes``; a source in ``TORCH_LINKED`` also includes PyTorch's C10
+headers and links against its ``c10_cuda`` library, with the include
+and library paths of ``torch.utils.cpp_extension`` and PyTorch's C++ ABI
+(``csrc/graph_flow.cu`` reaches the caching allocator so).  Each
+``csrc/<name>.cpp`` is host C++ (the exact solvers of
 ``pymht_tpu_torch.native``) and is compiled by the host's C++ compiler.
 Libraries land in ``build/pymht_tpu_torch/`` at the root of the checkout
 (listed in ``.gitignore``), named by a hash of the source and the flags,
@@ -25,6 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pymht_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+TORCH_LINKED = frozenset({"graph_flow"})
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -61,8 +66,24 @@ def _source(name: str) -> Path:
     raise FileNotFoundError(f"no source for {name!r} under {CSRC}")
 
 
+def torch_flags() -> tuple:
+    """nvcc flags that compile against PyTorch's C10 headers and link
+    against ``libc10_cuda``: the paths of ``torch.utils.cpp_extension``
+    and PyTorch's C++ ABI."""
+    import torch
+    from torch.utils import cpp_extension
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    flags = [f"-D_GLIBCXX_USE_CXX11_ABI={abi}"]
+    flags += [f"-I{p}" for p in cpp_extension.include_paths()]
+    for p in cpp_extension.library_paths():
+        flags += [f"-L{p}", f"-Xlinker=-rpath,{p}"]
+    return tuple(flags) + ("-lc10_cuda", "-lc10")
+
+
 def _flags(src: Path) -> tuple:
-    return NVCC_FLAGS if src.suffix == ".cu" else HOST_FLAGS
+    if src.suffix != ".cu":
+        return HOST_FLAGS
+    return NVCC_FLAGS + (torch_flags() if src.stem in TORCH_LINKED else ())
 
 
 def library_path(name: str, src=None) -> Path:
@@ -84,8 +105,11 @@ def build(name: str, src=None) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ([find_nvcc(), *NVCC_FLAGS] if src.suffix == ".cu"
-           else host_compiler()) + ["-o", tmp, str(src)]
+    flags = _flags(src)
+    libs = [f for f in flags if f.startswith("-l")]   # after the source
+    cmd = ([find_nvcc(), *(f for f in flags if f not in libs)]
+           if src.suffix == ".cu" else host_compiler()) + ["-o", tmp,
+                                                           str(src), *libs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)

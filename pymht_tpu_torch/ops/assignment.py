@@ -7,10 +7,11 @@ alternating-path augmentation until no augmenting path exists (Berge),
 so cardinality always equals the Hungarian oracle's and cost is within
 n*eps on instances the auction resolves inside its cap.
 
-Every loop keeps JAX's ``lax.while_loop`` semantics by reading its exit
-condition on the host (``sync.while_loop``).  Each body is a function
-from carry to carry, so a fixed-trip device loop can replace the host
-loop without touching the arithmetic.  Cost matrices may carry leading
+Every loop keeps JAX's ``lax.while_loop`` semantics through
+``sync.while_loop``: its exit is read on the host eagerly, and tested on
+the device in a captured graph.  Each body is a function from carry to
+carry that makes the same operations every time it runs and reads no
+value on the host.  Cost matrices may carry leading
 scenario axes ([..., R, C]): each scenario's loops then run as under
 ``jax.vmap``, a scenario that is done waiting unchanged for the others.
 """
@@ -179,21 +180,26 @@ def _bfs(valid, row_of, owner, max_layers, active=None):
 
 def _flip(row_of, owner, end_col, col_parent, active=None):
     """Flip the augmenting path ending at free column ``end_col`` (in the
-    ``active`` scenarios).  With scenario axes the path's writes are
-    per-scenario scatters: no index is read on the host."""
-    bi = lead_index(row_of.shape[:-1], row_of.device)
+    ``active`` scenarios).  The path's reads and writes are gathers and
+    scatters of one element per scenario (an index that is a 0-d tensor
+    would be read on the host); an index of -1, in a scenario that is
+    done, wraps as Python indexing does and rewrites what is there."""
+    R, C = row_of.shape[-1], col_parent.shape[-1]
 
     def step(carry, running):
         row_of, owner, c = carry
-        r = col_parent[(*bi, c)]
-        c_prev = row_of[(*bi, r)]    # -1 once r is a source row
+        ci = (c % C)[..., None]
+        r = col_parent.gather(-1, ci)
+        ri = r % R
+        c_prev = row_of.gather(-1, ri)   # -1 once r is a source row
         if running is None:
-            row_of[(*bi, r)] = c
-            owner[(*bi, c)] = r
-        else:                        # scenarios that are done keep theirs
-            row_of[(*bi, r)] = torch.where(running, c, c_prev)
-            owner[(*bi, c)] = torch.where(running, r, owner[(*bi, c)])
-        return row_of, owner, c_prev
+            row_of.scatter_(-1, ri, c[..., None])
+            owner.scatter_(-1, ci, r)
+        else:                            # scenarios that are done keep theirs
+            run = running[..., None]
+            row_of.scatter_(-1, ri, torch.where(run, c[..., None], c_prev))
+            owner.scatter_(-1, ci, torch.where(run, r, owner.gather(-1, ci)))
+        return row_of, owner, c_prev[..., 0]
 
     def go_on(carry):
         p = carry[2] >= 0

@@ -11,6 +11,7 @@
     python -m pymht_tpu_torch.profile_step --batch 32 --pregate 64
     python -m pymht_tpu_torch.profile_step --batch 8 --demo --method ipm
     python -m pymht_tpu_torch.profile_step --swarm   # the swarm benchmark
+    python -m pymht_tpu_torch.profile_step --eager   # no captured graph
 
 Runs the radar-only bench scene (``Tracker(use_ais=False)``) or, with
 ``--ais``, the AIS-fusion scene (``Tracker(use_ais=True)``, A=32, G=2;
@@ -31,13 +32,22 @@ and ``--pregate``; a "scan" below is then one batched scan.  With
 ``--swarm`` it profiles the swarm benchmark's 8 scans, streamed in one
 ``scan_many`` as ``scripts/bench_swarm.run`` streams them (once to warm
 up, once under the profiler; no phases alone, and every scan counts).
-Over the steady scans (3 onwards) it reports:
+The Tracker steps the radar-only ``'lagrangian'`` scene as one captured
+CUDA graph per scan (core/graph.py); ``--eager`` steps it through the
+plain ``scan_step`` instead and also reports, per loop of ``sync.
+while_loop`` (by the source line of its body), the bodies run per scan
+and the device time per body (the kernels launched inside it, nested
+loops included).  Over the steady scans (3 onwards) it reports:
 
 * per phase (grow, select, terminate + prune, initiate), the wall time of
   that phase alone, run on the step's own inputs and closed by
   ``torch.cuda.synchronize()`` — the step itself is then run unchanged;
 * a ``torch.profiler`` trace of the whole steps: device time by kernel,
   device busy time per scan and the device's idle share of the window.
+  For the graphed step it also reports the device time of one replay
+  (CUDA events) and the condition kernel's runs per scan as the device
+  counted them: the trace may not hold the kernels that run inside a
+  conditional node.
 
 Prints one JSON object.  Nothing here runs on the tracker's hot path.
 """
@@ -60,7 +70,9 @@ from .core.grow import grow
 from .core.lifecycle import n_scan_prune, terminate
 from .core.merge import prune_similar
 from .core.select import select
-from .core.tracker import Tracker
+from .core import graph as graph_mod
+from .core.tracker import Tracker, scan_step
+from .kernels import graph_flow
 from .utils.scenes import bench_scene, bench_scene_ais
 
 
@@ -118,6 +130,9 @@ def main(argv=None):
                     help="with --batch: draws of the demo scene (AIS on)")
     ap.add_argument("--swarm", action="store_true",
                     help="the swarm benchmark's streamed scans")
+    ap.add_argument("--eager", action="store_true",
+                    help="step through the plain scan_step (no graph); "
+                         "report each loop's bodies and device time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -142,6 +157,8 @@ def main(argv=None):
                      device="cuda", prune_similar=args.prune_similar)
         tr.pre_initialize(scans[0].time - params.radar_period, seeds,
                           mmsi=mmsi)
+        if args.eager:
+            tr._step = functools.partial(_eager_step, tr)
         if args.dynamic_window:
             tr._step = functools.partial(tr._step, dynamic_window=True)
         return tr
@@ -158,20 +175,31 @@ def main(argv=None):
         tr.add_measurement_list(s.time, s.measurements, messages(i))
     # pass 2: the unchanged steps under the profiler
     tr = new_tracker()
+    loops = _LoopRanges() if args.eager else contextlib.nullcontext()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
-    for i, s in enumerate(scans):
-        if i == 2:
-            torch.cuda.synchronize()
-            prof.__enter__()
-            t_window = time.perf_counter()
-        tr.add_measurement_list(s.time, s.measurements, messages(i))
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t_window)
-    prof.__exit__(None, None, None)
+    with loops:
+        for i, s in enumerate(scans):
+            if i == 2:
+                torch.cuda.synchronize()
+                prof.__enter__()
+                graph_flow.reset_runs()
+                t_window = time.perf_counter()
+            tr.add_measurement_list(s.time, s.measurements, messages(i))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t_window)
+        prof.__exit__(None, None, None)
     n = len(scans) - 2
     busy_ms, events, top = _device_time(prof)
+    graphs = list(tr._graphs.values())
+    graphed = {}
+    if graphs:
+        graphed = {
+            "graph_pool_bytes": graphs[0].pool_bytes(),
+            "graph_capture_s": graphs[0].capture_s,
+            "condition_kernel_runs_per_scan": graph_flow.runs() / n,
+            "replay_device_ms": _replay_device_ms(tr)}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scene": "ais" if args.ais else "radar",
@@ -188,9 +216,80 @@ def main(argv=None):
         "phase_ms_median": {k: float(np.median([p[k] for p in phases]))
                             for k in phases[0]},
         "host_syncs_per_scan": tr.host_syncs,
+        "graphed": bool(graphs),
+        **graphed,
+        **({"loops": _loop_summary(prof, n)} if args.eager else {}),
         **_device_summary(events, top, n),
     }, indent=1))
     return 0
+
+
+def _eager_step(tr, packed, **kw):
+    """``Tracker._step`` through the plain ``scan_step``: no graph."""
+    scan, ais = tr._unpack_inputs(packed)
+    return scan_step(tr.state, tr.init_state, scan, ais, tr.shapes,
+                     tr.params, method=tr.method, use_ais=tr.use_ais,
+                     ais_initialization=tr.ais_initialization,
+                     prune_similar=tr.prune_similar, **kw)
+
+
+class _LoopRanges:
+    """Inside the block every body of ``sync.while_loop`` runs inside a
+    profiler range named after the body's source line."""
+
+    def __enter__(self):
+        self.real = sync.while_loop
+
+        def while_loop(cond, body, carry, *a, **kw):
+            code = body.__code__
+            name = (f"loop {code.co_filename.rsplit('/', 1)[-1]}:"
+                    f"{code.co_firstlineno}")
+
+            def ranged(c, active):
+                with torch.profiler.record_function(name):
+                    return body(c, active)
+            return self.real(cond, ranged, carry, *a, **kw)
+        sync.while_loop = while_loop
+        return self
+
+    def __exit__(self, *exc):
+        sync.while_loop = self.real
+
+
+def _loop_summary(prof, n):
+    """Per loop range: bodies per scan and device ms per body (the host
+    range's kernels, summed; the range's span on the device is not)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith("loop ") and e.device_type == DeviceType.CPU:
+            dev = getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0.0))
+            out[e.key[5:]] = {"bodies_per_scan": e.count / n,
+                              "device_ms_per_body": dev / 1e3 / e.count}
+    return out
+
+
+def _replay_device_ms(tr, reps=7):
+    """Device ms of one replay of the tracker's step graph on its last
+    scan, between two CUDA events behind a device spin, from the same
+    saved state each time (a replay writes the next state in place)."""
+    (g,) = tr._graphs.values()
+    keep = (graph_mod.clone_state(g.state),
+            graph_mod.clone_state(g.init_state))
+    times = []
+    for _ in range(reps):
+        g.load(*keep)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        g.graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    g.load(*keep)
+    return float(np.median(times))
 
 
 def _dev_us(e):
@@ -202,7 +301,8 @@ def _device_time(prof):
     """(device busy ms, device events, the 20 longest) of a trace."""
     from torch.autograd import DeviceType
     events = [e for e in prof.key_averages()      # kernels and copies
-              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and _dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     top = sorted(events, key=_dev_us, reverse=True)[:20]
     return sum(_dev_us(e) for e in events) / 1e3, events, top
 
@@ -213,6 +313,10 @@ def _device_summary(events, top, n):
         "k1": [{"name": e.key[:90], "device_ms_per_call":
                 _dev_us(e) / 1e3 / e.count, "calls_per_scan": e.count / n}
                for e in events if "gate_score" in e.key],
+        "condition_kernel": [
+            {"device_ms_per_call": _dev_us(e) / 1e3 / e.count,
+             "calls_per_scan": e.count / n}
+            for e in events if "condition_kernel" in e.key],
         "top_device_ops": [
             {"name": e.key[:90], "device_ms_per_scan": _dev_us(e) / 1e3 / n,
              "calls_per_scan": e.count / n} for e in top]}
