@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # from the root of the repository
     python3 chip_smoke.py --k1-guard   # phases 1-3 only
-    python3 chip_smoke.py --graph      # phases 1-2, 4 and 4b only
+    python3 chip_smoke.py --graph      # phases 1-2, 4, 4b, 5 and 5b only
     python3 chip_smoke.py --k1-ab OLD/gate_score.cu [OUT.json]  # 1-3, a/b
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -54,13 +54,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel against the eager form on a loop and branch whose exits change
    with the data, and one loop iteration timed both ways; stepped and
    streamed walls of both forms, host reads, the graph pool's bytes and
-   the capture time (``--graph`` runs only phases 1-2, 4 and 4b);
+   the capture time (``--graph`` runs only phases 1-2, 4, 4b, 5 and 5b);
 5. AIS: bench.py's AIS-fusion scene (the same shapes with A=32 messages
    per scan and G=2, every target with a transponder) through
    ``Tracker(use_ais=True)`` on the card and on the CPU: the same checks,
    on (measurement, MMSI) labels, at least one fused and one pure-AIS
    association among the selected labels, K1 launched once per scan, and
    no host sync inside grow;
+5b. graph configurations: the step's other captured configurations, each
+   graphed against the eager ``scan_step`` on the card and against the
+   port's CPU run, as in 4b: the AIS scene at full width (13 scans; at
+   least one fused and one pure-AIS association selected), the AIS scene
+   with ``radar_cand_width=64`` over 5 scans (one per-target K1 launch
+   per replay), the radar-only scene under ``'lagrangian_pure'`` and
+   ``'greedy'`` over 5 scans; the AIS scene also streamed through
+   ``scan_many`` against the stepped graph; walls, host reads,
+   condition-kernel runs, pool bytes and capture time of each;
 6. pre-gate: the AIS scene with ``radar_cand_width=64`` for 5 scans, card
    against CPU (must agree) and against the un-pre-gated card run
    (reported), with the launches of K1's per-target entry point counted;
@@ -1133,9 +1142,12 @@ def run_tracker(device, shapes, params, scans, seeds, use_ais=False,
     return tracker, outs, wall
 
 
-def check_run(outs, what):
+def check_run(outs, what, feasible=True):
+    """No NaN in any output; with ``feasible`` every selection feasible
+    (``'greedy'`` reports an infeasible one as it is)."""
     for i, out in enumerate(outs):
-        check(bool(out.sel_feasible), f"{what} scan {i}: selection infeasible")
+        check(bool(out.sel_feasible) or not feasible,
+              f"{what} scan {i}: selection infeasible")
         for name, a in zip(out._fields, out):
             check(not (a.dtype.kind == "f" and np.isnan(a).any()),
                   f"{what} scan {i}: NaN in {name}")
@@ -1306,7 +1318,8 @@ def ais_phase():
                 syncs=gpu.host_syncs, n_scans=len(scans),
                 n_scans_pregate=len(short), metrics=m, fused=fused,
                 pure=pure, pregate_scans_equal=same, gpu=gpu,
-                gpu_outs=gpu_outs, grown=grown)
+                gpu_outs=gpu_outs, grown=grown, cpu_outs=cpu_outs,
+                cpu_pregate_outs=cpu_p_outs)
 
 
 # ----------------------------------------------------------------------
@@ -1320,10 +1333,10 @@ def flatten(chunks):
             for c in chunks for j in range(len(c.track_mask))]
 
 
-def new_tracker(device, shapes, params, scans, seeds, mmsi=None, **kw):
+def new_tracker(device, shapes, params, scans, seeds, mmsi=None,
+                method="lagrangian", **kw):
     from pymht_tpu_torch import Tracker
-    tracker = Tracker(shapes, params, method="lagrangian", device=device,
-                      **kw)
+    tracker = Tracker(shapes, params, method=method, device=device, **kw)
     tracker.pre_initialize(scans[0].time - params.radar_period, seeds,
                            mmsi=mmsi)
     return tracker
@@ -1532,32 +1545,39 @@ GRAPH_RTOL, GRAPH_ATOL = 1e-6, 1e-6
 COND_LOOP_ITERS = 1000       # iterations of the timed WHILE / host loops
 
 
-def eager_step(tr, s):
-    """One scan of ``tr`` through the plain ``scan_step`` (the eager form
-    the graph is held to); returns its outputs on the host."""
+def eager_step(tr, s, msgs=()):
+    """One scan of ``tr`` (with its AIS messages ``msgs``) through the
+    plain ``scan_step`` with the tracker's method and flags (the eager
+    form the graph is held to); returns its outputs on the host."""
     from pymht_tpu_torch.core.tracker import outputs_to_host, scan_step
-    scan, _ = tr._unpack_inputs(tr._pack_inputs(float(s.time) - tr.t0,
-                                                s.measurements))
+    scan, ais = tr._unpack_inputs(tr._pack_inputs(float(s.time) - tr.t0,
+                                                  s.measurements, msgs))
     tr.state, tr.init_state, out = scan_step(
-        tr.state, tr.init_state, scan, None, tr.shapes, tr.params,
-        method="lagrangian", use_ais=False)
+        tr.state, tr.init_state, scan, ais, tr.shapes, tr.params,
+        method=tr.method, use_ais=tr.use_ais,
+        ais_initialization=tr.ais_initialization)
     return outputs_to_host(out)
 
 
-def graph_runs(scene, degrade_at=None):
-    """The radar-only scene stepped twice on the card: the graphed
-    Tracker and the eager ``scan_step``, ``degrade()`` before scan
-    ``degrade_at`` in both.  Returns a dict of both runs' outputs, walls
-    and host reads per scan, K1 launches and condition-kernel runs of the
-    graphed run, and the graphed tracker."""
+def graph_runs(scene, degrade_at=None, method="lagrangian", groups=(),
+               mmsi=None):
+    """A scene (shapes, params, scans, _, seeds) stepped twice on the
+    card: the graphed Tracker and the eager ``scan_step``, ``degrade()``
+    before scan ``degrade_at`` in both; with ``groups`` (scan i's AIS
+    messages, with the seeds' ``mmsi``) through ``Tracker(use_ais=True)``.
+    Returns a dict of both runs' outputs, walls and host reads per scan,
+    K1 launches (both entry points, and the per-target one alone) and
+    condition-kernel runs, and the trackers."""
     import torch
     from pymht_tpu_torch import sync
     from pymht_tpu_torch.kernels import graph_flow
     from pymht_tpu_torch.ops import gate_kernel as gk
     shapes, params, scans, _, seeds = scene
+    use_ais = bool(groups)
     run = {}
     for form in ("eager", "graphed"):
-        tr = new_tracker("cuda", shapes, params, scans, seeds, use_ais=False)
+        tr = new_tracker("cuda", shapes, params, scans, seeds, mmsi=mmsi,
+                         use_ais=use_ais, method=method)
         outs, walls, reads = [], [], []
         gk.launches = gk.launches_pregate = 0
         graph_flow.reset_runs()
@@ -1565,14 +1585,17 @@ def graph_runs(scene, degrade_at=None):
             if i == degrade_at:
                 check(tr.degrade(), "graph: degrade() did not shrink the beam")
                 check(not tr._graphs, "graph: degrade() kept the old graph")
+            msgs = groups[i] if i < len(groups) else []
             t0, r0 = time.perf_counter(), sync.count
-            outs.append(tr.add_measurement_list(s.time, s.measurements)
-                        if form == "graphed" else eager_step(tr, s))
+            outs.append(tr.add_measurement_list(s.time, s.measurements, msgs)
+                        if form == "graphed" else eager_step(tr, s, msgs))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             reads.append(sync.count - r0)
         run[form] = dict(tracker=tr, outs=outs, walls=walls, reads=reads,
-                         launches=gk.launches, cond_runs=graph_flow.runs())
+                         launches=gk.launches,
+                         launches_pregate=gk.launches_pregate,
+                         cond_runs=graph_flow.runs())
     return run
 
 
@@ -1667,32 +1690,36 @@ def condition_kernel_times(card):
                 bound_ms=bound_ms)
 
 
-def streamed_walls(scene, reps=3):
-    """Wall seconds of the first 12 scans streamed through ``scan_many``
-    (graphed: one replay per scan) and through a loop of the eager
-    ``scan_step`` with one output fetch at the end (the eager form of
-    ``scan_many``), each from the same input state, a warm-up and
-    ``reps`` times; and the graphed run's stacked outputs."""
+def streamed_walls(scene, reps=3, groups=(), mmsi=None):
+    """Wall seconds of the first 12 scans (with ``groups``, their AIS
+    batches) streamed through ``scan_many`` (graphed: one replay per
+    scan) and through a loop of the eager ``scan_step`` with one output
+    fetch at the end (the eager form of ``scan_many``), each from the
+    same input state, a warm-up and ``reps`` times; and the graphed run's
+    stacked outputs."""
     import torch
     from pymht_tpu_torch import sync
     from pymht_tpu_torch.core.tracker import (StepOutputs, outputs_to_host,
                                               scan_many, scan_step)
-    from pymht_tpu_torch.core.grow import Scan
+    from pymht_tpu_torch.core.grow import AisBatch, Scan
     shapes, params, scans, _, seeds = scene
-    tr = new_tracker("cuda", shapes, params, scans, seeds, use_ais=False)
-    scan_b, ais_b = tr.make_stream_inputs(scans[:-1])
+    use_ais = bool(groups)
+    tr = new_tracker("cuda", shapes, params, scans, seeds, mmsi=mmsi,
+                     use_ais=use_ais)
+    scan_b, ais_b = tr.make_stream_inputs(scans[:-1], list(groups) or None)
     S = scan_b.z.shape[0]
 
     def graphed():
         return scan_many(tr.state, tr.init_state, scan_b, ais_b, shapes,
-                         params, use_ais=False, compute_clusters=True)[2]
+                         params, use_ais=use_ais, compute_clusters=True)[2]
 
     def eager():
         st, ist, outs = tr.state, tr.init_state, []
         for i in range(S):
-            st, ist, out = scan_step(st, ist, Scan(*(f[i] for f in scan_b)),
-                                     None, shapes, params,
-                                     method="lagrangian", use_ais=False)
+            st, ist, out = scan_step(
+                st, ist, Scan(*(f[i] for f in scan_b)),
+                AisBatch(*(f[i] for f in ais_b)) if use_ais else None,
+                shapes, params, method="lagrangian", use_ais=use_ais)
             outs.append(out)
         return StepOutputs(*[torch.stack(f) for f in zip(*outs)])
 
@@ -1785,6 +1812,133 @@ def graph_phase(res, card):
           f"capture {g.capture_s:.2f} s ({g2.capture_s:.2f} s at L=16); "
           f"degrade() after {GRAPH_DEGRADE_AFTER} scans re-captured and "
           f"agrees ({card})", flush=True)
+    return out
+
+
+GRAPH_METHOD_SCANS = 5       # radar scans under 'lagrangian_pure', 'greedy'
+
+
+def associations(outs):
+    """(fused, pure-AIS) associations among the selected labels."""
+    labels = selected_labels(outs)
+    fused = sum(m > 0 and mm != 0 for row in labels for _, m, mm in row)
+    pure = sum(m == 0 and mm != 0 for row in labels for _, m, mm in row)
+    return fused, pure
+
+
+def graph_config(what, run, others, pregate=False, feasible=True):
+    """The checks every captured configuration holds: labels equal to
+    the eager card run and to each of ``others`` ({name: outputs}),
+    outputs and final states within GRAPH_RTOL / GRAPH_ATOL of eager, at
+    most one host read, one replay and one K1 launch per scan (through
+    the per-target entry point when ``pregate``).  Returns its numbers:
+    stepped ms/scan both ways, reads, launches, condition-kernel runs,
+    pool bytes, capture seconds, and the device ms of one replay (CUDA
+    events, ``profile_step``'s reading)."""
+    from pymht_tpu_torch.profile_step import _replay_device_ms
+    gr, eg = run["graphed"], run["eager"]
+    n = len(gr["outs"])
+    check_run(gr["outs"], what, feasible)
+    for name, outs in dict(others, **{"the eager card run": eg["outs"]}
+                           ).items():
+        check(selected_labels(gr["outs"]) == selected_labels(outs),
+              f"{what}: the graphed run's labels differ from {name}")
+    same_graph_outputs(gr["outs"], eg["outs"], f"{what}: graphed vs eager")
+    same_states(gr["tracker"].state, eg["tracker"].state,
+                f"{what}: final state, graphed vs eager")
+    same_states(gr["tracker"].init_state, eg["tracker"].init_state,
+                f"{what}: final initiator state, graphed vs eager")
+    check(max(gr["reads"]) <= 1 and gr["tracker"].host_syncs == gr["reads"],
+          f"{what}: host reads per scan {gr['reads']}")
+    check(gr["launches"] == n and gr["launches_pregate"] == n * pregate,
+          f"{what}: K1 launched {gr['launches']} times "
+          f"({gr['launches_pregate']} per target) in {n} replays")
+    (g,) = gr["tracker"]._graphs.values()
+    check(g.replays == n, f"{what}: {g.replays} replays for {n} scans")
+
+    def ms(walls):
+        return 1e3 * float(np.median(walls[2:] or walls))
+    return dict(
+        n_scans=n, launches=gr["launches"],
+        launches_pregate=gr["launches_pregate"], cond_runs=gr["cond_runs"],
+        stepped_ms={k: ms(run[k]["walls"]) for k in run},
+        reads_per_scan={k: float(np.mean(run[k]["reads"])) for k in run},
+        pool_bytes=g.pool_bytes(), capture_s=g.capture_s,
+        replay_device_ms=_replay_device_ms(gr["tracker"]))
+
+
+def graph_configs_phase(ais, card):
+    """The captured step's other configurations (phase 5b): the AIS
+    scene at full width, 13 scans; the AIS scene with the pre-gate at
+    PREGATE_KM over PREGATE_SCANS; the radar-only scene under
+    ``'lagrangian_pure'`` and ``'greedy'`` over GRAPH_METHOD_SCANS.  Each
+    graphed Tracker against the eager ``scan_step`` on the card and
+    against the port's CPU run (``ais``: what ais_phase returned, whose
+    CPU runs these are for the AIS scenes); the AIS scene also streamed
+    through ``scan_many`` (graphed against the stepped graph, and both
+    forms timed).  Returns each configuration's numbers."""
+    from pymht_tpu_torch.utils.scenes import bench_scene, bench_scene_ais
+    shapes, params, scans, groups, sim_list, seeds, mmsi = bench_scene_ais()
+    scene = (shapes, params, scans, sim_list, seeds)
+    out = {}
+    run = graph_runs(scene, groups=groups, mmsi=mmsi)
+    out["ais"] = graph_config("graph ais", run,
+                              {"the AIS phase's CPU run": ais["cpu_outs"]})
+    fused, pure = associations(run["graphed"]["outs"])
+    check(fused >= 1 and pure >= 1, f"graph ais: {fused} fused and {pure} "
+                                    f"pure-AIS associations selected")
+    walls_s, outs_s, reads_s, S = streamed_walls(scene, groups=groups,
+                                                 mmsi=mmsi)
+    same_graph_outputs(unstacked(outs_s["graphed"]),
+                       run["graphed"]["outs"][:S],
+                       "graph ais: scan_many graphed vs stepped")
+    same_graph_outputs(unstacked(outs_s["eager"]), run["eager"]["outs"][:S],
+                       "graph ais: eager stream vs eager steps")
+    check(reads_s["graphed"] == 1, f"graph ais: scan_many read the host "
+                                   f"{reads_s['graphed']} times")
+    out["ais"].update(
+        streamed_ms={k: 1e3 * float(np.median(v)) / S
+                     for k, v in walls_s.items()},
+        stream_reads={k: v / S for k, v in reads_s.items()},
+        fused=fused, pure=pure)
+
+    shapes_p = dataclasses.replace(shapes, radar_cand_width=PREGATE_KM)
+    scene_p = (shapes_p, params, scans[:PREGATE_SCANS], sim_list, seeds)
+    run = graph_runs(scene_p, groups=groups, mmsi=mmsi)
+    out["ais_pregate"] = graph_config(
+        "graph ais pre-gate", run,
+        {"the pre-gate phase's CPU run": ais["cpu_pregate_outs"]},
+        pregate=True)
+
+    shapes_r, params_r, scans_r, sim_r, seeds_r = bench_scene()
+    short = scans_r[:GRAPH_METHOD_SCANS]
+    for method in ("lagrangian_pure", "greedy"):
+        _, cpu_outs, _ = run_tracker("cpu", shapes_r, params_r, short,
+                                     seeds_r, method=method)
+        run = graph_runs((shapes_r, params_r, short, sim_r, seeds_r),
+                         method=method)
+        out[method] = graph_config(f"graph {method}", run,
+                                   {"the CPU run": cpu_outs},
+                                   feasible=method != "greedy")
+
+    for name, r in out.items():
+        streamed = ("" if "streamed_ms" not in r else
+                    f"; streamed ms/scan (scan_many, {S} scans, median of 3 "
+                    f"after a warm-up) graphed {r['streamed_ms']['graphed']:.3f}"
+                    f", eager {r['streamed_ms']['eager']:.3f}, host reads per "
+                    f"scan {r['stream_reads']}")
+        print(f"graph {name} ({r['n_scans']} scans): labels equal to the "
+              f"eager card run and the CPU run, floats within {GRAPH_ATOL}; "
+              f"stepped ms/scan graphed {r['stepped_ms']['graphed']:.3f}, "
+              f"eager {r['stepped_ms']['eager']:.3f}; host reads per scan "
+              f"{r['reads_per_scan']}; K1 {r['launches']} launches "
+              f"({r['launches_pregate']} per target); condition kernel "
+              f"{r['cond_runs']} runs ({r['cond_runs'] / r['n_scans']:.1f} "
+              f"per scan); one replay {r['replay_device_ms']:.3f} ms on "
+              f"the device; graph pool {r['pool_bytes']} bytes, capture "
+              f"{r['capture_s']:.2f} s{streamed} ({card})", flush=True)
+    print(f"graph ais: {out['ais']['fused']} fused and {out['ais']['pure']} "
+          f"pure-AIS associations selected")
     return out
 
 
@@ -2157,18 +2311,22 @@ def pure_phase(card):
     check(launches == len(scans) and gk.launches_pregate == 0,
           f"pure: K1 launched {launches} times over {len(scans)} scans")
     check_run(gpu_outs, "pure")
-    check(len(solved) >= 1, "pure: the Lagrangian never ran")
+    # the solver's bound lies below its objective; the fast path returns
+    # its objective as the bound (on the graph the solver is entered from
+    # Python once, at the capture, whatever the scans need)
+    ran = sum(float(o.sel_bound) != float(o.sel_obj) for o in gpu_outs)
+    check(len(solved) >= 1 and ran >= 1, "pure: the Lagrangian never ran")
     cpu, cpu_outs, _ = run_tracker("cpu", shapes, params, scans, seeds,
                                    method="lagrangian_pure")
     check_card_against_cpu(gpu, gpu_outs, cpu, cpu_outs, "pure")
     ms, ops = device_ops(lambda: real(solved[-1], shapes, params))
     print(f"pure ('lagrangian_pure', radar-only bench scene, {len(scans)} "
-          f"scans) on the card: labels equal the CPU run's; the Lagrangian "
-          f"ran on {len(solved)} scans; wall ms/scan "
+          f"scans) on the card, one graph per step: labels equal the CPU "
+          f"run's; the Lagrangian ran on {ran} scans; wall ms/scan "
           f"{1e3 * float(np.median(wall[2:])):.2f}, host reads per scan "
-          f"median {np.median(gpu.host_syncs[2:]):.0f}; one "
-          f"select_lagrangian on the last conflicted forest: {ms:.1f} ms "
-          f"wall, {ops} device operations ({card})")
+          f"median {np.median(gpu.host_syncs[2:]):.0f}; one eager "
+          f"select_lagrangian on the forest its capture noted (the last "
+          f"scan's): {ms:.1f} ms wall, {ops} device operations ({card})")
     return dict(launches=launches, n_scans=len(scans))
 
 
@@ -3785,12 +3943,13 @@ def scripts_phase(card, workdir, res):
 
 def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
                  gaps, mc, mcb, mca, mcp, mci, s1, s2, swarm, scripts,
-                 graph):
+                 graph, graph_cfg):
     """The line before the card's: K1's two entry points, each with its
     launches on the main paths (counted from 0 around each phase's run),
     the shapes it ran at, its largest |err| against the twin, its times
     and its bound; and graph_flow.cu's condition kernel, with its runs on
-    the graph phase's graphed run (read from the device's count)."""
+    the graphed runs of the graph phases (read from the device's
+    count)."""
     def script_shapes(entry):
         seen = {}
         for name, shapes in scripts["launch_shapes"].items():
@@ -3806,6 +3965,10 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
                      ("degrade", deg, "4096 then 2048", 512),
                      ("roof", roof, 4096, 512), ("ipm demo", ipm, 1024, 64),
                      ("pure", pure, 4096, 512),
+                     ("graph", graph, 4096, 512),
+                     ("graph ais", graph_cfg["ais"], 4096, 512),
+                     ("graph pure", graph_cfg["lagrangian_pure"], 4096, 512),
+                     ("graph greedy", graph_cfg["greedy"], 4096, 512),
                      ("checkpoint", ckpt, 4096, 512),
                      ("sharded-1", s1, "8192 swarm, 4096 bench", 512),
                      ("sharded-2", s2, "4096 per rank", 512)]
@@ -3815,6 +3978,8 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
                               launches=ipm["launches_xcheck"]))
     shared_shapes += script_shapes("shared")
     sub_phases = [("pre-gate", ais["launches_pregate"], 4096, 64),
+                  ("graph ais pre-gate",
+                   graph_cfg["ais_pregate"]["launches_pregate"], 4096, 64),
                   ("mc", mc["launches"], 32768, 28),
                   ("mc-bench", mcb["launches"], 131072, 512),
                   ("mc-ais", mca["launches"], 131072, 512),
@@ -3903,7 +4068,8 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
         "replaces": "pymht_tpu/core/tracker.py:335 (jax.jit: the device-"
                     "side exits of lax.while_loop and lax.cond; no Pallas "
                     "kernel)",
-        "launches": graph["cond_runs"],
+        "launches": graph["cond_runs"] + sum(r["cond_runs"]
+                                             for r in graph_cfg.values()),
         "max_abs_err": graph["max_err"],
         "ms": graph["ms"],
         "plain_ms": graph["plain_ms"],
@@ -3914,7 +4080,18 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
         "stepped_ms_per_scan": graph["stepped_ms"],
         "streamed_ms_per_scan": graph["streamed_ms"],
         "host_reads_per_scan": graph["reads_per_scan"],
-        "graph_pool_bytes": graph["pool_bytes"]}
+        "graph_pool_bytes": graph["pool_bytes"],
+        # the configurations captured besides the radar-only 'lagrangian'
+        # step: AIS, AIS pre-gated, 'lagrangian_pure', 'greedy'
+        "configs": {
+            name: {"launches": r["cond_runs"],
+                   "runs_per_scan": r["cond_runs"] / r["n_scans"],
+                   **{key: r[key] for key in (
+                       "n_scans", "stepped_ms", "reads_per_scan",
+                       "replay_device_ms", "pool_bytes", "capture_s",
+                       "streamed_ms",
+                       "stream_reads") if key in r}}
+            for name, r in graph_cfg.items()}}
     return {"kernels": [shared, sub, cond]}
 
 
@@ -3990,6 +4167,7 @@ def main(argv):
     if argv == ["--graph"]:
         res = slice_phase()
         graph_phase(res, card)
+        graph_configs_phase(ais_phase(), card)
         print(f"chip_smoke --graph: {time.perf_counter() - t_start:.1f} s "
               f"in all")
         return 0
@@ -4004,6 +4182,7 @@ def main(argv):
     res = slice_phase()
     graph = graph_phase(res, card)
     ais = ais_phase()
+    graph_cfg = graph_configs_phase(ais, card)
     stream = stream_phase(ais)
     deg = degrade_phase()
     roof = roof_phase()
@@ -4057,7 +4236,8 @@ def main(argv):
     print(card)
     print(json.dumps(kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof,
                                   ipm, pure, ckpt, gaps, mc, mcb, mca, mcp,
-                                  mci, s1, s2, swarm, scripts, graph)))
+                                  mci, s1, s2, swarm, scripts, graph,
+                                  graph_cfg)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -25,8 +25,8 @@ def lead_index(shape, device, extra: int = 0) -> tuple:
 def isin(elements: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
     """``torch.isin(elements, test)`` per scenario: ``elements [..., A]``
     against ``test [..., K]`` with the same leading axes (``jnp.isin``
-    under ``jax.vmap``).  Without batch axes it is ``torch.isin`` itself,
-    so the unbatched path makes the same operation."""
-    if elements.dim() <= 1:
-        return torch.isin(elements, test)
+    under ``jax.vmap``), as one broadcast compare [..., A, K] with or
+    without batch axes.  Not ``torch.isin``: on a CUDA tensor with a large
+    test set it sorts, and its ``_unique`` reads the output size on the
+    host, which a captured graph (core/graph.py) cannot do."""
     return (elements[..., :, None] == test[..., None, :]).any(dim=-1)

@@ -4,9 +4,11 @@ the counterpart of the ``jax.jit`` on the JAX Tracker's step
 (:225-245).
 
 A ``StepGraph`` captures ``scan_step`` once per set of shapes, parameters
-and static flags, on buffers of its own: the state, the initiator state
-and one scan (z, mask, time).  Every loop and branch of the step becomes
-a conditional node tested on the device (``sync`` under
+and static flags (the method, ``use_ais``, ``ais_initialization`` and the
+rest), on buffers of its own: the state, the initiator state, one scan
+(z, mask, time) and, with ``use_ais``, one AIS batch (state, time, mmsi,
+high_accuracy, mask).  Every loop and branch of the step becomes a
+conditional node tested on the device (``sync`` under
 ``kernels/graph_flow.capture``), so a replay reads nothing on the host.
 The captured step ends by writing the next state over the state it read,
 as JAX's ``donate_argnums`` lets the jitted step do: after a replay
@@ -14,14 +16,20 @@ as JAX's ``donate_argnums`` lets the jitted step do: after a replay
 ``graph.out`` holds the scan's outputs until the next replay.  A capture
 that fails raises; nothing falls back to eager steps.
 
-The slice that is captured (``graphable``): one unbatched forest on the
-card, ``method='lagrangian'``, radar only (no AIS batch), no pre-gate,
-no ``select_kw``, any of ``prune_similar``, ``compute_clusters`` and
-``dynamic_window``.  Everything else steps eagerly.
+The configurations that are captured (``graphable``): one unbatched
+forest on the card, ``method`` one of ``'lagrangian'``,
+``'lagrangian_pure'`` and ``'greedy'``, with or without AIS fusion (and
+AIS initiation), with or without the spatial pre-gate
+(``0 < radar_cand_width < max_meas``), no ``select_kw``, any of
+``prune_similar``, ``compute_clusters`` and ``dynamic_window``.  A batch,
+``select_kw`` and ``'ipm'`` step eagerly.
 
-K1 is launched once inside the graph: ``gate_kernel.launches`` (and
-``launches_pregate``) are counted per replay from what the capture
-launched, so a count per scan stays true.
+K1 is launched once inside the graph, through its shared-scan or (with
+the pre-gate) its per-target entry point, whose tile plan ``card_plan``
+is computed before the capture so that the capture asks the runtime
+nothing: ``gate_kernel.launches`` and ``launches_pregate`` are counted
+per replay from what the capture launched, so a count per scan stays
+true.
 """
 from __future__ import annotations
 
@@ -33,21 +41,34 @@ import torch
 from .. import sync
 from ..kernels import graph_flow
 from ..ops import gate_kernel as gk
-from .grow import Scan
+from .grow import AisBatch, Scan, empty_ais
 
 GRAPHS_KEPT = 4          # graphs ``scan_many`` keeps, least recent dropped
 GRAPHS = {}              # ``scan_many``'s graphs by key, oldest first
+METHODS = ('lagrangian', 'lagrangian_pure', 'greedy')     # captured
+# scan_step's static arguments that a graph key must name: each changes
+# the captured program, and the step's defaults are not the Tracker's
+FLAGS = ('method', 'use_ais', 'ais_initialization')
 
 _warm = set()            # devices whose cuBLAS handle exists
 
 
-def graphable(state, shapes, method: str, use_ais: bool,
-              select_kw=None) -> bool:
-    """Does this step run as a captured graph (module docstring)?"""
-    Km = shapes.radar_cand_width
+def graphable(state, method: str, select_kw=None) -> bool:
+    """Does this step run as a captured graph (module docstring)?  AIS
+    and any pre-gate width are captured, so only the device, the batch
+    axes, the method and ``select_kw`` decide."""
     return (state.leaf_x.is_cuda and state.hist_meas.dim() == 3
-            and method == 'lagrangian' and not use_ais
-            and not 0 < Km < shapes.max_meas and not select_kw)
+            and method in METHODS and not select_kw)
+
+
+def graph_key(state, shapes, params, flags: dict) -> tuple:
+    """The key of this step's graph: shapes, parameters, device and every
+    static flag of ``scan_step`` (``FLAGS`` must be among them)."""
+    missing = [f for f in FLAGS if f not in flags]
+    if missing:
+        raise ValueError(f"graph_key: the flags must name {missing}")
+    return (shapes, params, state.leaf_x.device,
+            tuple(sorted(flags.items())))
 
 
 def _fields(obj) -> list:
@@ -61,8 +82,10 @@ def clone_state(obj):
 
 class StepGraph:
     """``scan_step`` on one scan, captured (module docstring).  ``flags``:
-    the keyword arguments of ``scan_step`` that are static
-    (``prune_similar``, ``compute_clusters``, ``dynamic_window``)."""
+    the keyword arguments of ``scan_step`` that are static; they must
+    name ``FLAGS`` (``method``, ``use_ais``, ``ais_initialization``), and
+    may name ``prune_similar``, ``compute_clusters`` and
+    ``dynamic_window``."""
 
     def __init__(self, state, init_state, shapes, params, flags: dict):
         from .tracker import StepOutputs, scan_step
@@ -74,18 +97,22 @@ class StepGraph:
         self.scan = Scan(z=torch.zeros((M, 2), device=dev),
                          mask=torch.zeros((M,), dtype=torch.bool, device=dev),
                          time=torch.zeros((), device=dev))
+        self.ais = empty_ais(shapes, dev) if flags['use_ais'] else None
         if dev not in _warm:     # the thread's cuBLAS handle, made outside
             torch.ones(2, 2, device=dev) @ torch.ones(2, 2, device=dev)
             _warm.add(dev)
+        *_, T, L, _ = state.hist_meas.shape
+        Km = shapes.radar_cand_width
+        if 0 < Km < M:           # K1's tile plan, asked of the runtime now
+            gk.card_plan(dev.index, T, L, Km)
         self.graph = torch.cuda.CUDAGraph()
         reads, k1, k1_sub = sync.count, gk.launches, gk.launches_pregate
         tic = time.perf_counter()
         with graph_flow.capture(self.graph):
             st, ist, out = scan_step(self.state, self.init_state, self.scan,
-                                     None, shapes, params,
-                                     method='lagrangian', use_ais=False,
-                                     **self.flags)
-            static = _fields(self.state) + _fields(self.init_state)
+                                     self.ais, shapes, params, **self.flags)
+            static = (_fields(self.state) + _fields(self.init_state)
+                      + list(self.scan) + list(self.ais or ()))
             out = StepOutputs(*(
                 t.clone() if any(sync.same_storage(t, s) for s in static)
                 else t for t in out))
@@ -112,11 +139,15 @@ class StepGraph:
                 if src is not dst:
                     dst.copy_(src)
 
-    def __call__(self, z, mask, scan_time):
-        """One scan: copy it in, replay; returns the outputs' buffers."""
-        self.scan.z.copy_(z)
-        self.scan.mask.copy_(mask)
-        self.scan.time.copy_(scan_time)
+    def __call__(self, scan: Scan, ais: AisBatch = None):
+        """One scan (and, with ``use_ais``, its AIS batch): copy it in,
+        replay; returns the outputs' buffers.  The inputs may be views of
+        any alignment (a packed transfer's bytes): they are copied."""
+        for buf, src in zip(self.scan, scan):
+            buf.copy_(src)
+        if self.ais is not None:
+            for buf, src in zip(self.ais, ais):
+                buf.copy_(src)
         self.graph.replay()
         gk.launches += self.k1
         gk.launches_pregate += self.k1_pregate
@@ -134,7 +165,7 @@ def get(graphs: dict, state, init_state, shapes, params, flags: dict,
         kept: int = None) -> StepGraph:
     """The graph of this configuration in ``graphs``, captured on first
     use (with at most ``kept`` graphs kept, the least recent dropped)."""
-    key = (shapes, params, state.leaf_x.device, tuple(sorted(flags.items())))
+    key = graph_key(state, shapes, params, flags)
     g = graphs.pop(key, None)       # re-inserted last: the most recent
     if g is None:
         while kept is not None and len(graphs) >= kept:
@@ -144,17 +175,20 @@ def get(graphs: dict, state, init_state, shapes, params, flags: dict,
     return g
 
 
-def replay_many(g: StepGraph, state, init_state, scans: Scan):
-    """``scan_many`` on the graph: one replay per scan, each scan copied
-    in and each output copied into row i of the stacked outputs, with
-    nothing read in between.  Returns (the graph's state buffers, its
-    initiator buffers, the stacked StepOutputs)."""
+def replay_many(g: StepGraph, state, init_state, scans: Scan,
+                ais: AisBatch = None):
+    """``scan_many`` on the graph: one replay per scan, each scan (and its
+    AIS batch, row i of ``ais``) copied in and each output copied into
+    row i of the stacked outputs, with nothing read in between.  Returns
+    (the graph's state buffers, its initiator buffers, the stacked
+    StepOutputs)."""
     from .tracker import StepOutputs
     g.load(state, init_state)
     S = scans.z.shape[0]
     stacked = None
     for i in range(S):
-        out = g(scans.z[i], scans.mask[i], scans.time[i])
+        out = g(Scan(*(f[i] for f in scans)),
+                None if g.ais is None else AisBatch(*(f[i] for f in ais)))
         if stacked is None:
             stacked = [torch.empty((S, *t.shape), dtype=t.dtype,
                                    device=t.device) for t in out]

@@ -479,7 +479,8 @@ def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
 # ----------------------------------------------------------------------
 
 class _PureCarry(NamedTuple):
-    it: int
+    it: torch.Tensor          # [] i64: iterations run (a device value, so
+                              # that a captured body tests its cadence)
     lam: torch.Tensor
     best_sel: torch.Tensor
     best_obj: torch.Tensor
@@ -511,8 +512,9 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
     clusters must be disjoint from the rest: guaranteed when the subset
     is a union of connected components).  ``obj_offset`` is the exact
     objective of the already-solved remainder, used only to scale the
-    relative convergence tolerance.  One host read per iteration, one
-    more on the repair cadence, one per repair round after the first.
+    relative convergence tolerance.  Two host reads per iteration (the
+    loop test and the repair branch, taken on the cadence), one per
+    repair round after the first.
     Takes a batch of forests too (leading scenario axes): the loops then
     run while any scenario continues (``sync.while_loop``).
     """
@@ -627,7 +629,7 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
         sel = sync.while_loop(
             go_on, lambda c, _: repair_round(rc, c),
             (sel, torch.zeros((*lead, T, L), dtype=torch.bool, device=dev),
-             None),
+             torch.ones_like(eff_tgt[..., 0])),
             max_iters=repair_rounds, test_first=False)[0]
         return sel, ~(usage_of(sel) > 1.5).any(dim=-1)
 
@@ -645,13 +647,13 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
         # back toward 0.
         g = torch.where((cnt > 0) | (c.lam > 0), cnt - 1.0, 0.0)
         feas = ~(cnt > 1.5).any(dim=-1)
-        sel_c, feas_c = sel, feas
-        if c.it % repair_cadence == 0:
-            need = ~feas if active is None else ~feas & active
-            sel_c, feas_c = sync.cond(
-                need, lambda: repair(sel, c.lam,
-                                     need if need.dim() else None),
-                lambda: (sel, feas))
+        # repair on cadence, as one branch every iteration
+        need = ~feas & (c.it % repair_cadence == 0)
+        if active is not None:
+            need = need & active
+        sel_c, feas_c = sync.cond(
+            need, lambda: repair(sel, c.lam, need if need.dim() else None),
+            lambda: (sel, feas))
         obj = torch.where(feas_c, obj_of(sel_c), INF)
         better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
         # Patience resets only on a MATERIAL improvement (>= 0.01 % of
@@ -691,8 +693,9 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
     sel_seed, lb_seed = decode(lam_init)
     sel_seed, feas_seed = repair(sel_seed, lam_init)
     obj_seed = torch.where(feas_seed, obj_of(sel_seed), INF)
-    c = _PureCarry(0, lam_init, sel_seed, obj_seed, feas_seed, lb_seed,
-                   sel_seed, torch.zeros(lead, dtype=torch.int64, device=dev))
+    zero_i = torch.zeros(lead, dtype=torch.int64, device=dev)
+    c = _PureCarry(zero_i, lam_init, sel_seed, obj_seed, feas_seed, lb_seed,
+                   sel_seed, zero_i)
     c = sync.while_loop(go_on, step, c, max_iters=iters)
 
     if with_clusters:

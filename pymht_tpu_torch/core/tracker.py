@@ -239,13 +239,16 @@ def scan_many(state, init_state, scans: Scan, ais: Optional[AisBatch],
     one replay of the step's captured graph (core/graph.py: the
     counterpart of the JAX function's ``lax.scan``), and the states
     returned are copies of the graph's buffers."""
-    if graph_mod.graphable(state, shapes, method, use_ais, select_kw):
+    if graph_mod.graphable(state, method, select_kw):
         g = graph_mod.get(graph_mod.GRAPHS, state, init_state, shapes, params,
-                          dict(compute_clusters=compute_clusters,
+                          dict(method=method, use_ais=use_ais,
+                               ais_initialization=ais_initialization,
+                               compute_clusters=compute_clusters,
                                dynamic_window=dynamic_window,
                                prune_similar=prune_similar),
                           kept=graph_mod.GRAPHS_KEPT)
-        st, ist, outs = graph_mod.replay_many(g, state, init_state, scans)
+        st, ist, outs = graph_mod.replay_many(g, state, init_state, scans,
+                                              ais)
         return graph_mod.clone_state(st), graph_mod.clone_state(ist), outs
     outs = []
     for i in range(scans.z.shape[0]):
@@ -357,15 +360,15 @@ class Tracker:
     reads).  Every wall-clock trigger reads the time through
     ``self._clock``.
 
-    On the card, ``method='lagrangian'`` without AIS and without the
-    pre-gate steps as one captured CUDA graph per set of shapes and
-    flags, replayed once per scan with no host read inside
-    (core/graph.py, the counterpart of the JAX class's jitted step):
-    ``self.state`` and ``self.init_state`` are then the graph's buffers,
-    written over by each scan (copy a state to keep it), ``degrade``
-    captures anew, and ``stream`` replays a graph of its own per scan.
-    AIS, the pre-gate, ``'ipm'``, ``'lagrangian_pure'`` and ``'greedy'``
-    step eagerly, as on the CPU.
+    On the card, ``method`` ``'lagrangian'``, ``'lagrangian_pure'`` or
+    ``'greedy'``, with or without AIS and with or without the pre-gate,
+    steps as one captured CUDA graph per set of shapes, method and flags,
+    replayed once per scan with no host read inside (core/graph.py, the
+    counterpart of the JAX class's jitted step): ``self.state`` and
+    ``self.init_state`` are then the graph's buffers, written over by
+    each scan (copy a state to keep it), ``degrade`` captures anew (at
+    the new L and AIS width), and ``stream`` replays a graph of its own
+    per scan.  ``'ipm'`` steps eagerly, as everything does on the CPU.
     """
 
     def __init__(self, shapes: TrackerShapes = TrackerShapes(),
@@ -478,20 +481,23 @@ class Tracker:
             mask=take((A,), torch.bool))
 
     def _graphed(self, kw) -> bool:
-        return graph_mod.graphable(self.state, self.shapes, self.method,
-                                   self.use_ais, kw.get('select_kw'))
+        return graph_mod.graphable(self.state, self.method,
+                                   kw.get('select_kw'))
 
     def _graph(self, flags: dict) -> graph_mod.StepGraph:
         return graph_mod.get(self._graphs, self.state, self.init_state,
                              self.shapes, self.params,
-                             dict(flags, prune_similar=self.prune_similar))
+                             dict(flags, method=self.method,
+                                  use_ais=self.use_ais,
+                                  ais_initialization=self.ais_initialization,
+                                  prune_similar=self.prune_similar))
 
     def _step(self, packed, **kw):
         scan, ais = self._unpack_inputs(packed)
         if self._graphed(kw):
             g = self._graph(kw)
             g.load(self.state, self.init_state)
-            out = g(scan.z, scan.mask, scan.time)
+            out = g(scan, ais)
             if self.pipeline_outputs:    # kept past the next replay
                 out = StepOutputs(*(t.clone() for t in out))
             return g.state, g.init_state, out
@@ -737,7 +743,7 @@ class Tracker:
                 self.state, self.init_state, outs = graph_mod.replay_many(
                     self._graph(dict(compute_clusters=compute_clusters,
                                      dynamic_window=dynamic_window)),
-                    self.state, self.init_state, scan_b)
+                    self.state, self.init_state, scan_b, ais_b)
             else:
                 self.state, self.init_state, outs = scan_many(
                     self.state, self.init_state, scan_b, ais_b, self.shapes,

@@ -249,7 +249,9 @@ def radar_candidates_reference(x, P, cnllr, pd, mask, z, zmask,
         M = z.shape[0]
         any_l = gate.view(T, L, -1).any(dim=1)                 # [T,Km]
         used = torch.zeros((M + 1,), dtype=torch.bool, device=dev)
-        used[torch.where(any_l, zidx.long(), M).reshape(-1)] = True
+        # a fill, not ``used[idx] = True``: no Python value to copy in
+        used.index_fill_(0, torch.where(any_l, zidx.long(), M).reshape(-1),
+                         True)
         used = used[:M]
     return RadarCandidates(
         scores=torch.cat([zero[:, None], meas], dim=1), x_bar=x_bar,

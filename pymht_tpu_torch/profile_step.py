@@ -32,12 +32,13 @@ and ``--pregate``; a "scan" below is then one batched scan.  With
 ``--swarm`` it profiles the swarm benchmark's 8 scans, streamed in one
 ``scan_many`` as ``scripts/bench_swarm.run`` streams them (once to warm
 up, once under the profiler; no phases alone, and every scan counts).
-The Tracker steps the radar-only ``'lagrangian'`` scene as one captured
-CUDA graph per scan (core/graph.py); ``--eager`` steps it through the
-plain ``scan_step`` instead and also reports, per loop of ``sync.
-while_loop`` (by the source line of its body), the bodies run per scan
-and the device time per body (the kernels launched inside it, nested
-loops included).  Over the steady scans (3 onwards) it reports:
+The Tracker steps the scene as one captured CUDA graph per scan
+(core/graph.py) under ``'lagrangian'``, ``'lagrangian_pure'`` and
+``'greedy'``, with or without ``--ais`` and ``--pregate``; ``'ipm'`` and
+``--eager`` step through the plain ``scan_step`` instead, and
+``--eager`` also reports, per loop of ``sync.while_loop`` (by the source
+line of its body), the bodies run per scan and the device time per body
+(the kernels launched inside it, nested loops included).  Over the steady scans (3 onwards) it reports:
 
 * per phase (grow, select, terminate + prune, initiate), the wall time of
   that phase alone, run on the step's own inputs and closed by

@@ -14,10 +14,12 @@ paths).  Three properties:
    (``flag`` and ``fetch``, which a captured graph replaces by
    conditional nodes and the one output transfer): no
    ``_local_scalar_dense`` (``.item()``, ``bool(t)``, a 0-d index),
-   ``is_nonzero``, ``nonzero``, ``masked_select``, ``unique``, boolean
-   mask indexing or ``repeat_interleave`` without ``output_size``; and
-   no index assignment of a Python value (on the card a host-to-device
-   copy, which a capture refuses).
+   ``is_nonzero``, ``nonzero``, ``masked_select``, ``unique``, ``isin``,
+   boolean mask indexing or ``repeat_interleave`` without
+   ``output_size``; and no index assignment of a Python value (on the
+   card a host-to-device copy, which a capture refuses).  The recorder
+   is ``tests/torch_graph_recorder.py``'s, shared with
+   ``tests/test_torch_graph_safe_configs.py``.
 2. Every loop body, loop test and branch makes the same aten operations
    in the same order every time it runs, across iterations and scans,
    and so does every scan step; a nested loop or branch counts as one
@@ -28,22 +30,18 @@ paths).  Three properties:
    tree before the device forms were added, on the same scene.
 """
 import collections
-import dataclasses
 import hashlib
-import logging
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-
-from pymht_tpu_torch import Tracker, sync  # noqa: E402
-from pymht_tpu_torch.core import graph as graph_mod  # noqa: E402
-from pymht_tpu_torch.core import tracker as tracker_mod  # noqa: E402
+from pymht_tpu_torch import Tracker  # noqa: E402
 from pymht_tpu_torch.ops.assignment import auction_assign  # noqa: E402
 from pymht_tpu_torch.utils import scenes  # noqa: E402
+
+from torch_graph_recorder import recording  # noqa: E402
 
 N_TARGETS, M, N_SCANS = 60, 128, 3      # N_SCANS + 1 scans are stepped
 
@@ -54,125 +52,12 @@ BEFORE = [("649f29d1ac4436a9", -9.78929328918457, 58),
           ("c2266018bd3242d8", -26.557451248168945, 36),
           ("0619ad1ca073bef3", -27.677873611450195, 36)]
 
-_PUTS = ("aten.index_put", "aten.index_put_", "aten._index_put_impl_")
-_READS = {"aten._local_scalar_dense", "aten.is_nonzero", "aten.nonzero",
-          "aten.masked_select", "aten._unique", "aten._unique2",
-          "aten.unique_dim", "aten.unique_consecutive", "aten.item"}
-
-
-def _is_read(func, args, kwargs) -> bool:
-    name = str(func.overloadpacket)
-    if name in _READS:
-        return True
-    if name == "aten.index" or name in _PUTS:
-        idx = args[1] if len(args) > 1 else kwargs.get("indices", ())
-        return any(isinstance(t, torch.Tensor)
-                   and t.dtype in (torch.bool, torch.uint8) for t in idx)
-    if name == "aten.repeat_interleave":
-        return kwargs.get("output_size") is None
-    return False
-
-
-class Recorder(TorchDispatchMode):
-    """Aten operations (views and ``sync``'s own reads left out) on a
-    stack of frames, one frame per body, test or branch being run; host
-    reads outside ``sync``'s own."""
-
-    def __init__(self):
-        super().__init__()
-        self.frames = [[]]
-        self.seqs = collections.defaultdict(set)
-        self.allowed = 0
-        self.reads = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if self.allowed:         # sync's own read: no operation when captured
-            return func(*args, **kwargs)
-        if _is_read(func, args, kwargs):
-            self.reads.append(str(func))
-        if (str(func.overloadpacket) in _PUTS and len(args) > 2
-                and getattr(args[2], "_from_python", False)):
-            self.reads.append(f"{func} of a Python value")
-        if not func.is_view:
-            self.frames[-1].append(str(func))
-        out = func(*args, **kwargs)
-        if func is torch.ops.aten.lift_fresh.default:
-            out._from_python = True      # a tensor made from a Python value
-        return out
-
-    def scoped(self, key, fn):
-        """``fn`` with its operations recorded as one sequence of
-        ``key``."""
-        def run(*a, **kw):
-            self.frames.append([])
-            try:
-                return fn(*a, **kw)
-            finally:
-                self.seqs[key].add(tuple(self.frames.pop()))
-        return run
-
-
-def _site(fn) -> str:
-    code = fn.__code__
-    return f"{code.co_filename.rsplit('/', 1)[-1]}:{code.co_firstlineno}"
-
 
 @pytest.fixture(scope="module")
 def stepped():
-    """The scene stepped under the recorder, with ``sync``'s loops,
-    branches and reads and the scan step wrapped."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    logging.disable(logging.WARNING)      # the scene overflows M: expected
-    mp = pytest.MonkeyPatch()
-    rec = Recorder()
-    real_wl, real_cond = sync.while_loop, sync.cond
-    real_flag, real_fetch = sync.flag, sync.fetch
-
-    def allowed(fn):
-        def run(t):
-            rec.allowed += 1
-            try:
-                return fn(t)
-            finally:
-                rec.allowed -= 1
-        return run
-
-    def while_loop(cond, body, carry, max_iters=None, test_first=True):
-        site = _site(body)
-        rec.frames[-1].append(f"loop@{site}")
-        if cond is not None:
-            cond = rec.scoped(("test", site), cond)
-        return real_wl(cond, rec.scoped(("body", site), body), carry,
-                       max_iters, test_first)
-
-    def cond(pred, true_fn, false_fn):
-        rec.frames[-1].append(f"cond@{_site(true_fn)}")
-        return real_cond(pred, rec.scoped(("true", _site(true_fn)), true_fn),
-                         rec.scoped(("false", _site(false_fn)), false_fn))
-
-    mp.setattr(sync, "while_loop", while_loop)
-    mp.setattr(sync, "cond", cond)
-    mp.setattr(sync, "flag", allowed(real_flag))
-    mp.setattr(sync, "fetch", allowed(real_fetch))
-    step = rec.scoped(("scan_step", ""), tracker_mod.scan_step)
-    bufs = []
-
-    def scan_step(state, init_state, *a, **kw):
-        """The step on buffers laid out as the first scan's states, as a
-        captured graph's static inputs are (core/graph.StepGraph.load):
-        an einsum takes another path for other strides."""
-        if not bufs:
-            bufs.extend((graph_mod.clone_state(state),
-                         graph_mod.clone_state(init_state)))
-        for src, buf in zip((state, init_state), bufs):
-            for f in dataclasses.fields(buf):
-                getattr(buf, f.name).copy_(getattr(src, f.name))
-        return step(*bufs, *a, **kw)
-
-    mp.setattr(tracker_mod, "scan_step", scan_step)
-    try:
+    """The scene stepped under the recorder (tests/torch_graph_recorder.py:
+    ``sync``'s loops, branches and reads and the scan step wrapped)."""
+    with recording() as rec:
         shapes, params, scans, _, seeds = scenes.bench_scene(
             n_targets=N_TARGETS, n_scans=N_SCANS, max_meas=M)
         tr = Tracker(shapes, params, method="lagrangian", use_ais=False,
@@ -189,10 +74,6 @@ def stepped():
             for s in scans:
                 outs.append(tr.add_measurement_list(s.time, s.measurements))
             auction_assign(cost, valid, max_iters=1)
-    finally:
-        mp.undo()
-        logging.disable(logging.NOTSET)
-        torch.set_num_threads(n)
     return rec, outs
 
 
