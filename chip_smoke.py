@@ -124,30 +124,42 @@ Phases, in order; any failure raises and the script exits non-zero:
     W=6, 4 targets, 10 scans, an 800 m radar, sigma_Q 0.05) at BASELINE
     config 4's B=256 scenarios (``utils/scenes.mc_scene``, drawn on a CPU
     generator and moved to the card) through ``parallel.montecarlo.
-    run_batch``: K1 launched once per batched scan (its per-target entry
-    point, one "target" per scenario), batched grow without a host sync;
-    the card against the port's batched run on the CPU and against
-    scenarios 0 and 255 stepped alone on the card through ``scan_step``
-    (track masks and integer state equal, floats within STATE_RTOL /
-    STATE_ATOL); ``tracks_alive`` / ``expected`` / ``median_err`` as
-    eval_configs.py prints them; K1 against its twin at the batched shape
-    (seeded, and on two real scans' tensors), with its times and bound;
-    ms per batched scan, scenario-scans per second and host reads;
+    run_batch``, which replays one captured graph of the batched step per
+    batched scan (core/graph.py): no host read inside it, K1 launched
+    once per batched scan (its per-target entry point, one "target" per
+    scenario, counted per replay from the capture), the condition
+    kernel's runs read from the device; a second graphed run timed; the
+    eager form (the plain ``scan_step`` on the batched tensors) timed and
+    held to the graphed run (track masks and integers equal, floats and
+    both final states within GRAPH_RTOL / GRAPH_ATOL); batched grow
+    without a host sync; the graphed card run against the port's batched
+    run on the CPU and against scenarios 0 and 255 stepped alone on the
+    card through ``scan_step`` (track masks and integer state equal,
+    floats within STATE_RTOL / STATE_ATOL); ``tracks_alive`` /
+    ``expected`` / ``median_err`` as eval_configs.py prints them; K1
+    against its twin at the batched shape (seeded, and on two real
+    scans' tensors of the eager run), with its times and bound; ms per
+    batched scan graphed and eager, scenario-scans per second, host
+    reads, the device ms of one replay, the graph's pool bytes and
+    capture seconds, condition-kernel runs per batched scan; the graphs
+    are dropped before the next phase;
 18. mc-bench: B=32 scenarios at bench.py's shapes and parameters (T=128,
     L=32, M=512, W=7, 100 targets, a 2 km radar, 13 scans;
     ``scenes.mc_bench_scene``) the same way, against scenarios 0 and 31
     stepped alone on the card (the CPU is too slow at this size), with
-    the run's peak device memory;
+    the eager run's peak device memory;
 19. mc-ais: B=32 draws of the AIS-fusion scene (T=128, L=32, M=512,
     A=32, G=2, W=7, 12 scans; ``scenes.bench_ais_batch``, each padded by
     a Tracker and pre-initialised with its seeds and MMSIs) through
-    ``make_batched_step(method='lagrangian', use_ais=True)``: K1 once per
-    batched scan, every selection feasible, scenarios 0 and 31 against
+    ``make_batched_step(method='lagrangian', use_ais=True)``, one graph
+    replay per batched scan: at most one host read and K1 once per
+    batched scan, every selection feasible, the eager form held to it
+    (every output and both states), scenarios 0 and 31 against
     themselves stepped alone on the card (labels, selected leaves,
-    states, objectives), a B=4, 4-scan batch against its CPU run, K1
-    against its twin at the batch's shape (seeded and on two real scans)
-    and timed against its bound; ms per batched scan, host reads, peak
-    device memory;
+    states, objectives), a B=4, 4-scan batch (a graph of its own)
+    against its CPU run, K1 against its twin at the batch's shape
+    (seeded and on two real scans) and timed against its bound; the
+    readings of phase 17 and the eager run's peak device memory;
 20. mc-pregate: the mc-bench batch (B=32) with ``radar_cand_width=64``
     through ``run_batch``: K1's per-target entry point with B * T = 4096
     targets of Km = 64 columns on the flat [B * M] axis, the rest as
@@ -156,8 +168,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     scans) under ``make_batched_step(method='ipm', use_ais=True)``: the
     interior-point solver entered, every scan feasible, every scenario
     against itself stepped alone under 'ipm' on the card, K1 at the
-    batch's shape; then 'lagrangian_pure' on the same batch for 5 scans
-    from the state after 12, every scenario against itself alone;
+    batch's shape ('ipm' steps eagerly); then 'lagrangian_pure' on the
+    same batch for 5 scans from the state after 12, one graph replay per
+    batched scan held to the eager form (every output and both states),
+    every scenario against itself alone, with phase 17's readings;
 22. sharded-1: tests/test_sharded_swarm.py's scene (T=1024 slots, 600
     targets, L=8, M=512, A=32, G=2, W=5, seed 42, 4 scans,
     ``utils/scenes.swarm_shard_scene``) through ``parallel.sharded_tracker.
@@ -1864,7 +1878,7 @@ def graph_config(what, run, others, pregate=False, feasible=True):
         stepped_ms={k: ms(run[k]["walls"]) for k in run},
         reads_per_scan={k: float(np.mean(run[k]["reads"])) for k in run},
         pool_bytes=g.pool_bytes(), capture_s=g.capture_s,
-        replay_device_ms=_replay_device_ms(gr["tracker"]))
+        replay_device_ms=_replay_device_ms(g))
 
 
 def graph_configs_phase(ais, card):
@@ -2625,16 +2639,73 @@ def batched_grow_makes_no_host_sync(state_b, scan_b, shapes, params):
           "no leaf")
 
 
+def eager_run_batch(sc, shapes, params):
+    """``run_batch``'s eager form, the one its graph is held to: the plain
+    ``scan_step`` on the batched tensors, one per scan.  Returns (state,
+    initiator state, track_x [S, B, T, 4], track_mask [S, B, T])."""
+    import torch
+    from pymht_tpu_torch.core.tracker import scan_step
+    from pymht_tpu_torch.parallel import montecarlo as mc
+    st, ist = mc.initial_states(sc, shapes, params)
+    xs, ms = [], []
+    for s in range(sc.z.shape[1]):
+        st, ist, out = scan_step(st, ist, mc.scan_batch(sc, s), None, shapes,
+                                 params, method="lagrangian", use_ais=False)
+        xs.append(out.track_x)
+        ms.append(out.track_mask)
+    return st, ist, torch.stack(xs), torch.stack(ms)
+
+
+def same_tensors(a, b, what):
+    """Integer and boolean tensors equal, floats within GRAPH_RTOL /
+    GRAPH_ATOL: a graphed batch against its eager form."""
+    u, v = a.cpu().numpy(), b.cpu().numpy()
+    check(np.allclose(u, v, rtol=GRAPH_RTOL, atol=GRAPH_ATOL)
+          if u.dtype.kind == "f" else np.array_equal(u, v),
+          f"{what} differs")
+
+
+def free_graphs(graphs):
+    """Drop a phase's captured graphs and hand their pools back."""
+    import torch
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+
+def graph_numbers(g, cond_runs, n_scans, start, inputs):
+    """A batch graph's readings: the device ms of one replay of the last
+    scan (CUDA events, ``profile_step``'s) and the mean over every
+    replay of a run from ``start`` (state, initiator state) through
+    ``inputs`` (each scan's Scan and AisBatch), pool bytes, capture
+    seconds, condition-kernel runs per batched scan."""
+    from pymht_tpu_torch.profile_step import (_replay_device_ms,
+                                              replays_device_ms)
+    last = _replay_device_ms(g)
+    every = replays_device_ms(g, *start, inputs)
+    return dict(replay_device_ms=last,
+                replays_device_ms_mean=float(np.mean(every)),
+                pool_bytes=g.pool_bytes(), capture_s=g.capture_s,
+                cond_runs=cond_runs, cond_runs_per_scan=cond_runs / n_scans)
+
+
 def batched_phase(what, scene, batch, picks, on_cpu, km=0):
-    """One batched configuration: the counted card run of ``run_batch``
-    (K1's launches noted), a second card run timed, the checks, and K1
-    against its twin and timed at the batched shape.  ``km``: the
+    """One batched configuration through ``run_batch``, which replays one
+    captured graph per batched scan on the card: the counted run (K1's
+    launches and the condition kernel's runs read around it, no host
+    read inside), a second run timed on the same graph, and the eager
+    form (``eager_run_batch``) timed and held to it: track masks and
+    integer states equal, floats within GRAPH_RTOL / GRAPH_ATOL, both
+    final states.  Then the checks against the CPU and scenarios alone,
+    and K1 against its twin and timed at the batched shape (on the eager
+    run's real tensors: a replay's are the graph's buffers).  ``km``: the
     spatial pre-gate's radar_cand_width (K1 then has B * T targets of L
     leaves and Km columns)."""
     import dataclasses
     import torch
     from pymht_tpu_torch import sync
+    from pymht_tpu_torch.core import graph as graph_mod
     from pymht_tpu_torch.core.state import state_to_numpy
+    from pymht_tpu_torch.kernels import graph_flow
     from pymht_tpu_torch.ops import gate_kernel as gk
     from pymht_tpu_torch.parallel import montecarlo as mc
     shapes, params, sc_cpu = scene(batch=batch)
@@ -2643,27 +2714,55 @@ def batched_phase(what, scene, batch, picks, on_cpu, km=0):
     B, S = sc.z.shape[:2]
     T, L, M = shapes.max_targets, shapes.max_leaves, shapes.max_meas
 
+    free_graphs(graph_mod.GRAPHS)
     gk.launches = gk.launches_pregate = 0
+    graph_flow.reset_runs()
     n_sync = sync.count
-    with noting_k1_launches(gk) as noted:
+    with noting_k1_launches(gk) as noted_g:
         state_b, xs, ms = mc.run_batch(sc, shapes, params)
     launches, launches_p = gk.launches, gk.launches_pregate
-    torch.cuda.synchronize()
     reads = sync.count - n_sync
-    check(launches == S and launches_p == S,
+    torch.cuda.synchronize()
+    cond_runs = graph_flow.runs()
+    (g,) = graph_mod.GRAPHS.values()
+    istate_b = graph_mod.clone_state(g.init_state)
+    check(launches == S and launches_p == S and len(noted_g) == S,
           f"{what}: K1 launched {launches} times ({launches_p} through the "
           f"per-target entry point) over {S} batched scans")
+    check(reads == 0 and g.replays == S,
+          f"{what}: run_batch read the host {reads} times in {g.replays} "
+          f"replays")
     check(not xs.isnan().any() and bool(ms[-1].any()),
           f"{what}: NaN or no track")
 
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state_2, xs_2, ms_2 = mc.run_batch(sc, shapes, params)
     torch.cuda.synchronize()
     ms_per_scan = 1e3 * (time.perf_counter() - t0) / S
+    check(torch.equal(ms_2, ms) and g.replays == 2 * S
+          and torch.allclose(xs_2, xs, rtol=GRAPH_RTOL, atol=GRAPH_ATOL),
+          f"{what}: a second graphed run differs")
+    graphed = graph_numbers(g, cond_runs, S,
+                            mc.initial_states(sc, shapes, params),
+                            ((mc.scan_batch(sc, s), None) for s in range(S)))
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0, n_sync = time.perf_counter(), sync.count
+    with noting_k1_launches(gk) as noted:
+        st_e, ist_e, xs_e, ms_e = eager_run_batch(sc, shapes, params)
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / S
+    eager_reads = (sync.count - n_sync) / S
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    check(torch.equal(ms_2, ms), f"{what}: a second card run differs")
+    same_tensors(ms, ms_e, f"{what}: graphed against eager, track masks")
+    same_tensors(xs, xs_e, f"{what}: graphed against eager, track states")
+    same_states(state_b, st_e, f"{what}: graphed against eager, final state")
+    same_states(istate_b, ist_e, f"{what}: graphed against eager, final "
+                                 f"initiator state")
+    free_graphs(graph_mod.GRAPHS)
+    del g
 
     batched_grow_makes_no_host_sync(mc.initial_states(sc, shapes, params)[0],
                                     mc.scan_batch(sc, 0), shapes, params)
@@ -2676,28 +2775,43 @@ def batched_phase(what, scene, batch, picks, on_cpu, km=0):
               f"{what}: track states differ from the CPU run")
         check_batched_state(state_to_numpy(state_b), state_to_numpy(st_c),
                             f"{what}: card against CPU, final states")
-        print(f"{what}: card = CPU run (masks on all {S} scans, states "
-              f"within tolerance)")
+        print(f"{what}: graphed card run = CPU run (masks on all {S} scans, "
+              f"states within tolerance)")
     stepped_alone(sc, shapes, params, picks, state_b, xs, ms, what)
     q = mc_quality(sc, xs, ms, what)
 
+    for inp, _, _, sub in noted_g:         # the capture's launch, per replay
+        check((inp[0].shape[0], sub.get("leaves_per_target"))
+              == (B * T * L, L if km else T * L),
+              f"{what}: the graph launched K1 off the batch's shape")
     err, times, bound = k1_at_batch_shape(gk, what, noted, B, T, L, M, km,
                                           (1, S - 1))
-    print(f"{what}: B={B}, {S} batched scans, {ms_per_scan:.2f} ms per "
-          f"batched scan ({1e3 * B / ms_per_scan:.1f} scenario-scans/s; "
-          f"second run, wall clock), {reads / S:.2f} host reads per batched "
-          f"scan, peak device memory {peak_gib:.3f} GiB; K1 launches "
+    print(f"{what}: B={B}, {S} batched scans, one graph replay each: "
+          f"{ms_per_scan:.3f} ms per batched scan graphed, {eager_ms:.3f} "
+          f"eager ({1e3 * B / ms_per_scan:.1f} and "
+          f"{1e3 * B / eager_ms:.1f} scenario-scans/s; second graphed run "
+          f"and the eager one, wall clock); host reads per batched scan "
+          f"{reads / S:.2f} graphed, {eager_reads:.2f} eager; one replay "
+          f"{graphed['replay_device_ms']:.3f} ms on the device (the last "
+          f"scan's; {graphed['replays_device_ms_mean']:.3f} the mean over "
+          f"the run's scans); graph pool "
+          f"{graphed['pool_bytes']} bytes, capture "
+          f"{graphed['capture_s']:.2f} s; condition kernel {cond_runs} runs "
+          f"({cond_runs / S:.1f} per batched scan); graphed = eager (masks "
+          f"and integers equal, floats within {GRAPH_ATOL}, both states); "
+          f"eager peak device memory {peak_gib:.3f} GiB; K1 launches "
           f"{launches}; K1 at N={B * T * L}, Km={km or M}: kernel alone "
           f"{1e3 * times['kernel_ms']:.3f} us hot, "
           f"{1e3 * times['kernel_flushed_ms']:.3f} us flushed, wrapper "
           f"{1e3 * times['ms']:.3f} us, twin {1e3 * times['plain_ms']:.3f} "
           f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
           f"bytes, by {bound['bound_by']}); max |err| {err:.3g} "
-          f"({card_line()})")
+          f"({card_line()})", flush=True)
     return dict(launches=launches, n_scans=S, ms_per_scan=ms_per_scan,
-                reads_per_scan=reads / S, peak_gib=peak_gib, max_err=err,
-                quality=q, **times, bound_ms=bound["bound_ms"],
-                bound_bytes=bound["bytes"])
+                eager_ms_per_scan=eager_ms, reads_per_scan=reads / S,
+                eager_reads_per_scan=eager_reads, peak_gib=peak_gib,
+                max_err=err, quality=q, **graphed, **times,
+                bound_ms=bound["bound_ms"], bound_bytes=bound["bytes"])
 
 
 def mc_phase():
@@ -2778,16 +2892,14 @@ def k1_at_batch_shape(gk, what, noted, B, T, L, M, km, picks):
     return err, kernel_times(gk, inp, dt, args, sub), bound
 
 
-def step_batch(bs, shapes, method, use_ais, scans, start=None, kept=None):
-    """A ``BatchScene`` through ``make_batched_step`` over ``scans``, from
-    its initial states or ``start`` (state, initiator state).  Returns
-    (state, initiator state, per-scan outputs, host reads per scan); the
-    dict ``kept`` maps a scan count to the (state, initiator state) after
-    that many scans, filled in as they pass."""
+def step_batch(bs, step, scans, start=None, kept=None):
+    """A ``BatchScene`` through ``step`` (``make_batched_step``'s, or
+    ``eager_batched_step``'s) over ``scans``, from its initial states or
+    ``start`` (state, initiator state).  Returns (state, initiator state,
+    per-scan outputs, host reads per scan); the dict ``kept`` maps a scan
+    count to the (state, initiator state) after that many scans, filled
+    in as they pass."""
     from pymht_tpu_torch import sync
-    from pymht_tpu_torch.parallel.scenario import make_batched_step
-    step = make_batched_step(shapes, bs.params, method=method,
-                             use_ais=use_ais)
     st, ist = (bs.state, bs.init_state) if start is None else start
     outs, reads = [], []
     for i, s in enumerate(scans):
@@ -2798,6 +2910,45 @@ def step_batch(bs, shapes, method, use_ais, scans, start=None, kept=None):
         if kept is not None and i + 1 in kept:
             kept[i + 1] = (st, ist)
     return st, ist, outs, reads
+
+
+def eager_batched_step(shapes, params, method, use_ais):
+    """The batched step's eager form, the one its graph is held to: the
+    plain ``scan_step`` on the batched tensors."""
+    from pymht_tpu_torch.core.tracker import scan_step
+
+    def step(st, ist, scan, ais):
+        return scan_step(st, ist, scan, ais, shapes, params, method=method,
+                         use_ais=use_ais)
+    return step
+
+
+def graphed_against_eager(what, bs, shapes, method, scans, graphed,
+                          start=None):
+    """A graphed batch run (``graphed``: what ``step_batch`` returned) held
+    to the eager form on the same scans: every output and both final
+    states, integers equal and floats within GRAPH_RTOL / GRAPH_ATOL.
+    Returns the eager run's wall ms and host reads per batched scan, and
+    the K1 launches it noted (real scans' tensors)."""
+    import torch
+    from pymht_tpu_torch.core.tracker import outputs_to_host
+    from pymht_tpu_torch.ops import gate_kernel as gk
+    st_g, ist_g, outs_g, _ = graphed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with noting_k1_launches(gk) as noted:
+        st_e, ist_e, outs_e, reads = step_batch(
+            bs, eager_batched_step(shapes, bs.params, method, True), scans,
+            start)
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / len(outs_e)
+    same_graph_outputs([outputs_to_host(o) for o in outs_g],
+                       [outputs_to_host(o) for o in outs_e],
+                       f"{what}: graphed against eager,")
+    same_states(st_g, st_e, f"{what}: graphed against eager, final state")
+    same_states(ist_g, ist_e, f"{what}: graphed against eager, final "
+                              f"initiator state")
+    return eager_ms, float(np.mean(reads)), noted
 
 
 def check_scenarios_alone(bs, shapes, method, use_ais, picks, scans, st_b,
@@ -2851,22 +3002,32 @@ def check_scenarios_alone(bs, shapes, method, use_ais, picks, scans, st_b,
 
 def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
                       solver=None, kept=None):
-    """A ``BatchScene`` with the AIS branch on: the counted card run
-    (K1's launches noted; with ``solver``, the name of a select function
-    whose calls are counted), a second card run timed, the checks
-    (scenarios ``picks`` alone on the card; with ``cpu_batch`` = (B, S)
-    the first B scenarios' first S scans against the CPU), and K1 at the
-    batch's shape.  Returns the phase's numbers; ``kept`` as for
-    ``step_batch``, from the counted run."""
+    """A ``BatchScene`` with the AIS branch on through
+    ``make_batched_step``, which on the card replays one captured graph
+    per batched scan under a captured method (eager under 'ipm'): the
+    counted card run (K1's launches noted, the condition kernel's runs;
+    with ``solver``, the name of a select function whose calls are
+    counted), a second card run timed, and under a captured method the
+    eager form timed and held to it (``graphed_against_eager``); the
+    checks (scenarios ``picks`` alone on the card; with ``cpu_batch`` =
+    (B, S) the first B scenarios' first S scans against the CPU), and K1
+    at the batch's shape on an eager run's real tensors.  Returns the
+    phase's numbers; ``kept`` as for ``step_batch``, from the counted
+    run."""
     import dataclasses
     import torch
+    from pymht_tpu_torch.core import graph as graph_mod
     from pymht_tpu_torch.core import select as sel_mod
     from pymht_tpu_torch.core.state import state_to_numpy
+    from pymht_tpu_torch.kernels import graph_flow
     from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.parallel.scenario import make_batched_step
     shapes = dataclasses.replace(bs.shapes, radar_cand_width=km)
     B, S = bs.scans.z.shape[:2]
     T, L, M = shapes.max_targets, shapes.max_leaves, shapes.max_meas
     scans = range(S)
+    step = make_batched_step(shapes, bs.params, method=method, use_ais=True)
+    graphed = method in graph_mod.METHODS
 
     calls, real = [], getattr(sel_mod, solver) if solver else None
     if solver:
@@ -2875,10 +3036,10 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
             return real(state, *a, **k)
         setattr(sel_mod, solver, noting)
     gk.launches = gk.launches_pregate = 0
+    graph_flow.reset_runs()
     try:
         with noting_k1_launches(gk) as noted:
-            st_b, ist_b, outs, reads = step_batch(bs, shapes, method, True,
-                                                  scans, kept=kept)
+            st_b, ist_b, outs, reads = step_batch(bs, step, scans, kept=kept)
     finally:
         if solver:
             setattr(sel_mod, solver, real)
@@ -2892,11 +3053,18 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
     check(all(bool(o.sel_feasible.all()) for o in outs),
           f"{what}: a scenario's selection is infeasible")
     check(not solver or len(calls) >= 1, f"{what}: {solver} never ran")
+    numbers = {}
+    if graphed:
+        cond_runs = graph_flow.runs()
+        (g,) = step.graphs.values()
+        check(g.replays == S and max(reads) <= 1,
+              f"{what}: {g.replays} replays for {S} batched scans, host "
+              f"reads per batched scan {reads}")
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st_2, _, outs_2, _ = step_batch(bs, shapes, method, True, scans)
+    st_2, _, outs_2, _ = step_batch(bs, step, scans)
     torch.cuda.synchronize()
     ms_per_scan = 1e3 * (time.perf_counter() - t0) / S
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2904,6 +3072,21 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
               and torch.equal(a.sel_hist_meas, b.sel_hist_meas)
               for a, b in zip(outs, outs_2)),
           f"{what}: a second card run differs")
+    eager_ms, eager_reads = ms_per_scan, float(np.mean(reads))
+    if graphed:
+        numbers = graph_numbers(g, cond_runs, S, (bs.state, bs.init_state),
+                                (bs.scan(s) for s in scans))
+        del g
+        check(len(noted) == S, f"{what}: {len(noted)} K1 launches noted "
+                               f"from {S} replays")
+        for inp, _, _, sub in noted:       # the capture's launch, per replay
+            check((inp[0].shape[0], sub.get("leaves_per_target"))
+                  == (B * T * L, L if km else T * L),
+                  f"{what}: the graph launched K1 off the batch's shape")
+        torch.cuda.reset_peak_memory_stats()
+        eager_ms, eager_reads, noted = graphed_against_eager(
+            what, bs, shapes, method, scans, (st_b, ist_b, outs, reads))
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     n_solved = check_scenarios_alone(bs, shapes, method, True, picks, scans,
                                      st_b, outs, what)
@@ -2914,9 +3097,8 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
             init_state=one_scenario(bs.init_state, slice(0, Bc)),
             scans=type(bs.scans)(*(f[:Bc] for f in bs.scans)),
             ais=type(bs.ais)(*(f[:Bc] for f in bs.ais)))
-        st_g, _, o_g, _ = step_batch(sub, shapes, method, True, range(Sc))
-        st_c, _, o_c, _ = step_batch(sub.to("cpu"), shapes, method, True,
-                                     range(Sc))
+        st_g, _, o_g, _ = step_batch(sub, step, range(Sc))
+        st_c, _, o_c, _ = step_batch(sub.to("cpu"), step, range(Sc))
         for s, (a, c) in enumerate(zip(o_g, o_c)):
             check(torch.equal(a.sel_hist_meas.cpu(), c.sel_hist_meas)
                   and torch.equal(a.sel_hist_mmsi.cpu(), c.sel_hist_mmsi)
@@ -2929,16 +3111,33 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
                             f"{what}: B={Bc} card against CPU, final state")
         print(f"{what}: B={Bc}, {Sc} scans: card = CPU run (labels, masks, "
               f"states)")
+    free_graphs(step.graphs)
     # a middle and the last scan: the demo scene's first scans have no
     # track yet, so no leaf to gate
     err, times, bound = k1_at_batch_shape(gk, what, noted, B, T, L, M, km,
                                           (S // 2, S - 1))
     n_sel = sum(int((o.sel_hist_mmsi[..., -1] > 0).sum()) for o in outs)
-    print(f"{what}: B={B}, {S} batched scans, {ms_per_scan:.2f} ms per "
-          f"batched scan ({1e3 * B / ms_per_scan:.1f} scenario-scans/s; "
-          f"second run, wall clock), {np.mean(reads):.2f} host reads per "
-          f"batched scan (median {np.median(reads):.0f}, max {max(reads)}), "
-          f"peak device memory {peak_gib:.3f} GiB; {n_sel} selected AIS "
+    form = (f"one graph replay each: {ms_per_scan:.3f} ms per batched scan "
+            f"graphed, {eager_ms:.3f} eager ({1e3 * B / ms_per_scan:.1f} "
+            f"and {1e3 * B / eager_ms:.1f} scenario-scans/s; second graphed "
+            f"run and the eager one, wall clock); host reads per batched "
+            f"scan {np.mean(reads):.2f} graphed, {eager_reads:.2f} eager; "
+            f"one replay {numbers['replay_device_ms']:.3f} ms on the device "
+            f"(the last scan's; {numbers['replays_device_ms_mean']:.3f} the "
+            f"mean over the run's scans); graph pool "
+            f"{numbers['pool_bytes']} bytes, capture "
+            f"{numbers['capture_s']:.2f} s; condition kernel "
+            f"{numbers['cond_runs']} runs "
+            f"({numbers['cond_runs_per_scan']:.1f} per batched scan); "
+            f"graphed = eager (outputs and both states, integers equal, "
+            f"floats within {GRAPH_ATOL}); eager peak device memory "
+            f"{peak_gib:.3f} GiB" if graphed else
+            f"eager: {ms_per_scan:.2f} ms per batched scan "
+            f"({1e3 * B / ms_per_scan:.1f} scenario-scans/s; second run, "
+            f"wall clock), {np.mean(reads):.2f} host reads per batched scan "
+            f"(median {np.median(reads):.0f}, max {max(reads)}), peak device "
+            f"memory {peak_gib:.3f} GiB")
+    print(f"{what}: B={B}, {S} batched scans, {form}; {n_sel} selected AIS "
           f"labels; a solver ran on {n_solved} scenario-scans of those "
           f"stepped alone"
           + (f" ({len(calls)} batched calls of {solver})" if solver else "")
@@ -2948,10 +3147,12 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
           f"{1e3 * times['ms']:.3f} us, twin {1e3 * times['plain_ms']:.3f} "
           f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
           f"bytes, by {bound['bound_by']}); max |err| {err:.3g} "
-          f"({card_line()})")
+          f"({card_line()})", flush=True)
     return dict(launches=launches, n_scans=S, ms_per_scan=ms_per_scan,
-                reads_per_scan=float(np.mean(reads)), peak_gib=peak_gib,
-                max_err=err, **times, bound_ms=bound["bound_ms"],
+                eager_ms_per_scan=eager_ms,
+                reads_per_scan=float(np.mean(reads)),
+                eager_reads_per_scan=eager_reads, peak_gib=peak_gib,
+                max_err=err, **numbers, **times, bound_ms=bound["bound_ms"],
                 bound_bytes=bound["bytes"])
 
 
@@ -2981,45 +3182,77 @@ def mc_ipm_phase():
     same batch from the state after MC_PURE_FROM scans."""
     import torch
     from pymht_tpu_torch.core import select as sel_mod
+    from pymht_tpu_torch.kernels import graph_flow
     from pymht_tpu_torch.ops import gate_kernel as gk
+    from pymht_tpu_torch.parallel.scenario import make_batched_step
     from pymht_tpu_torch.utils.scenes import demo_batch
     bs = demo_batch(MC_IPM_BATCH)
     kept = {MC_PURE_FROM: None}
     r = scene_batch_phase("mc-ipm", bs, "ipm", range(MC_IPM_BATCH),
                           solver="select_ipm", kept=kept)
-    # 'lagrangian_pure' from the state after MC_PURE_FROM scans of 'ipm'
+    # 'lagrangian_pure' from the state after MC_PURE_FROM scans of 'ipm',
+    # graphed against eager
     start = kept[MC_PURE_FROM]
     scans = range(MC_PURE_FROM, MC_PURE_FROM + MC_PURE_SCANS)
+    step = make_batched_step(bs.shapes, bs.params, method="lagrangian_pure",
+                             use_ais=True)
+    gk.launches = gk.launches_pregate = 0
+    graph_flow.reset_runs()
+    run = step_batch(bs, step, scans, start)
+    st_p, _, outs_p, reads_p = run
+    launches_p = gk.launches
+    torch.cuda.synchronize()
+    cond_runs = graph_flow.runs()
+    (g,) = step.graphs.values()
+    check(launches_p == MC_PURE_SCANS
+          and gk.launches_pregate == MC_PURE_SCANS
+          and g.replays == MC_PURE_SCANS and max(reads_p) <= 1,
+          f"mc-pure: K1 launched {launches_p} times in {g.replays} replays "
+          f"over {MC_PURE_SCANS} batched scans, host reads {reads_p}")
+    check(all(bool(o.sel_feasible.all()) for o in outs_p),
+          "mc-pure: a scenario's selection is infeasible")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_batch(bs, step, scans, start)
+    torch.cuda.synchronize()
+    ms_pure = 1e3 * (time.perf_counter() - t0) / MC_PURE_SCANS
+    numbers = graph_numbers(g, cond_runs, MC_PURE_SCANS, start,
+                            (bs.scan(s) for s in scans))
+    del g
+    free_graphs(step.graphs)
     calls, real = [], sel_mod.select_lagrangian
 
     def noting(state, *a, **k):
         calls.append(1)
         return real(state, *a, **k)
 
-    gk.launches = gk.launches_pregate = 0
     sel_mod.select_lagrangian = noting
     try:
-        st_p, _, outs_p, reads_p = step_batch(bs, bs.shapes,
-                                              "lagrangian_pure", True, scans,
-                                              start)
+        eager_ms, eager_reads, _ = graphed_against_eager(
+            "mc-pure", bs, bs.shapes, "lagrangian_pure", scans, run, start)
     finally:
         sel_mod.select_lagrangian = real
-    launches_p = gk.launches
-    torch.cuda.synchronize()
-    check(launches_p == MC_PURE_SCANS
-          and gk.launches_pregate == MC_PURE_SCANS,
-          f"mc-pure: K1 launched {launches_p} times over {MC_PURE_SCANS} "
-          f"batched scans")
     check(len(calls) >= 1, "mc-pure: the Lagrangian never ran")
-    check(all(bool(o.sel_feasible.all()) for o in outs_p),
-          "mc-pure: a scenario's selection is infeasible")
     check_scenarios_alone(bs, bs.shapes, "lagrangian_pure", True,
                           range(MC_IPM_BATCH), scans, st_p, outs_p,
                           "mc-pure", start=start)
     print(f"mc-pure ('lagrangian_pure', the mc-ipm batch, scans "
-          f"{scans.start}-{scans.stop - 1}): the Lagrangian ran in "
-          f"{len(calls)} batched calls; host reads per batched scan "
-          f"{reads_p}; K1 launches {launches_p}")
+          f"{scans.start}-{scans.stop - 1}), one graph replay each: "
+          f"{ms_pure:.3f} ms per batched scan graphed, {eager_ms:.3f} eager "
+          f"(the Lagrangian ran in {len(calls)} batched calls eagerly); host "
+          f"reads per batched scan {reads_p} graphed, {eager_reads:.2f} "
+          f"eager; one replay {numbers['replay_device_ms']:.3f} ms on the "
+          f"device (the last scan's; {numbers['replays_device_ms_mean']:.3f} "
+          f"the mean over the run's scans); graph pool "
+          f"{numbers['pool_bytes']} bytes, capture "
+          f"{numbers['capture_s']:.2f} s; condition kernel {cond_runs} runs "
+          f"({cond_runs / MC_PURE_SCANS:.1f} per batched scan); graphed = "
+          f"eager (outputs and both states); K1 launches {launches_p} "
+          f"({card_line()})", flush=True)
+    r.update(launches_pure=launches_p, n_scans_pure=MC_PURE_SCANS,
+             pure={"ms_per_scan": ms_pure, "eager_ms_per_scan": eager_ms,
+                   "reads_per_scan": float(np.mean(reads_p)),
+                   "eager_reads_per_scan": eager_reads, **numbers})
     r.update(launches_pure=launches_p, n_scans_pure=MC_PURE_SCANS)
     return r
 
@@ -4059,8 +4292,21 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
            for name in ("ms", "kernel_ms", "kernel_flushed_ms", "plain_ms",
                         "bound_ms")},
         **{f"batch_{key}_{name}": r[name]
-           for key, r in (("ais", mca), ("pregate", mcp), ("ipm", mci))
-           for name in ("ms_per_scan", "reads_per_scan", "peak_gib")}}
+           for key, r in (("mc", mc), ("mc_bench", mcb), ("ais", mca),
+                          ("pregate", mcp), ("ipm", mci))
+           for name in ("ms_per_scan", "eager_ms_per_scan",
+                        "reads_per_scan", "eager_reads_per_scan",
+                        "peak_gib")}}
+    # the batches' graphs (PR 16): one replay per batched scan
+    batches = {name: {key: r[key] for key in (
+        "n_scans", "ms_per_scan", "eager_ms_per_scan", "reads_per_scan",
+        "eager_reads_per_scan", "replay_device_ms",
+        "replays_device_ms_mean", "pool_bytes",
+        "capture_s", "cond_runs", "cond_runs_per_scan") if key in r}
+        for name, r in (("mc", mc), ("mc-bench", mcb), ("mc-ais", mca),
+                        ("mc-pregate", mcp),
+                        ("mc-pure", dict(mci["pure"],
+                                         n_scans=mci["n_scans_pure"])))}
     cond = {
         "name": "graph_flow_condition",
         "route": "cuda",
@@ -4068,8 +4314,9 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
         "replaces": "pymht_tpu/core/tracker.py:335 (jax.jit: the device-"
                     "side exits of lax.while_loop and lax.cond; no Pallas "
                     "kernel)",
-        "launches": graph["cond_runs"] + sum(r["cond_runs"]
-                                             for r in graph_cfg.values()),
+        "launches": (graph["cond_runs"]
+                     + sum(r["cond_runs"] for r in graph_cfg.values())
+                     + sum(r["cond_runs"] for r in batches.values())),
         "max_abs_err": graph["max_err"],
         "ms": graph["ms"],
         "plain_ms": graph["plain_ms"],
@@ -4091,7 +4338,8 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
                        "replay_device_ms", "pool_bytes", "capture_s",
                        "streamed_ms",
                        "stream_reads") if key in r}}
-            for name, r in graph_cfg.items()}}
+            for name, r in graph_cfg.items()},
+        "batches": batches}
     return {"kernels": [shared, sub, cond]}
 
 

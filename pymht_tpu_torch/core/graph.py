@@ -1,39 +1,45 @@
 """``scan_step`` captured as one CUDA graph and replayed once per scan:
 the counterpart of the ``jax.jit`` on the JAX Tracker's step
-(pymht_tpu/core/tracker.py:333-335) and of ``scan_many``'s ``lax.scan``
-(:225-245).
+(pymht_tpu/core/tracker.py:333-335), of ``scan_many``'s ``lax.scan``
+(:225-245) and, for a batch of scenarios, of the jitted ``jax.vmap`` of
+the step under ``run_batch``'s ``lax.scan``
+(pymht_tpu/parallel/scenario.py:35-41, pymht_tpu/parallel/montecarlo.py:
+116-152).
 
-A ``StepGraph`` captures ``scan_step`` once per set of shapes, parameters
-and static flags (the method, ``use_ais``, ``ais_initialization`` and the
-rest), on buffers of its own: the state, the initiator state, one scan
-(z, mask, time) and, with ``use_ais``, one AIS batch (state, time, mmsi,
-high_accuracy, mask).  Every loop and branch of the step becomes a
-conditional node tested on the device (``sync`` under
-``kernels/graph_flow.capture``), so a replay reads nothing on the host.
-The captured step ends by writing the next state over the state it read,
-as JAX's ``donate_argnums`` lets the jitted step do: after a replay
+A ``StepGraph`` captures ``scan_step`` once per set of shapes (the
+batch's size among them), parameters and static flags (the method,
+``use_ais``, ``ais_initialization`` and the rest), on buffers of its
+own: the state, the initiator state, one scan (z, mask, time) and, with
+``use_ais``, one AIS batch (state, time, mmsi, high_accuracy, mask), each
+with the batch's leading axis when there is one.  Every loop and branch
+of the step becomes a conditional node tested on the device (``sync``
+under ``kernels/graph_flow.capture``; a batched one tests whether any
+scenario still runs), so a replay reads nothing on the host.  The
+captured step ends by writing the next state over the state it read, as
+JAX's ``donate_argnums`` lets the jitted step do: after a replay
 ``graph.state`` and ``graph.init_state`` ARE the next states, and
 ``graph.out`` holds the scan's outputs until the next replay.  A capture
 that fails raises; nothing falls back to eager steps.
 
-The configurations that are captured (``graphable``): one unbatched
-forest on the card, ``method`` one of ``'lagrangian'``,
-``'lagrangian_pure'`` and ``'greedy'``, with or without AIS fusion (and
-AIS initiation), with or without the spatial pre-gate
-(``0 < radar_cand_width < max_meas``), no ``select_kw``, any of
-``prune_similar``, ``compute_clusters`` and ``dynamic_window``.  A batch,
+The configurations that are captured (``graphable``): one forest or a
+batch of forests on one leading scenario axis, on the card, ``method``
+one of ``'lagrangian'``, ``'lagrangian_pure'`` and ``'greedy'``, with or
+without AIS fusion (and AIS initiation), with or without the spatial
+pre-gate (``0 < radar_cand_width < max_meas``), no ``select_kw``, any of
+``prune_similar``, ``compute_clusters`` and ``dynamic_window``.
 ``select_kw`` and ``'ipm'`` step eagerly.
 
 K1 is launched once inside the graph, through its shared-scan or (with
-the pre-gate) its per-target entry point, whose tile plan ``card_plan``
-is computed before the capture so that the capture asks the runtime
-nothing: ``gate_kernel.launches`` and ``launches_pregate`` are counted
-per replay from what the capture launched, so a count per scan stays
-true.
+the pre-gate, or for a batch) its per-target entry point, whose tile
+plan ``card_plan`` is computed before the capture so that the capture
+asks the runtime nothing: ``gate_kernel.launches`` and
+``launches_pregate`` are counted per replay from what the capture
+launched, so a count per scan stays true.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import torch
@@ -56,19 +62,20 @@ _warm = set()            # devices whose cuBLAS handle exists
 def graphable(state, method: str, select_kw=None) -> bool:
     """Does this step run as a captured graph (module docstring)?  AIS
     and any pre-gate width are captured, so only the device, the batch
-    axes, the method and ``select_kw`` decide."""
-    return (state.leaf_x.is_cuda and state.hist_meas.dim() == 3
+    axes (none or one), the method and ``select_kw`` decide."""
+    return (state.leaf_x.is_cuda and state.hist_meas.dim() in (3, 4)
             and method in METHODS and not select_kw)
 
 
 def graph_key(state, shapes, params, flags: dict) -> tuple:
-    """The key of this step's graph: shapes, parameters, device and every
-    static flag of ``scan_step`` (``FLAGS`` must be among them)."""
+    """The key of this step's graph: shapes, the batch's leading axes,
+    parameters, device and every static flag of ``scan_step`` (``FLAGS``
+    must be among them)."""
     missing = [f for f in FLAGS if f not in flags]
     if missing:
         raise ValueError(f"graph_key: the flags must name {missing}")
     return (shapes, params, state.leaf_x.device,
-            tuple(sorted(flags.items())))
+            tuple(sorted(flags.items())), tuple(state.hist_meas.shape[:-3]))
 
 
 def _fields(obj) -> list:
@@ -93,18 +100,28 @@ class StepGraph:
         self.shapes, self.params, self.flags = shapes, params, dict(flags)
         self.state = clone_state(state)
         self.init_state = clone_state(init_state)
+        *lead, T, L, _ = state.hist_meas.shape
+        lead = tuple(lead)
         M = shapes.max_meas
-        self.scan = Scan(z=torch.zeros((M, 2), device=dev),
-                         mask=torch.zeros((M,), dtype=torch.bool, device=dev),
-                         time=torch.zeros((), device=dev))
-        self.ais = empty_ais(shapes, dev) if flags['use_ais'] else None
+        self.scan = Scan(z=torch.zeros((*lead, M, 2), device=dev),
+                         mask=torch.zeros((*lead, M), dtype=torch.bool,
+                                          device=dev),
+                         time=torch.zeros(lead, device=dev))
+        self.ais = None
+        if flags['use_ais']:
+            self.ais = AisBatch(*(t.expand(lead + t.shape).contiguous()
+                                  for t in empty_ais(shapes, dev)))
         if dev not in _warm:     # the thread's cuBLAS handle, made outside
             torch.ones(2, 2, device=dev) @ torch.ones(2, 2, device=dev)
             _warm.add(dev)
-        *_, T, L, _ = state.hist_meas.shape
-        Km = shapes.radar_cand_width
-        if 0 < Km < M:           # K1's tile plan, asked of the runtime now
-            gk.card_plan(dev.index, T, L, Km)
+        # K1's per-target tile plan, asked of the runtime now: T targets of
+        # L leaves pre-gated, B * T of them in a batch, and without the
+        # pre-gate one target of T * L leaves per scenario (core/grow.py)
+        nb, Km = math.prod(lead), shapes.radar_cand_width
+        if 0 < Km < M:
+            gk.card_plan(dev.index, nb * T, L, Km)
+        elif lead:
+            gk.card_plan(dev.index, nb, T * L, M)
         self.graph = torch.cuda.CUDAGraph()
         reads, k1, k1_sub = sync.count, gk.launches, gk.launches_pregate
         tic = time.perf_counter()
@@ -140,9 +157,11 @@ class StepGraph:
                     dst.copy_(src)
 
     def __call__(self, scan: Scan, ais: AisBatch = None):
-        """One scan (and, with ``use_ais``, its AIS batch): copy it in,
-        replay; returns the outputs' buffers.  The inputs may be views of
-        any alignment (a packed transfer's bytes): they are copied."""
+        """One scan (and, with ``use_ais``, its AIS batch), of every
+        scenario of a batch: copy it in, replay; returns the outputs'
+        buffers.  The inputs may be views of any alignment or stride (a
+        packed transfer's bytes, a scan of a stacked batch): they are
+        copied."""
         for buf, src in zip(self.scan, scan):
             buf.copy_(src)
         if self.ais is not None:

@@ -29,6 +29,7 @@ host (``sync.flag``); loop bodies are functions from carry to carry.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import NamedTuple, Optional
 
@@ -478,6 +479,22 @@ def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
 # The gather/scatter Lagrangian over all slots ('lagrangian_pure')
 # ----------------------------------------------------------------------
 
+def _on_cadence(feas, it_dev, it_host: int, cadence: int, active):
+    """The scenarios whose iteration repairs (infeasible, on the
+    cadence, still running), or None on an iteration off the cadence.
+    Under capture one body serves every iteration, so the cadence is
+    tested on the device's count ``it_dev`` and the branch is entered
+    every iteration; eagerly the host's count ``it_host`` (the same
+    number) skips the branch, and its host read, off the cadence."""
+    if sync.captured(feas):
+        need = ~feas & (it_dev % cadence == 0)
+    elif it_host % cadence == 0:
+        need = ~feas
+    else:
+        return None
+    return need if active is None else need & active
+
+
 class _PureCarry(NamedTuple):
     it: torch.Tensor          # [] i64: iterations run (a device value, so
                               # that a captured body tests its cadence)
@@ -647,13 +664,13 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
         # back toward 0.
         g = torch.where((cnt > 0) | (c.lam > 0), cnt - 1.0, 0.0)
         feas = ~(cnt > 1.5).any(dim=-1)
-        # repair on cadence, as one branch every iteration
-        need = ~feas & (c.it % repair_cadence == 0)
-        if active is not None:
-            need = need & active
-        sel_c, feas_c = sync.cond(
-            need, lambda: repair(sel, c.lam, need if need.dim() else None),
-            lambda: (sel, feas))
+        need = _on_cadence(feas, c.it, next(rounds), repair_cadence, active)
+        sel_c, feas_c = sel, feas
+        if need is not None:
+            sel_c, feas_c = sync.cond(
+                need,
+                lambda: repair(sel, c.lam, need if need.dim() else None),
+                lambda: (sel, feas))
         obj = torch.where(feas_c, obj_of(sel_c), INF)
         better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
         # Patience resets only on a MATERIAL improvement (>= 0.01 % of
@@ -696,6 +713,7 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
     zero_i = torch.zeros(lead, dtype=torch.int64, device=dev)
     c = _PureCarry(zero_i, lam_init, sel_seed, obj_seed, feas_seed, lb_seed,
                    sel_seed, zero_i)
+    rounds = itertools.count()          # the host's iteration count
     c = sync.while_loop(go_on, step, c, max_iters=iters)
 
     if with_clusters:
@@ -829,26 +847,26 @@ class _LagCarry(NamedTuple):
 
 
 def _lagrangian_step(cp: _Compact, repair_rounds, repair_cadence,
-                     c: _LagCarry, active=None) -> _LagCarry:
+                     c: _LagCarry, active=None, it: int = 0) -> _LagCarry:
     """One subgradient iteration: decode, (on cadence) repair into a
     feasible incumbent, Held-Karp step-size halving, dual update.
-    ``active``: the scenarios whose loop still runs (None: all).  Under
-    an axis every value the update reads is reduced, so the duals stay
-    equal on every rank without a broadcast."""
+    ``active``: the scenarios whose loop still runs (None: all); ``it``:
+    the iteration, counted on the host (``_on_cadence``).  Under an axis
+    every value the update reads is reduced, so the duals stay equal on
+    every rank without a broadcast."""
     sel, lb = _decode(cp, c.lam)
     lb_up = lb > c.best_lb + 1e-6 * (1.0 + c.best_lb.abs())
     best_lb = torch.maximum(c.best_lb, lb)
     cnt = _usage_count(cp, sel)
     g = torch.where((cnt > 0) | (c.lam > 0), cnt - 1.0, 0.0)
     feas = ~(cnt > 1.5).any(dim=-1)
-    # repair on cadence, as one branch every iteration
-    need = ~feas & (c.it % repair_cadence == 0)
-    if active is not None:
-        need = need & active
-    sel_c, feas_c = sync.cond(
-        need, lambda: _repair(cp, sel, c.lam, repair_rounds,
-                              need if need.dim() else None),
-        lambda: (sel, feas))
+    need = _on_cadence(feas, c.it, it, repair_cadence, active)
+    sel_c, feas_c = sel, feas
+    if need is not None:
+        sel_c, feas_c = sync.cond(
+            need, lambda: _repair(cp, sel, c.lam, repair_rounds,
+                                  need if need.dim() else None),
+            lambda: (sel, feas))
     obj = torch.where(feas_c, _obj_of(cp, sel_c), INF)
     better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
     material = feas_c & ((obj < c.best_obj
@@ -909,11 +927,13 @@ def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
     c = _LagCarry(zero_i, lam0, sel_seed, obj_seed, feas_seed, lb_seed, zero_i,
                   torch.full(lead, theta, dtype=torch.float32, device=dev),
                   zero_i)
+    rounds = itertools.count()          # the host's iteration count
     c = sync.while_loop(
         None if force_iters
         else lambda c: _lagrangian_continue(c, obj_offset, patience),
         lambda c, active: _lagrangian_step(cp, repair_rounds,
-                                           repair_cadence, c, active),
+                                           repair_cadence, c, active,
+                                           next(rounds)),
         c, max_iters=iters)
     return c.best_sel, c.best_feas, c.best_obj, c.best_lb, c.lam
 

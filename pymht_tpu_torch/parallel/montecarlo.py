@@ -4,9 +4,12 @@ pymht_tpu/parallel/montecarlo.py).
 Whole scenario batches are drawn on one device ([B, ...] tensors with
 static clutter caps and masks) and tracked by the batched step
 (``scenario.make_batched_step``): BASELINE config 4, 256 randomized
-scenarios stepped together.  The draws follow the JAX function's
-semantics with an explicit ``torch.Generator``; JAX's PRNG streams
-cannot be reproduced, so the same seed gives other numbers than there.
+scenarios stepped together.  On the card ``run_batch`` replays one
+captured graph of the batched step per scan (the counterpart of the JAX
+function's ``lax.scan``), from ``core/graph.GRAPHS``.  The draws follow
+the JAX function's semantics with an explicit ``torch.Generator``; JAX's
+PRNG streams cannot be reproduced, so the same seed gives other numbers
+than there.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import graph as graph_mod
 from ..core.config import TrackerParams, TrackerShapes
 from ..core.grow import Scan
 from ..core.state import insert_targets
@@ -161,11 +165,32 @@ def run_batch(scenario: McScenario, shapes: TrackerShapes,
     """Track every scenario of the batch, one batched ``scan_step`` per
     scan with nothing fetched in between, on the scenario's device, with
     any of the four selection methods (radar only, as the JAX function).
-    Returns (final states, track_x [S, B, T, 4], track_mask [S, B, T])."""
-    step = make_batched_step(shapes, params, method=method, use_ais=False)
+    Returns (final states, track_x [S, B, T, 4], track_mask [S, B, T]).
+
+    On the card, for a method ``graph.graphable`` names, the initial
+    states are loaded into the step's graph once (captured on first use
+    into ``graph.GRAPHS``), the graph is replayed once per scan with
+    nothing read in between, and each scan's ``track_x`` and
+    ``track_mask`` are copied into row s of the stacked outputs; the
+    final states returned are copies of the graph's."""
+    step = make_batched_step(shapes, params, method=method, use_ais=False,
+                             graphs=graph_mod.GRAPHS)
     state_b, istate_b = initial_states(scenario, shapes, params)
+    S = scenario.z.shape[1]
+    g = step.graph(state_b, istate_b)
+    if g is not None:
+        g.load(state_b, istate_b)
+        xs = ms = None
+        for s in range(S):
+            out = g(scan_batch(scenario, s))
+            if xs is None:
+                xs = out.track_x.new_empty((S, *out.track_x.shape))
+                ms = out.track_mask.new_empty((S, *out.track_mask.shape))
+            xs[s].copy_(out.track_x)
+            ms[s].copy_(out.track_mask)
+        return graph_mod.clone_state(g.state), xs, ms
     xs, ms = [], []
-    for s in range(scenario.z.shape[1]):
+    for s in range(S):
         state_b, istate_b, out = step(state_b, istate_b,
                                       scan_batch(scenario, s))
         xs.append(out.track_x)

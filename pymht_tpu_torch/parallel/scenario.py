@@ -14,8 +14,13 @@ loops and branches that the port reads on the host keep vmap's semantics
 ``ops/lp.py``): a loop runs while any scenario's test holds, a scenario
 that is done keeps its carry, and a branch runs where some scenario takes
 it and is selected per scenario.  A batched scan therefore makes a
-number of launches that does not grow with B, K1 among them once, and
-about as many host reads as the slowest of its scenarios alone.
+number of launches that does not grow with B, K1 among them once.  On
+the card, for the configurations ``core/graph.graphable`` names, the
+batched step is one captured CUDA graph per (batch size, shapes,
+parameters, flags), replayed once per batched scan with no host read
+(the counterpart of the jitted ``jax.vmap``); eagerly (the CPU,
+``'ipm'``) it makes about as many host reads as the slowest of its
+scenarios alone.
 
 On a mesh, ``make_sharded_step`` splits the scenarios over the
 'scenario' ranks and keeps the target rows of each 'cluster' rank, but
@@ -31,11 +36,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import graph as graph_mod
 from ..core import initiator as initiator_mod
 from ..core.config import TrackerParams, TrackerShapes
 from ..core.grow import AisBatch, Scan, empty_ais
 from ..core.state import empty_state, insert_targets
-from ..core.tracker import PER_TARGET_OUTPUTS, _resolve_device, scan_step
+from ..core.tracker import (PER_TARGET_OUTPUTS, StepOutputs,
+                            _resolve_device, scan_step)
 from ..models import pv
 from .collectives import Axis
 from .multihost import hybrid_mesh
@@ -44,18 +51,46 @@ from .sharded_tracker import (PER_TARGET_FIELDS, make_sharded_tracker_step,
 
 
 def make_batched_step(shapes: TrackerShapes, params: TrackerParams,
-                      method: str = 'lagrangian', use_ais: bool = False):
+                      method: str = 'lagrangian', use_ais: bool = False,
+                      graphs: dict = None):
     """``scan_step`` over a leading scenario axis: returns
     ``step(state_b, istate_b, scan_b, ais_b=None) -> (state_b, istate_b,
     outputs_b)``.  ``ais_b`` is the scenarios' ``AisBatch`` ``[B, A,
     ...]`` (read only with ``use_ais``).  An unknown ``method`` raises the
     dispatcher's ValueError at the first step, as the JAX step does when
-    traced."""
+    traced.
+
+    On the card, for a configuration ``graph.graphable`` names, ``step``
+    loads the states into a captured graph of the batched step, replays
+    it and returns copies of the next states and of the outputs (the
+    JAX step is functional: a caller may keep them across steps).  The
+    graphs live in ``graphs`` (a dict of the step's own unless given; at
+    most ``graph.GRAPHS_KEPT``, the least recent dropped).
+    ``step.graph(state_b, istate_b)`` is the graph a step on these states
+    replays, captured on first use, or None where the step runs eagerly
+    (the CPU, ``'ipm'``)."""
+    graphs = {} if graphs is None else graphs
+    flags = dict(method=method, use_ais=use_ais, ais_initialization=True)
+
+    def graph(state_b, istate_b):
+        if not graph_mod.graphable(state_b, method):
+            return None
+        return graph_mod.get(graphs, state_b, istate_b, shapes, params,
+                             flags, kept=graph_mod.GRAPHS_KEPT)
 
     def step(state_b, istate_b, scan_b, ais_b=None):
-        return scan_step(state_b, istate_b, scan_b, ais_b, shapes, params,
-                         method=method, use_ais=use_ais)
+        g = graph(state_b, istate_b)
+        if g is None:
+            return scan_step(state_b, istate_b, scan_b, ais_b, shapes,
+                             params, method=method, use_ais=use_ais)
+        g.load(state_b, istate_b)
+        out = g(scan_b, ais_b)
+        return (graph_mod.clone_state(g.state),
+                graph_mod.clone_state(g.init_state),
+                StepOutputs(*(t.clone() for t in out)))
 
+    step.graph = graph
+    step.graphs = graphs
     return step
 
 

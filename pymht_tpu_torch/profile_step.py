@@ -12,6 +12,7 @@
     python -m pymht_tpu_torch.profile_step --batch 8 --demo --method ipm
     python -m pymht_tpu_torch.profile_step --swarm   # the swarm benchmark
     python -m pymht_tpu_torch.profile_step --eager   # no captured graph
+    python -m pymht_tpu_torch.profile_step --batch 32 --eager
 
 Runs the radar-only bench scene (``Tracker(use_ais=False)``) or, with
 ``--ais``, the AIS-fusion scene (``Tracker(use_ais=True)``, A=32, G=2;
@@ -32,10 +33,11 @@ and ``--pregate``; a "scan" below is then one batched scan.  With
 ``--swarm`` it profiles the swarm benchmark's 8 scans, streamed in one
 ``scan_many`` as ``scripts/bench_swarm.run`` streams them (once to warm
 up, once under the profiler; no phases alone, and every scan counts).
-The Tracker steps the scene as one captured CUDA graph per scan
-(core/graph.py) under ``'lagrangian'``, ``'lagrangian_pure'`` and
-``'greedy'``, with or without ``--ais`` and ``--pregate``; ``'ipm'`` and
-``--eager`` step through the plain ``scan_step`` instead, and
+The Tracker (and with ``--batch`` the batched step) steps the scene as
+one captured CUDA graph per scan (core/graph.py) under ``'lagrangian'``,
+``'lagrangian_pure'`` and ``'greedy'``, with or without ``--ais`` and
+``--pregate``; ``'ipm'`` and ``--eager`` step through the plain
+``scan_step`` instead, and
 ``--eager`` also reports, per loop of ``sync.while_loop`` (by the source
 line of its body), the bodies run per scan and the device time per body
 (the kernels launched inside it, nested loops included).  Over the steady scans (3 onwards) it reports:
@@ -200,7 +202,7 @@ def main(argv=None):
             "graph_pool_bytes": graphs[0].pool_bytes(),
             "graph_capture_s": graphs[0].capture_s,
             "condition_kernel_runs_per_scan": graph_flow.runs() / n,
-            "replay_device_ms": _replay_device_ms(tr)}
+            "replay_device_ms": _replay_device_ms(graphs[0])}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scene": "ais" if args.ais else "radar",
@@ -271,11 +273,10 @@ def _loop_summary(prof, n):
     return out
 
 
-def _replay_device_ms(tr, reps=7):
-    """Device ms of one replay of the tracker's step graph on its last
-    scan, between two CUDA events behind a device spin, from the same
-    saved state each time (a replay writes the next state in place)."""
-    (g,) = tr._graphs.values()
+def _replay_device_ms(g, reps=7):
+    """Device ms of one replay of the step graph ``g`` on its last scan,
+    between two CUDA events behind a device spin, from the same saved
+    state each time (a replay writes the next state in place)."""
     keep = (graph_mod.clone_state(g.state),
             graph_mod.clone_state(g.init_state))
     times = []
@@ -291,6 +292,30 @@ def _replay_device_ms(tr, reps=7):
         times.append(a.elapsed_time(b))
     g.load(*keep)
     return float(np.median(times))
+
+
+def replays_device_ms(g, state, init_state, inputs):
+    """Device ms of each replay of the step graph ``g`` over a run of
+    scans from ``state`` / ``init_state``: ``inputs`` yields each scan's
+    (Scan, AisBatch or None), copied in before a pair of CUDA events
+    around the replay (a scan's loops run as many times as its data
+    asks, so one scan's replay is not every scan's)."""
+    g.load(state, init_state)
+    times = []
+    for scan, ais in inputs:
+        for buf, src in zip(g.scan, scan):
+            buf.copy_(src)
+        if g.ais is not None:
+            for buf, src in zip(g.ais, ais):
+                buf.copy_(src)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
 
 
 def _dev_us(e):
@@ -395,7 +420,15 @@ def _batched(args):
     step = make_batched_step(shapes, params, method=args.method,
                              use_ais=use_ais)
 
-    # pass 1: each phase of each steady batched scan, timed alone
+    def eager(st, ist, scan, ais):
+        return scan_step(st, ist, scan, ais, shapes, params,
+                         method=args.method, use_ais=use_ais)
+    if args.eager:
+        step = eager
+
+    # pass 1: each phase of each steady batched scan, timed alone, the
+    # states advanced eagerly (a graph captured now would hold its pool
+    # beside the phases' own memory)
     st, ist = initial()
     phases = []
     for s in range(S):
@@ -403,8 +436,11 @@ def _batched(args):
         if s >= 2:
             phases.append(_phase_times(st, ist, scan, ais, shapes, params,
                                        args.method))
-        st, ist, _ = step(st, ist, scan, ais)
-    # pass 2: the unchanged batched steps under the profiler
+        st, ist, _ = eager(st, ist, scan, ais)
+    del st, ist
+    torch.cuda.empty_cache()
+    # pass 2: the unchanged batched steps under the profiler (a graph is
+    # captured at the first scan, outside the profiled window)
     torch.cuda.reset_peak_memory_stats()
     st, ist = initial()
     prof = torch.profiler.profile(activities=[
@@ -415,6 +451,7 @@ def _batched(args):
         if s == 2:
             torch.cuda.synchronize()
             prof.__enter__()
+            graph_flow.reset_runs()
             t_window = time.perf_counter()
         n_sync, t = sync.count, time.perf_counter()
         st, ist, out = step(st, ist, *scan_at(s))
@@ -428,6 +465,23 @@ def _batched(args):
     n = S - 2
     busy_ms, events, top = _device_time(prof)
     K = truth.shape[2] if truth is not None else shapes.max_targets
+    graphs = list(getattr(step, "graphs", {}).values())
+    graphed = {}
+    if graphs:
+        g = graphs[0]
+        runs = graph_flow.runs()          # the profiled window's
+        every = replays_device_ms(g, *initial(),
+                                  (scan_at(s) for s in range(S)))
+        # the trace holds no kernel of a conditional body: the device's
+        # share of the wall is read from the replays' own times
+        graphed = {
+            "graph_pool_bytes": g.pool_bytes(),
+            "graph_capture_s": g.capture_s,
+            "condition_kernel_runs_per_scan": runs / n,
+            "replay_device_ms": _replay_device_ms(g),
+            "replays_device_ms": every,
+            "idle_share_beside_replays":
+                1.0 - float(np.mean(every[2:])) / (wall_ms / n)}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scene": ("demo" if args.demo else "ais" if args.ais
@@ -447,6 +501,8 @@ def _batched(args):
         "host_syncs_per_scan": reads,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "tracks_alive": int(out.track_mask[:, :K].sum()),
+        "graphed": bool(graphs),
+        **graphed,
         **_device_summary(events, top, n),
     }, indent=1))
     return 0

@@ -9,21 +9,27 @@ device, so every one goes through ``flag`` (or ``fetch`` for whole
 arrays) and is counted in ``count``; the Tracker reports the count per
 scan step.  While a CUDA graph is being captured by
 ``kernels/graph_flow.capture`` (``core/graph.py`` captures the scan step
-so, the counterpart of ``jax.jit``), a 0-d loop or branch becomes a
+so, the counterpart of ``jax.jit``), a loop or branch becomes a
 conditional node of the graph, tested on the device, and reads nothing:
 ``while_loop`` a WHILE node whose body writes its new carry over the
-carry it read, ``cond`` two IF nodes (pred, not pred) whose false branch
-copies its outputs over the true branch's.  Under capture a body must
-make the same operations every time it runs and every carry leaf must be
-a tensor; a batched loop or branch raises there.
+carry it read, ``cond`` two IF nodes.  Under capture a body must make
+the same operations every time it runs and every carry leaf must be a
+tensor; code whose form would follow a host value (a cadence counted on
+the host) asks ``captured`` and takes its device form.
 
 ``while_loop`` and ``cond`` take a predicate that is 0-d (one problem)
 or batched, with the leading scenario axes of every tensor in the carry
 (B independent problems, as under ``jax.vmap``).  A batched loop runs
 while any scenario's predicate holds and keeps the carry of a scenario
-that has exited (its body is computed and discarded); a batched branch
-computes each side that some scenario takes and selects per scenario.
-Either reads the host once per test, as the 0-d form does.
+that has exited (its body is computed and discarded): the body gets the
+scenarios still running as a bool tensor ``active`` (all of them on an
+untested first body) and its result is selected by it.  A batched
+branch computes each side that some scenario takes and selects per
+scenario.  Eagerly either reads the host once per test, as the 0-d form
+does; under capture the WHILE node tests ``active.any()``, the two IF
+nodes ``pred.any()`` and ``not pred.all()``, each branch writes into
+buffers of its own, and ``select`` picks per scenario after both (a
+branch no scenario took leaves stale buffers that nothing selects).
 
 ``psum`` / ``pmin`` / ``pmax`` reduce over an optional axis of ranks
 (``parallel/collectives.Axis``): without one (``axis=None``, one device)
@@ -133,68 +139,103 @@ def _capturing(t: torch.Tensor) -> bool:
     return True
 
 
+def captured(t: torch.Tensor) -> bool:
+    """Is the work on ``t`` being captured into a graph?  A body then
+    takes its device form: one that tests on the device what its eager
+    form decides on the host (the repair cadence of the Lagrangian
+    selects), so that the one captured run holds for every iteration."""
+    return _capturing(t)
+
+
+def any_(p: torch.Tensor) -> bool:
+    """Does the (0-d or batched) predicate hold for some scenario: one
+    counted host read."""
+    return flag(p if p.dim() == 0 else p.any())
+
+
 def _device_while(cond, body, carry, max_iters, test_first):
     """The WHILE node: the carry is copied into buffers of the loop's
-    own, the body runs on them and writes its result over them."""
+    own, the body runs on them and writes its result over them.  A
+    batched loop also keeps its ``active`` mask in a buffer and tests
+    ``active.any()``."""
     from .kernels import graph_flow
     bufs = [t.clone() for t in _leaves(carry)]
     carry = _rebuild(carry, iter(bufs))
-    test = cond is not None
-    p0 = cond(carry) if test and test_first else None
-    if p0 is not None and p0.dim() != 0:
-        raise RuntimeError("sync.while_loop: a batched loop cannot be "
-                           "captured")
+    p = cond(carry) if cond is not None else None
     counter = torch.zeros((), dtype=torch.int32, device=bufs[0].device)
     cap = (1 << 31) - 1 if max_iters is None else int(max_iters)
-    with graph_flow.while_node(p0, counter, cap) as node:
-        write_over(bufs, body(carry, None), "a loop body")
-        p = cond(carry) if test else None
-        if p is not None and p.dim() != 0:
-            raise RuntimeError("sync.while_loop: a batched loop cannot be "
-                               "captured")
-        node.next(p)
+    if p is None or p.dim() == 0:
+        with graph_flow.while_node(p if test_first else None, counter,
+                                   cap) as node:
+            write_over(bufs, body(carry, None), "a loop body")
+            node.next(cond(carry) if cond is not None else None)
+        return carry
+    active = p.clone() if test_first else torch.ones_like(p)
+    with graph_flow.while_node(active.any(), counter, cap) as node:
+        new = select(active, body(carry, active), carry)
+        write_over(bufs, new, "a loop body")
+        active.copy_(cond(carry))
+        node.next(active.any())
     return carry
 
 
 def _device_cond(pred, true_fn, false_fn):
-    """Two IF nodes: the true branch's outputs are copied into buffers
-    made in its body (so that no input is written over), the false
-    branch's are copied over them."""
+    """Two IF nodes.  0-d: the true branch's outputs are copied into
+    buffers made in its body (so that no input is written over), the
+    false branch's are copied over them.  Batched: each branch, run when
+    some scenario takes it, copies its outputs into buffers of its own,
+    and ``select`` picks per scenario."""
     from .kernels import graph_flow
-    with graph_flow.if_node(pred):
-        out = true_fn()
-        bufs = [t.clone() for t in _leaves(out)]
-    with graph_flow.if_node(pred, negate=True):
-        write_over(bufs, false_fn(), "the false branch")
-    return _rebuild(out, iter(bufs))
+    if pred.dim() == 0:
+        with graph_flow.if_node(pred):
+            out = true_fn()
+            bufs = [t.clone() for t in _leaves(out)]
+        with graph_flow.if_node(pred, negate=True):
+            write_over(bufs, false_fn(), "the false branch")
+        return _rebuild(out, iter(bufs))
+    with graph_flow.if_node(pred.any()):
+        out_t = true_fn()
+        bufs_t = [t.clone() for t in _leaves(out_t)]
+    with graph_flow.if_node(pred.all(), negate=True):
+        out_f = false_fn()
+        bufs_f = [t.clone() for t in _leaves(out_f)]
+    return select(pred, _rebuild(out_t, iter(bufs_t)),
+                  _rebuild(out_f, iter(bufs_f)))
 
 
 def while_loop(cond, body, carry, max_iters=None, test_first=True):
     """``lax.while_loop(cond, body, carry)`` with the exit read on the
     host, at most ``max_iters`` bodies.  ``body(carry, active)`` gets the
-    scenarios still running (None: all of them, or one 0-d problem), so
-    that a branch or loop nested in it can leave the others out.  With
-    ``test_first=False`` the first body runs untested (a loop whose first
-    test is known to hold).  ``cond=None`` runs exactly ``max_iters``
-    bodies and reads nothing on the host.  Under a graph capture (module
-    docstring) the loop is a WHILE node and reads nothing."""
+    scenarios still running (a bool tensor for a batched loop; None for
+    one 0-d problem), so that a branch or loop nested in it can leave the
+    others out.  With ``test_first=False`` the first body runs untested
+    (a loop whose first test is known to hold), for every scenario;
+    ``cond`` is still called on the first carry, for the batch's shape.
+    ``cond=None`` runs exactly ``max_iters`` bodies and reads nothing on
+    the host.  Under a graph capture (module docstring) the loop is a
+    WHILE node and reads nothing."""
     first = _first_tensor(carry)
     if first is not None and _capturing(first):
         return _device_while(cond, body, carry, max_iters, test_first)
-    it, active = 0, None
-    while max_iters is None or it < max_iters:
-        if cond is not None and (it > 0 or test_first):
-            p = cond(carry)
-            if p.dim() == 0:
-                if not flag(p):
-                    break
-            else:
-                if not flag(p.any()):
-                    break
-                active = p
+    cap = float("inf") if max_iters is None else max_iters
+    if cap <= 0:
+        return carry
+    p = cond(carry) if cond is not None else None
+    active = None if p is None or p.dim() == 0 else (
+        p if test_first else torch.ones_like(p))
+    if test_first and p is not None and not any_(p):
+        return carry
+    it = 0
+    while it < cap:
         new = body(carry, active)
         carry = new if active is None else select(active, new, carry)
         it += 1
+        if cond is not None and it < cap:
+            p = cond(carry)
+            if not any_(p):
+                break
+            if active is not None:
+                active = p
     return carry
 
 
@@ -203,19 +244,15 @@ def cond(pred: torch.Tensor, true_fn, false_fn):
     branch.  A batched one is read once (does any, does every scenario
     take ``true_fn``): a branch no scenario takes is not run, otherwise
     both run and are selected per scenario.  Under a graph capture
-    (module docstring) a 0-d ``pred`` makes two IF nodes and reads
-    nothing."""
+    (module docstring) it makes two IF nodes and reads nothing."""
     if _capturing(pred):
-        if pred.dim() != 0:
-            raise RuntimeError("sync.cond: a batched branch cannot be "
-                               "captured")
         return _device_cond(pred, true_fn, false_fn)
     if pred.dim() == 0:
         return true_fn() if flag(pred) else false_fn()
-    any_, all_ = fetch(torch.stack([pred.any(), pred.all()])).tolist()
-    if all_:
+    some, every = fetch(torch.stack([pred.any(), pred.all()])).tolist()
+    if every:
         return true_fn()
-    if not any_:
+    if not some:
         return false_fn()
     return select(pred, true_fn(), false_fn())
 

@@ -1,8 +1,10 @@
 """The captured scan step on the card (core/graph.py, kernels/graph_flow.py,
 csrc/graph_flow.cu) against the eager ``scan_step`` on the same card: the
-radar-only ``'lagrangian'`` step, and the configurations captured since
-(AIS fusion, AIS with the spatial pre-gate, ``'lagrangian_pure'`` and
-``'greedy'``).
+radar-only ``'lagrangian'`` step, the configurations captured since (AIS
+fusion, AIS with the spatial pre-gate, ``'lagrangian_pure'`` and
+``'greedy'``), and each of them on a batch of scenarios
+(``parallel/scenario.make_batched_step``, ``parallel/montecarlo.
+run_batch``).
 
 Every test needs a CUDA device and nvcc (the conditional nodes exist only
 in a captured CUDA graph) and skips without one.  On the H100:
@@ -173,19 +175,22 @@ def test_scan_many_graphed_equals_stepped(card):
 
 @pytest.mark.cuda
 def test_a_capture_that_cannot_work_raises(card):
-    """A batched loop (two scenarios) under capture raises, and a
-    batched forest never reaches the graph."""
-    from pymht_tpu_torch.kernels import graph_flow
+    """A loop or branch under a capture begun outside
+    ``graph_flow.capture`` raises, and ``'ipm'``, ``select_kw`` and a
+    second batch axis never reach the graph."""
     x = torch.zeros(2, dtype=torch.int64, device=card)
     g = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="batched"):
-        with graph_flow.capture(g):
+    with pytest.raises(RuntimeError, match="graph_flow.capture"):
+        with torch.cuda.graph(g):
             sync.while_loop(lambda c: c[0] < 3, lambda c, _: (c[0] + 1,),
                             (x,))
     shapes, params = _scene()[:2]
     from pymht_tpu_torch.core.state import empty_state
     st = empty_state(shapes, params, card, batch=(2,))
-    assert not graph_mod.graphable(st, "lagrangian")
+    assert graph_mod.graphable(st, "lagrangian")
+    assert not graph_mod.graphable(st, "ipm")
+    st2 = empty_state(shapes, params, card, batch=(2, 2))
+    assert not graph_mod.graphable(st2, "lagrangian")
     st1 = empty_state(shapes, params, card)
     assert graph_mod.graphable(st1, "greedy")
     assert not graph_mod.graphable(st1, "ipm")
@@ -361,3 +366,192 @@ def test_methods_and_ais_flags_get_graphs_of_their_own(card):
         ("lagrangian", True), ("lagrangian", False), ("greedy", True),
         ("greedy", False)}
     graph_mod.GRAPHS.clear()
+
+
+# ----------------------------------------------------------------------
+# batches: the batched step and run_batch, graphed against eager
+# ----------------------------------------------------------------------
+
+BATCH, BATCH_SCANS = 3, 4
+
+
+@pytest.mark.cuda
+def test_batched_loop_and_branch_nodes_test_on_the_device(card):
+    """A batched WHILE node (per-scenario exits, a finished scenario keeps
+    its carry), a nested batched IF whose scenarios part, and an untested
+    first body that runs for every scenario, against the same function
+    run eagerly, on data that changes with each replay."""
+    from pymht_tpu_torch.kernels import graph_flow
+
+    def fn(n):
+        def body(c, active):
+            x, acc = c
+            acc = sync.cond((x % 3 == 0) & active, lambda: acc + 10 * x,
+                            lambda: acc - x)
+            return x + 1, acc
+        x, acc = sync.while_loop(lambda c: c[0] < n, body,
+                                 (torch.zeros_like(n), torch.zeros_like(n)),
+                                 max_iters=50)
+        once = sync.while_loop(lambda c: c[0] < 0, lambda c, _: (c[0] + 7,),
+                               (n.clone(),), test_first=False)[0]
+        return torch.stack([x, acc, once])
+
+    n = torch.zeros(4, dtype=torch.int64, device=card)
+    g = torch.cuda.CUDAGraph()
+    with graph_flow.capture(g):
+        out = fn(n)
+    for v in ([0, 0, 0, 0], [1, 7, 0, 3], [20, 80, 5, 5], [3, 2, 1, 60]):
+        n.copy_(torch.tensor(v))
+        reads = sync.count
+        g.replay()
+        got = out.cpu()
+        assert sync.count == reads
+        want = fn(torch.tensor(v, device=card)).cpu()
+        assert torch.equal(got, want), (v, got, want)
+
+
+BATCH_CONFIGS = {
+    "radar": dict(method="lagrangian", use_ais=False, km=0),
+    "ais": dict(method="lagrangian", use_ais=True, km=0),
+    "ais_pregate": dict(method="lagrangian", use_ais=True, km=32),
+    "radar_pregate": dict(method="lagrangian", use_ais=False, km=32),
+    "pure": dict(method="lagrangian_pure", use_ais=False, km=0),
+    "greedy": dict(method="greedy", use_ais=False, km=0),
+}
+
+
+def _batch_scene(name):
+    """B draws of the configuration's scene (the small scenes above, seeds
+    1234 + b radar only, 4321 + b with AIS) as a ``BatchScene`` on the
+    card."""
+    import dataclasses
+    cfg = BATCH_CONFIGS[name]
+    if cfg["use_ais"]:
+        return scenes.bench_ais_batch(BATCH, n_targets=N_TARGETS,
+                                      n_scans=BATCH_SCANS - 1, max_meas=M,
+                                      radar_cand_width=cfg["km"],
+                                      device="cuda")
+    draws = []
+    for b in range(BATCH):
+        shapes, params, scans, sim_list, seeds = scenes.bench_scene(
+            n_targets=N_TARGETS, n_scans=BATCH_SCANS - 1, max_meas=M,
+            seed=1234 + b)
+        draws.append((scans, [], seeds, None, sim_list))
+    shapes = dataclasses.replace(shapes, radar_cand_width=cfg["km"])
+    return scenes.batch_scene(shapes, params, draws, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BATCH_CONFIGS))
+def test_graphed_batched_step_equals_eager(card, name):
+    """``make_batched_step`` on the card replays one graph per batched
+    scan, with no host read and one K1 launch, and equals the plain
+    ``scan_step`` on the batched tensors: outputs and both states."""
+    from pymht_tpu_torch.parallel.scenario import make_batched_step
+    cfg = BATCH_CONFIGS[name]
+    bs = _batch_scene(name)
+    step = make_batched_step(bs.shapes, bs.params, method=cfg["method"],
+                             use_ais=cfg["use_ais"])
+    st, ist = bs.state, bs.init_state
+    ref, ref_i = bs.state, bs.init_state
+    for s in range(BATCH_SCANS):
+        scan, ais = bs.scan(s)
+        reads, k1, k1p = sync.count, gk.launches, gk.launches_pregate
+        st, ist, got = step(st, ist, scan, ais)
+        assert sync.count == reads
+        assert gk.launches - k1 == 1 and gk.launches_pregate - k1p == 1
+        ref, ref_i, want = scan_step(ref, ref_i, scan, ais, bs.shapes,
+                                     bs.params, method=cfg["method"],
+                                     use_ais=cfg["use_ais"])
+        for f in StepOutputs._fields:
+            _same(getattr(got, f).cpu(), getattr(want, f).cpu(),
+                  f"{name} scan {s} {f}")
+        _same_state(st, ref, f"{name} scan {s} state")
+        _same_state(ist, ref_i, f"{name} scan {s} init_state")
+    (g,) = step.graphs.values()
+    assert g.replays == BATCH_SCANS and g.pool_bytes() > 0
+    assert g.scan.z.shape[0] == BATCH
+
+
+@pytest.mark.cuda
+def test_run_batch_graphed_equals_eager(card):
+    """``run_batch`` on the card (one replay per scan from the module's
+    graphs, nothing read in between) against the eager batched step."""
+    from pymht_tpu_torch.parallel import montecarlo as mc
+    shapes, params, sc = scenes.mc_scene(batch=16, n_scans=6)
+    sc = mc.McScenario(*(a.to(card) for a in sc))
+    graph_mod.GRAPHS.clear()
+    reads, k1 = sync.count, gk.launches
+    st, xs, ms = mc.run_batch(sc, shapes, params)
+    assert sync.count == reads and gk.launches - k1 == sc.z.shape[1]
+    (g,) = graph_mod.GRAPHS.values()
+    ref, ref_i = mc.initial_states(sc, shapes, params)
+    for s in range(sc.z.shape[1]):
+        ref, ref_i, out = scan_step(ref, ref_i, mc.scan_batch(sc, s), None,
+                                    shapes, params, method="lagrangian",
+                                    use_ais=False)
+        _same(xs[s].cpu(), out.track_x.cpu(), f"scan {s} track_x")
+        _same(ms[s].cpu(), out.track_mask.cpu(), f"scan {s} track_mask")
+    _same_state(st, ref, "final state")
+    _same_state(g.init_state, ref_i, "final initiator state")
+    # a second run replays the same graph
+    st2, xs2, ms2 = mc.run_batch(sc, shapes, params)
+    assert list(graph_mod.GRAPHS.values()) == [g]
+    assert torch.equal(ms2, ms) and torch.equal(xs2, xs)
+    graph_mod.GRAPHS.clear()
+
+
+@pytest.mark.cuda
+def test_batch_of_one_equals_the_unbatched_graph(card):
+    """The batched graph at B=1 against the unbatched graph
+    (``scan_many``) on the same scene: labels and integer state equal,
+    floats within the batch's tolerance (K1 runs through its per-target
+    entry point in a batch, its shared-scan one alone)."""
+    from pymht_tpu_torch.parallel.scenario import make_batched_step
+    scene = _scene()
+    tr = _tracker(scene)
+    scan_b, ais_b = tr.make_stream_inputs(scene[2])
+    st1 = graph_mod.clone_state(tr.state)
+    ist1 = graph_mod.clone_state(tr.init_state)
+    st, ist, outs = scan_many(tr.state, tr.init_state, scan_b, ais_b,
+                              tr.shapes, tr.params, use_ais=False,
+                              compute_clusters=True)
+    step = make_batched_step(tr.shapes, tr.params, method="lagrangian")
+
+    def one(tree):
+        import dataclasses
+        return tree.replace(**{f.name: getattr(tree, f.name)[None]
+                               for f in dataclasses.fields(tree)})
+
+    sb, isb = one(st1), one(ist1)
+    for i in range(scan_b.z.shape[0]):
+        scan = type(scan_b)(*(f[i][None] for f in scan_b))
+        sb, isb, out = step(sb, isb, scan)
+        for f in StepOutputs._fields:
+            a, b = getattr(out, f)[0].cpu(), getattr(outs, f)[i].cpu()
+            if a.dtype.is_floating_point:
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                           atol=2e-3, err_msg=f"scan {i} {f}")
+            else:
+                np.testing.assert_array_equal(a.numpy(), b.numpy(),
+                                              err_msg=f"scan {i} {f}")
+    (g,) = step.graphs.values()
+    assert g.replays == scan_b.z.shape[0]
+
+
+@pytest.mark.cuda
+def test_kept_batched_outputs_are_not_overwritten(card):
+    """What ``make_batched_step`` returns is the caller's: the next step
+    (a replay that writes over the graph's buffers) leaves it as it was."""
+    from pymht_tpu_torch.parallel.scenario import make_batched_step
+    bs = _batch_scene("radar")
+    step = make_batched_step(bs.shapes, bs.params, method="lagrangian")
+    st, ist, out = step(bs.state, bs.init_state, *bs.scan(0))
+    kept = [t.clone() for t in (*out, st.leaf_x, st.tgt_mask, ist.p_x)]
+    st2, ist2, out2 = step(st, ist, *bs.scan(1))
+    after = (*out, st.leaf_x, st.tgt_mask, ist.p_x)
+    assert all(torch.equal(a, b) for a, b in zip(kept, after))
+    assert not torch.equal(out2.track_x, out.track_x)
+    (g,) = step.graphs.values()
+    assert all(not sync.same_storage(t, b) for t in (*out, *out2)
+               for b in g.out)
