@@ -35,6 +35,12 @@ plan ``card_plan`` is computed before the capture so that the capture
 asks the runtime nothing: ``gate_kernel.launches`` and
 ``launches_pregate`` are counted per replay from what the capture
 launched, so a count per scan stays true.
+
+With tracing on (``utils/timing``) a graph is captured with the step's
+phase stamps among its nodes, under a key of its own, and each replay
+begins a row of the tracer's stamps; each capture is a ``capture`` span
+and counts in the tracer's ``captures``, and ``replay_many`` is a
+``replay`` span.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ import torch
 from .. import sync
 from ..kernels import graph_flow
 from ..ops import gate_kernel as gk
+from ..utils import timing
 from .grow import AisBatch, Scan, empty_ais
 
 GRAPHS_KEPT = 4          # graphs ``scan_many`` keeps, least recent dropped
@@ -57,6 +64,7 @@ METHODS = ('lagrangian', 'lagrangian_pure', 'greedy')     # captured
 FLAGS = ('method', 'use_ais', 'ais_initialization')
 
 _warm = set()            # devices whose cuBLAS handle exists
+_CAPTURE, _REPLAY = timing.Span('capture'), timing.Span('replay')
 
 
 def graphable(state, method: str, select_kw=None) -> bool:
@@ -69,13 +77,15 @@ def graphable(state, method: str, select_kw=None) -> bool:
 
 def graph_key(state, shapes, params, flags: dict) -> tuple:
     """The key of this step's graph: shapes, the batch's leading axes,
-    parameters, device and every static flag of ``scan_step`` (``FLAGS``
-    must be among them)."""
+    parameters, device, every static flag of ``scan_step`` (``FLAGS``
+    must be among them) and whether tracing is on (its stamps are nodes
+    of the graph)."""
     missing = [f for f in FLAGS if f not in flags]
     if missing:
         raise ValueError(f"graph_key: the flags must name {missing}")
     return (shapes, params, state.leaf_x.device,
-            tuple(sorted(flags.items())), tuple(state.hist_meas.shape[:-3]))
+            tuple(sorted(flags.items())), tuple(state.hist_meas.shape[:-3]),
+            timing.tracing())
 
 
 def _fields(obj) -> list:
@@ -123,9 +133,11 @@ class StepGraph:
         elif lead:
             gk.card_plan(dev.index, nb, T * L, M)
         self.graph = torch.cuda.CUDAGraph()
+        self.stamped = timing.tracing()
+        timing.ready(dev)
         reads, k1, k1_sub = sync.count, gk.launches, gk.launches_pregate
         tic = time.perf_counter()
-        with graph_flow.capture(self.graph):
+        with _CAPTURE, graph_flow.capture(self.graph):
             st, ist, out = scan_step(self.state, self.init_state, self.scan,
                                      self.ais, shapes, params, **self.flags)
             static = (_fields(self.state) + _fields(self.init_state)
@@ -138,6 +150,9 @@ class StepGraph:
             sync.write_over(_fields(self.init_state), tuple(_fields(ist)),
                             "the captured step")
         self.capture_s = time.perf_counter() - tic
+        timing.TRACE.captures += 1
+        if self.stamped:
+            timing.TRACE.graphs.add(self)
         if sync.count != reads:
             raise RuntimeError("StepGraph: the capture read the host")
         self.k1, self.k1_pregate = (gk.launches - k1,
@@ -168,6 +183,8 @@ class StepGraph:
             for buf, src in zip(self.ais, ais):
                 buf.copy_(src)
         self.graph.replay()
+        if self.stamped:
+            timing.TRACE.replayed(self.scan.z.device)
         gk.launches += self.k1
         gk.launches_pregate += self.k1_pregate
         self.replays += 1
@@ -202,15 +219,17 @@ def replay_many(g: StepGraph, state, init_state, scans: Scan,
     (the graph's state buffers, its initiator buffers, the stacked
     StepOutputs)."""
     from .tracker import StepOutputs
-    g.load(state, init_state)
-    S = scans.z.shape[0]
-    stacked = None
-    for i in range(S):
-        out = g(Scan(*(f[i] for f in scans)),
-                None if g.ais is None else AisBatch(*(f[i] for f in ais)))
-        if stacked is None:
-            stacked = [torch.empty((S, *t.shape), dtype=t.dtype,
-                                   device=t.device) for t in out]
-        for row, t in zip(stacked, out):
-            row[i].copy_(t)
+    with _REPLAY:
+        g.load(state, init_state)
+        S = scans.z.shape[0]
+        stacked = None
+        for i in range(S):
+            out = g(Scan(*(f[i] for f in scans)),
+                    None if g.ais is None
+                    else AisBatch(*(f[i] for f in ais)))
+            if stacked is None:
+                stacked = [torch.empty((S, *t.shape), dtype=t.dtype,
+                                       device=t.device) for t in out]
+            for row, t in zip(stacked, out):
+                row[i].copy_(t)
     return g.state, g.init_state, StepOutputs(*stacked)

@@ -275,7 +275,8 @@ def cluster(state: TrackerState, shapes: TrackerShapes, usage=None):
             usef = useb.float()
             return (usef @ usef.mT) > 0
 
-        adj = sync.cond(n_cont <= CAPc, lambda: (uc @ uc.mT) > 0, dense_full)
+        adj = sync.cond(n_cont <= CAPc, lambda: (uc @ uc.mT) > 0, dense_full,
+                        name="cluster.adjacency")
     else:
         contested, _ = _contested_minmax(state, shapes)
         uc = _compact_usage(state, shapes, _compact_rank(contested, CAPc),
@@ -291,7 +292,7 @@ def cluster(state: TrackerState, shapes: TrackerShapes, usage=None):
     labels, _ = sync.while_loop(
         lambda c: c[1], lambda c, _: _propagate_labels(adj, c),
         (torch.where(tm, tids, T), torch.ones_like(tm[..., 0])),
-        test_first=False)
+        test_first=False, name="cluster")
     is_root = tm & (labels == tids)
     return labels.int(), is_root.sum(dim=-1).int()
 
@@ -647,7 +648,7 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
             go_on, lambda c, _: repair_round(rc, c),
             (sel, torch.zeros((*lead, T, L), dtype=torch.bool, device=dev),
              torch.ones_like(eff_tgt[..., 0])),
-            max_iters=repair_rounds, test_first=False)[0]
+            max_iters=repair_rounds, test_first=False, name="pure.repair")[0]
         return sel, ~(usage_of(sel) > 1.5).any(dim=-1)
 
     def obj_of(sel):
@@ -670,7 +671,7 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
             sel_c, feas_c = sync.cond(
                 need,
                 lambda: repair(sel, c.lam, need if need.dim() else None),
-                lambda: (sel, feas))
+                lambda: (sel, feas), name="pure.repair_cadence")
         obj = torch.where(feas_c, obj_of(sel_c), INF)
         better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
         # Patience resets only on a MATERIAL improvement (>= 0.01 % of
@@ -714,7 +715,7 @@ def select_lagrangian(state: TrackerState, shapes: TrackerShapes,
     c = _PureCarry(zero_i, lam_init, sel_seed, obj_seed, feas_seed, lb_seed,
                    sel_seed, zero_i)
     rounds = itertools.count()          # the host's iteration count
-    c = sync.while_loop(go_on, step, c, max_iters=iters)
+    c = sync.while_loop(go_on, step, c, max_iters=iters, name="pure")
 
     if with_clusters:
         labels, n_clusters = cluster(state, shapes)
@@ -829,7 +830,7 @@ def _repair(cp: _Compact, sel, lam, repair_rounds, active=None):
         go_on, lambda c, _: _repair_round(cp, rc, c),
         (sel, torch.zeros_like(cp.f, dtype=torch.bool),
          torch.ones_like(cp.eff_tgt[..., 0])),
-        max_iters=repair_rounds, test_first=False)[0]
+        max_iters=repair_rounds, test_first=False, name="repair")[0]
     return sel, ~(_usage_count(cp, sel) > 1.5).any(dim=-1)
 
 
@@ -866,7 +867,7 @@ def _lagrangian_step(cp: _Compact, repair_rounds, repair_cadence,
         sel_c, feas_c = sync.cond(
             need, lambda: _repair(cp, sel, c.lam, repair_rounds,
                                   need if need.dim() else None),
-            lambda: (sel, feas))
+            lambda: (sel, feas), name="lagrangian.repair_cadence")
     obj = torch.where(feas_c, _obj_of(cp, sel_c), INF)
     better = feas_c & ((obj < c.best_obj - 1e-6) | ~c.best_feas)
     material = feas_c & ((obj < c.best_obj
@@ -934,7 +935,7 @@ def _compact_lagrangian(f, Uc, lam0, spine, eff_tgt, eff_leaf, obj_offset,
         lambda c, active: _lagrangian_step(cp, repair_rounds,
                                            repair_cadence, c, active,
                                            next(rounds)),
-        c, max_iters=iters)
+        c, max_iters=iters, name="lagrangian")
     return c.best_sel, c.best_feas, c.best_obj, c.best_lb, c.lam
 
 
@@ -1068,7 +1069,7 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
                 zero, torch.zeros_like(state.lam))
 
     sel_big, feas_big, obj_big, bound_big, lam = sync.cond(
-        big.any(dim=-1), tier3, no_tier3)
+        big.any(dim=-1), tier3, no_tier3, name="tier3")
 
     sel = torch.where(singleton, sel0, torch.where(small, sel_enum, sel_big))
 
@@ -1182,4 +1183,4 @@ def select(state: TrackerState, shapes: TrackerShapes,
 
     return sync.cond(feas0,
                      lambda: fast._replace(feasible=torch.ones_like(feas0)),
-                     solve)
+                     solve, name="select.fast_path")

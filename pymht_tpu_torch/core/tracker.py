@@ -8,6 +8,12 @@ Tracker's API (``add_measurement_list``, ``stream``, ``degrade``,
 ``pre_initialize``, ``get_tracks``, ``get_smooth_tracks``,
 ``check_integrity``) and archives each track's confirmed past as numpy,
 appended from the prune outputs every scan.
+
+With tracing on (``utils/timing``) ``scan_step`` stamps the boundaries
+of its four phases (grow, select, terminate + N-scan prune, initiate),
+and each call of ``add_measurement_list`` (each chunk of ``stream``) is a
+``scan`` span with the children ``pack``, ``upload``, ``replay``,
+``fetch`` and ``absorb``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from ..batch import isin, lead_index
 from ..models import pv
 from ..sync import psum
 from .config import TrackerShapes, TrackerParams
+from ..utils import timing
 from ..utils.timing import RuntimeLog
 from .state import TrackerState, empty_state, insert_targets, shrink_beam
 from .grow import AisBatch, Scan, grow
@@ -32,6 +39,10 @@ from .select import cluster, select
 from .lifecycle import n_scan_prune, terminate
 from . import initiator as initiator_mod
 from . import graph as graph_mod
+
+
+_SCAN, _PACK, _UPLOAD, _REPLAY, _FETCH, _ABSORB = map(timing.Span, (
+    'scan', 'pack', 'upload', 'replay', 'fetch', 'absorb'))
 
 
 class StepOutputs(NamedTuple):
@@ -96,6 +107,7 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
                         "(grow.empty_ais for a scan with no messages)")
     *lead, T, L, W = state.hist_meas.shape
     dev = state.leaf_x.device
+    timing.stamp(0, dev)
     ix = lead_index((*lead, T), dev)
 
     # 1. grow
@@ -103,6 +115,7 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
     state = g.state
     if prune_similar:
         state = merge_similar(state, shapes, params)
+    timing.stamp(1, dev)
 
     # 2-3. cluster + global hypothesis selection
     sel_res = select(state, shapes, params, method=method,
@@ -118,12 +131,14 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
     sel_hist_meas = state.hist_meas[(*ix, sel)]
     sel_hist_mmsi = state.hist_mmsi[(*ix, sel)]
     track_mask, track_id = state.tgt_mask, state.tgt_id
+    timing.stamp(2, dev)
 
     # 6. terminate, 7. N-scan prune
     term = terminate(state, shapes, params)
     state = term.state
     pr = n_scan_prune(state, shapes, params)
     state = pr.state
+    timing.stamp(3, dev)
 
     # 8. initiate from the measurements no leaf gated
     if use_ais and ais_initialization:
@@ -172,6 +187,7 @@ def scan_step(state: TrackerState, init_state, scan: Scan,
         n_leaves=live.flatten(-2).sum(dim=-1).int(),
         leaf_counts=live.sum(dim=-1).int(),
         gated_counts=g.gated_counts, used_meas=g.used_meas)
+    timing.stamp(4, dev)
     return state, init_state, outputs
 
 
@@ -402,7 +418,9 @@ class Tracker:
         self.scan_times = []
         self.scan_history = []      # raw numpy measurements per scan
         self.ais_history = []       # AIS message list per scan
-        self.runtime = RuntimeLog(radar_period=params.radar_period)
+        self.runtime = RuntimeLog(radar_period=params.radar_period,
+                                  pull=self._stamped_phases)
+        self._stamped = []          # tracer steps not yet in the runtime
         self.runtime_log = []       # wall seconds per scan
         self.host_syncs = []        # host reads of device values per scan
         self.chunk_syncs = []       # (scans, host reads) per streamed chunk
@@ -450,11 +468,14 @@ class Tracker:
         transfer: the bytes of the padded scan and, with ``use_ais``, of
         the padded AIS batch behind it (4-byte fields first; integers and
         flags travel as their own bytes, never as float values)."""
-        parts = [self._pad_scan(t, z)]
-        if self.use_ais:
-            parts += self._pad_ais(list(ais_messages))
-        return _to_device(np.concatenate(
-            [p.reshape(-1).view(np.uint8) for p in parts]), self.device)
+        with _PACK:
+            parts = [self._pad_scan(t, z)]
+            if self.use_ais:
+                parts += self._pad_ais(list(ais_messages))
+            host = np.concatenate([p.reshape(-1).view(np.uint8)
+                                   for p in parts])
+        with _UPLOAD:
+            return _to_device(host, self.device)
 
     def _unpack_inputs(self, packed: torch.Tensor):
         """(Scan, AisBatch or None) as views of ``_pack_inputs``' bytes."""
@@ -492,20 +513,38 @@ class Tracker:
                                   ais_initialization=self.ais_initialization,
                                   prune_similar=self.prune_similar))
 
+    def _note_steps(self, n: int):
+        """The next ``n`` steps are this tracker's (with tracing on: their
+        stamps are read into ``self.runtime`` when it is read)."""
+        if timing.TRACE.on:
+            first = timing.TRACE.steps
+            self._stamped.extend(range(first, first + n))
+            del self._stamped[:-timing.TRACE.rows]   # older rows are gone
+
+    def _stamped_phases(self) -> dict:
+        """``self.runtime``'s entries of the stamped steps not yet in it."""
+        steps, self._stamped = self._stamped, []
+        ph = timing.TRACE.phases(steps) if steps else {}
+        return {timing.RUNTIME_OF[p]: [float(v[i]) for v in ph.values()]
+                for i, p in enumerate(timing.STEP_PHASES)} if ph else {}
+
     def _step(self, packed, **kw):
-        scan, ais = self._unpack_inputs(packed)
-        if self._graphed(kw):
-            g = self._graph(kw)
-            g.load(self.state, self.init_state)
-            out = g(scan, ais)
-            if self.pipeline_outputs:    # kept past the next replay
-                out = StepOutputs(*(t.clone() for t in out))
-            return g.state, g.init_state, out
-        return scan_step(self.state, self.init_state, scan, ais,
-                         self.shapes, self.params, method=self.method,
-                         use_ais=self.use_ais,
-                         ais_initialization=self.ais_initialization,
-                         prune_similar=self.prune_similar, **kw)
+        with _REPLAY:
+            scan, ais = self._unpack_inputs(packed)
+            if self._graphed(kw):
+                g = self._graph(kw)
+                g.load(self.state, self.init_state)
+                self._note_steps(1)
+                out = g(scan, ais)
+                if self.pipeline_outputs:    # kept past the next replay
+                    out = StepOutputs(*(t.clone() for t in out))
+                return g.state, g.init_state, out
+            self._note_steps(1)
+            return scan_step(self.state, self.init_state, scan, ais,
+                             self.shapes, self.params, method=self.method,
+                             use_ais=self.use_ais,
+                             ais_initialization=self.ais_initialization,
+                             prune_similar=self.prune_similar, **kw)
 
     def pre_initialize(self, t, states, mmsi=None):
         """Seed confirmed targets from known initial states."""
@@ -537,38 +576,42 @@ class Tracker:
         outputs, absorbed next scan).  ``check_integrity`` (or the
         ``checkIntegrity`` kwarg) runs the structural invariants after
         the scan and raises AssertionError on a violation."""
-        tic = self._clock()
-        check_integrity = check_integrity or kwargs.pop('checkIntegrity',
-                                                        False)
-        if self.t0 is None:
-            # device time is relative to the first scan for fp32 safety
-            self.t0 = float(t) - self.params.radar_period
-        t_rel = float(t) - self.t0
-        self.scan_history.append(np.asarray(z, np.float32).reshape(-1, 2))
-        self.ais_history.append(list(ais_messages or []))
-        n_sync = sync.count
-        self.state, self.init_state, out = self._step(
-            self._pack_inputs(t_rel, z, ais_messages or ()))
-        self.scan_times.append(t_rel)
-        if self.pipeline_outputs:
-            self.flush()
-            self._pending = (out, len(self.scan_times))
+        with _SCAN:
+            tic = self._clock()
+            check_integrity = check_integrity or kwargs.pop(
+                'checkIntegrity', False)
+            if self.t0 is None:
+                # device time is relative to the first scan for fp32 safety
+                self.t0 = float(t) - self.params.radar_period
+            t_rel = float(t) - self.t0
+            self.scan_history.append(np.asarray(z, np.float32)
+                                     .reshape(-1, 2))
+            self.ais_history.append(list(ais_messages or []))
+            n_sync = sync.count
+            self.state, self.init_state, out = self._step(
+                self._pack_inputs(t_rel, z, ais_messages or ()))
+            self.scan_times.append(t_rel)
+            if self.pipeline_outputs:
+                self.flush()
+                self._pending = (out, len(self.scan_times))
+                self.host_syncs.append(sync.count - n_sync)
+                self._record_wall(self._clock() - tic)
+                if check_integrity:
+                    self.check_integrity()
+                return out
+            with _FETCH:
+                out_np = outputs_to_host(out)
             self.host_syncs.append(sync.count - n_sync)
-            self._record_wall(self._clock() - tic)
+            with _ABSORB:
+                self._absorb_outputs(out_np, n_scans=len(self.scan_times))
+            dt_wall = self._clock() - tic
+            self._record_wall(dt_wall)
+            if self.dynamic_window:
+                self._dynamic_window(dt_wall, out_np.leaf_counts,
+                                     out_np.gated_counts)
             if check_integrity:
                 self.check_integrity()
-            return out
-        out_np = outputs_to_host(out)
-        self.host_syncs.append(sync.count - n_sync)
-        self._absorb_outputs(out_np, n_scans=len(self.scan_times))
-        dt_wall = self._clock() - tic
-        self._record_wall(dt_wall)
-        if self.dynamic_window:
-            self._dynamic_window(dt_wall, out_np.leaf_counts,
-                                 out_np.gated_counts)
-        if check_integrity:
-            self.check_integrity()
-        return out_np
+            return out_np
 
     def _record_wall(self, seconds):
         self.runtime_log.append(seconds)
@@ -617,7 +660,10 @@ class Tracker:
         if self._pending is not None:
             prev_out, prev_n = self._pending
             self._pending = None
-            self._absorb_outputs(outputs_to_host(prev_out), n_scans=prev_n)
+            with _FETCH:
+                prev_np = outputs_to_host(prev_out)
+            with _ABSORB:
+                self._absorb_outputs(prev_np, n_scans=prev_n)
 
     def degrade(self, beam_factor: int = 2,
                 ais_per_leaf: Optional[int] = None, min_leaves: int = 4):
@@ -657,6 +703,23 @@ class Tracker:
         scans = list(scans)
         if self.t0 is None:
             self.t0 = float(scans[0].time) - self.params.radar_period
+        with _PACK:
+            fields = self._pad_stream(scans, ais_groups)
+        with _UPLOAD:
+            packed = _to_device(np.concatenate(
+                [f.reshape(-1).view(np.uint8) for f in fields]), self.device)
+        views, o = [], 0
+        for f in fields:
+            views.append(packed[o:o + f.nbytes].view(_TORCH_DTYPE[f.dtype.type])
+                         .view(f.shape))
+            o += f.nbytes
+        zb, tb, a_st, a_tm, a_mm, mb, a_hi, a_mk = views
+        return (Scan(z=zb, mask=mb, time=tb),
+                AisBatch(state=a_st, time=a_tm, mmsi=a_mm,
+                         high_accuracy=a_hi, mask=a_mk))
+
+    def _pad_stream(self, scans, ais_groups) -> list:
+        """``make_stream_inputs``' fields as numpy, 4-byte fields first."""
         n, M, A = len(scans), self.shapes.max_meas, self.shapes.max_ais
         n_z_over = n_ais_over = 0
         zb = np.zeros((n, M, 2), np.float32)
@@ -690,19 +753,8 @@ class Tracker:
                 "messages overflowing static shapes (M=%d, A=%d) across "
                 "%d scans — raise TrackerShapes.max_meas/max_ais",
                 n_z_over, n_ais_over, M, A, n)
-        # 4-byte fields first, so every view below is aligned
-        fields = [zb, tb, a_st, a_tm, a_mm, mb, a_hi, a_mk]
-        packed = _to_device(np.concatenate(
-            [f.reshape(-1).view(np.uint8) for f in fields]), self.device)
-        views, o = [], 0
-        for f in fields:
-            views.append(packed[o:o + f.nbytes].view(_TORCH_DTYPE[f.dtype.type])
-                         .view(f.shape))
-            o += f.nbytes
-        zb, tb, a_st, a_tm, a_mm, mb, a_hi, a_mk = views
-        return (Scan(z=zb, mask=mb, time=tb),
-                AisBatch(state=a_st, time=a_tm, mmsi=a_mm,
-                         high_accuracy=a_hi, mask=a_mk))
+        # 4-byte fields first, so every view of the packed bytes is aligned
+        return [zb, tb, a_st, a_tm, a_mm, mb, a_hi, a_mk]
 
     def stream(self, scans, ais_groups=None, chunk: int = 16,
                compute_clusters: bool = False,
@@ -736,15 +788,34 @@ class Tracker:
             sub = scans[i0:i0 + chunk]
             group = (ais_groups[i0:i0 + chunk]
                      if ais_groups is not None else None)
-            tic = self._clock()
-            n_sync = sync.count
-            scan_b, ais_b = self.make_stream_inputs(sub, group)
-            if self._graphed({}):
-                self.state, self.init_state, outs = graph_mod.replay_many(
-                    self._graph(dict(compute_clusters=compute_clusters,
-                                     dynamic_window=dynamic_window)),
-                    self.state, self.init_state, scan_b, ais_b)
-            else:
+            with _SCAN:
+                per_scan = self._stream_chunk(sub, group, compute_clusters,
+                                              dynamic_window, outs_all)
+            # supervision between chunks
+            if cooldown > 0:
+                cooldown -= 1
+            elif (n_chunks_done >= 1 and self.degrade_on_overload
+                    and per_scan > 0.8 * self.params.radar_period):
+                if self.degrade():
+                    cooldown = 1
+        return outs_all
+
+    def _stream_chunk(self, sub, group, compute_clusters, dynamic_window,
+                      outs_all) -> float:
+        """One chunk of ``stream``: its outputs appended to ``outs_all``;
+        returns the wall seconds per scan."""
+        tic = self._clock()
+        n_sync = sync.count
+        scan_b, ais_b = self.make_stream_inputs(sub, group)
+        if self._graphed({}):
+            g = self._graph(dict(compute_clusters=compute_clusters,
+                                 dynamic_window=dynamic_window))
+            self._note_steps(len(sub))
+            self.state, self.init_state, outs = graph_mod.replay_many(
+                g, self.state, self.init_state, scan_b, ais_b)
+        else:
+            with _REPLAY:
+                self._note_steps(len(sub))
                 self.state, self.init_state, outs = scan_many(
                     self.state, self.init_state, scan_b, ais_b, self.shapes,
                     self.params, method=self.method, use_ais=self.use_ais,
@@ -752,9 +823,11 @@ class Tracker:
                     compute_clusters=compute_clusters,
                     dynamic_window=dynamic_window,
                     prune_similar=self.prune_similar)
+        with _FETCH:
             outs_np = outputs_to_host(outs)
-            self.chunk_syncs.append((len(sub), sync.count - n_sync))
-            per_scan = (self._clock() - tic) / len(sub)
+        self.chunk_syncs.append((len(sub), sync.count - n_sync))
+        per_scan = (self._clock() - tic) / len(sub)
+        with _ABSORB:
             for j, s in enumerate(sub):
                 self.scan_history.append(
                     np.asarray(s.measurements, np.float32).reshape(-1, 2))
@@ -765,15 +838,8 @@ class Tracker:
                 self._absorb_outputs(StepOutputs(*(f[j] for f in outs_np)),
                                      n_scans=len(self.scan_times))
                 self._record_wall(per_scan)
-            # supervision between chunks
-            if cooldown > 0:
-                cooldown -= 1
-            elif (n_chunks_done >= 1 and self.degrade_on_overload
-                    and per_scan > 0.8 * self.params.radar_period):
-                if self.degrade():
-                    cooldown = 1
-            outs_all.append(outs_np)
-        return outs_all
+        outs_all.append(outs_np)
+        return per_scan
 
     addMeasurementList = add_measurement_list
 

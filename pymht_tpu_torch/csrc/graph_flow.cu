@@ -12,8 +12,16 @@
 //
 // The condition kernel is one thread: it reads a 1-byte predicate and,
 // for a loop, bumps a 4-byte trip counter, and hands the result to
-// `cudaGraphSetConditional`.  What bounds it is the launch of a graph
-// node, not bytes or operations (5 bytes read, 4 written).
+// `cudaGraphSetConditional`; it also counts its runs, in all (`g_runs`)
+// and per node (`g_node_runs`, by the slot its node was given).  What
+// bounds it is the launch of a graph node, not bytes or operations (5
+// bytes read, 20 written).
+//
+// The stamp kernel, one thread too, writes the device's `%globaltimer`
+// (ns) into a ring of rows in device memory, one row per run of the
+// step: stamp 0 advances the row counter that lies in device memory
+// beside the ring, so a replayed graph writes each run into a row of its
+// own with no argument of the host's (`kernels/graph_flow.stamp`).
 //
 // Entering a node (`graph_flow_begin`), in stream-capture terms:
 //   1. read the capturing graph and its current dependencies from the
@@ -53,11 +61,14 @@
 
 namespace {
 
+constexpr int kSlots = 256;                  // named nodes counted apart
+
 __device__ unsigned long long g_runs = 0;   // condition-kernel executions
+__device__ unsigned long long g_node_runs[kSlots];   // the same, per slot
 
 __global__ void condition_kernel(cudaGraphConditionalHandle handle,
                                  const bool* pred, int negate, int* counter,
-                                 int cap, int first) {
+                                 int cap, int first, int slot) {
   unsigned int go = 1u;
   if (pred != nullptr) go = (*pred != (negate != 0)) ? 1u : 0u;
   if (counter != nullptr) {
@@ -67,6 +78,22 @@ __global__ void condition_kernel(cudaGraphConditionalHandle handle,
   }
   cudaGraphSetConditional(handle, go);
   g_runs += 1ULL;
+  g_node_runs[slot] += 1ULL;
+}
+
+// `ring` holds `rows` rows of `width` stamps; `*row_count` the rows begun.
+// Stamp `k` of the current row; stamp 0 begins a row.  Without a
+// `row_count` the stamp goes to `ring[k]` (the host's calibration).
+__global__ void stamp_kernel(long long* ring, long long* row_count, int rows,
+                             int width, int k) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  long long row = 0;
+  if (row_count != nullptr) {
+    if (k == 0) *row_count += 1;
+    row = (*row_count - 1) % rows;
+  }
+  ring[row * width + k] = static_cast<long long>(now);
 }
 
 cudaError_t capture_info(cudaStream_t s, cudaStreamCaptureStatus* status,
@@ -108,15 +135,17 @@ bool routed(cudaStream_t s) {
 // entered from `outer`, on `body`.  The first test reads `pred` (a device
 // bool; null: true), negated if `negate`; for a loop `counter` (a device
 // int) is reset to 0 and the body runs while the test holds and the
-// counter is below `cap`.  `pool_a`, `pool_b`: the capturing graph's
-// mempool id.  Writes the node's handle; returns a CUDA error code, or
-// -1 if `outer` is not capturing.
+// counter is below `cap`.  `slot` (below `kSlots`) counts the node's
+// condition-kernel runs.  `pool_a`, `pool_b`: the capturing graph's
+// mempool id.  Writes the node's handle; returns a CUDA error code, -1 if
+// `outer` is not capturing, or -2 for a slot out of range.
 extern "C" int graph_flow_begin(int kind, cudaStream_t outer,
                                 cudaStream_t body, const void* pred,
-                                int negate, void* counter, int cap,
+                                int negate, void* counter, int cap, int slot,
                                 int device, unsigned long long pool_a,
                                 unsigned long long pool_b,
                                 unsigned long long* handle_out) {
+  if (slot < 0 || slot >= kSlots) return -2;
   cudaStreamCaptureStatus status;
   unsigned long long outer_id = 0;
   cudaGraph_t graph = nullptr;
@@ -132,7 +161,8 @@ extern "C" int graph_flow_begin(int kind, cudaStream_t outer,
   if (err != cudaSuccess) return err;
   condition_kernel<<<1, 1, 0, outer>>>(handle,
                                        static_cast<const bool*>(pred), negate,
-                                       static_cast<int*>(counter), cap, 1);
+                                       static_cast<int*>(counter), cap, 1,
+                                       slot);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = capture_info(outer, &status, &outer_id, &graph, &deps, &n);
@@ -195,9 +225,12 @@ extern "C" int graph_flow_begin(int kind, cudaStream_t outer,
 // The end of a WHILE body: bump the counter, test `pred` (null: true)
 // and the cap, and set the handle for the next iteration.
 extern "C" int graph_flow_next(cudaStream_t body, unsigned long long handle,
-                               const void* pred, void* counter, int cap) {
+                               const void* pred, void* counter, int cap,
+                               int slot) {
+  if (slot < 0 || slot >= kSlots) return -2;
   condition_kernel<<<1, 1, 0, body>>>(handle, static_cast<const bool*>(pred),
-                                      0, static_cast<int*>(counter), cap, 0);
+                                      0, static_cast<int*>(counter), cap, 0,
+                                      slot);
   return cudaGetLastError();
 }
 
@@ -221,12 +254,31 @@ extern "C" int graph_flow_end(cudaStream_t body) {
   return err;
 }
 
-// Condition-kernel executions since the last reset (synchronous reads).
+// Condition-kernel executions since the last reset, in all and per slot
+// (the first `n` slots; synchronous reads).
 extern "C" int graph_flow_runs(unsigned long long* out) {
   return cudaMemcpyFromSymbol(out, g_runs, sizeof(*out));
 }
 
+extern "C" int graph_flow_node_runs(unsigned long long* out, int n) {
+  if (n < 0 || n > kSlots) return -2;
+  return cudaMemcpyFromSymbol(out, g_node_runs, n * sizeof(*out));
+}
+
 extern "C" int graph_flow_reset_runs() {
   const unsigned long long zero = 0;
-  return cudaMemcpyToSymbol(g_runs, &zero, sizeof(zero));
+  static const unsigned long long zeros[kSlots] = {};
+  cudaError_t err = cudaMemcpyToSymbol(g_runs, &zero, sizeof(zero));
+  if (err != cudaSuccess) return err;
+  return cudaMemcpyToSymbol(g_node_runs, zeros, sizeof(zeros));
+}
+
+// Stamp `k` on `stream` (module comment); a launch, or under capture a
+// kernel node of the graph.
+extern "C" int graph_flow_stamp(cudaStream_t stream, void* ring,
+                                void* row_count, int rows, int width, int k) {
+  stamp_kernel<<<1, 1, 0, stream>>>(static_cast<long long*>(ring),
+                                    static_cast<long long*>(row_count), rows,
+                                    width, k);
+  return cudaGetLastError();
 }

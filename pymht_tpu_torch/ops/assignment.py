@@ -120,7 +120,7 @@ def auction_assign(cost, valid, max_iters: int = 4000):
     _, _, row_of = sync.while_loop(
         lambda c: _can_bid(value, c),
         lambda c, _: _auction_round(value, eps[..., None], c), carry,
-        max_iters=max_iters)
+        max_iters=max_iters, name="auction")
 
     # Safety: never return an invalid pair (possible only at iteration
     # caps with pathological ties).
@@ -135,7 +135,8 @@ def auction_assign(cost, valid, max_iters: int = 4000):
     c = torch.where(valid, cost, INF)
     row_of, owner = sync.while_loop(
         lambda cr: _greedy_open(c, cr),
-        lambda cr, _: _greedy_round(c, cr), (row_of, owner), max_iters=R)
+        lambda cr, _: _greedy_round(c, cr), (row_of, owner), max_iters=R,
+        name="auction.greedy")
     return _augment_to_max_cardinality(valid, row_of, owner).int()
 
 
@@ -173,7 +174,7 @@ def _bfs(valid, row_of, owner, max_layers, active=None):
 
     _, vis_cols, col_parent, _ = sync.while_loop(
         go_on, lambda c, _: _bfs_layer(valid, owner, c), carry,
-        max_iters=max_layers)
+        max_iters=max_layers, name="augment.bfs")
     free_cols = vis_cols & (owner < 0)
     return free_cols.any(dim=-1), free_cols.int().argmax(dim=-1), col_parent
 
@@ -206,7 +207,8 @@ def _flip(row_of, owner, end_col, col_parent, active=None):
         return p if active is None else p & active
 
     row_of, owner, _ = sync.while_loop(
-        go_on, step, (row_of.clone(), owner.clone(), end_col))
+        go_on, step, (row_of.clone(), owner.clone(), end_col),
+        name="augment.flip")
     return row_of, owner
 
 
@@ -224,4 +226,5 @@ def _augment_to_max_cardinality(valid, row_of, owner):
                                      active))
 
     carry = (row_of, owner, *_bfs(valid, row_of, owner, max_layers))
-    return sync.while_loop(lambda c: c[2], round_, carry)[0]
+    return sync.while_loop(lambda c: c[2], round_, carry,
+                           name="augment")[0]

@@ -32,24 +32,27 @@ scene (``scenes.demo_batch``, AIS on, 21 scans), each under ``--method``
 and ``--pregate``; a "scan" below is then one batched scan.  With
 ``--swarm`` it profiles the swarm benchmark's 8 scans, streamed in one
 ``scan_many`` as ``scripts/bench_swarm.run`` streams them (once to warm
-up, once under the profiler; no phases alone, and every scan counts).
+up, once under the profiler; every scan counts).
 The Tracker (and with ``--batch`` the batched step) steps the scene as
 one captured CUDA graph per scan (core/graph.py) under ``'lagrangian'``,
 ``'lagrangian_pure'`` and ``'greedy'``, with or without ``--ais`` and
 ``--pregate``; ``'ipm'`` and ``--eager`` step through the plain
-``scan_step`` instead, and
-``--eager`` also reports, per loop of ``sync.while_loop`` (by the source
-line of its body), the bodies run per scan and the device time per body
-(the kernels launched inside it, nested loops included).  Over the steady scans (3 onwards) it reports:
+``scan_step`` instead.  The program's tracer is on throughout
+(``utils/timing``).  Over the steady scans (3 onwards) it reports:
 
-* per phase (grow, select, terminate + prune, initiate), the wall time of
-  that phase alone, run on the step's own inputs and closed by
-  ``torch.cuda.synchronize()`` — the step itself is then run unchanged;
+* per phase of the step (grow, select, terminate + prune, initiate), the
+  mean ms between the step's own stamps, as the step ran (in the replay,
+  or eagerly); per host span of the Tracker (pack, upload, replay, fetch,
+  absorb, gc), its ms per scan;
+* per loop or branch (by its name, ``sync``), how often it ran per scan:
+  for the graphed step the condition kernel's runs per node as the
+  device counted them (``graph_flow.node_runs``); eagerly (``--eager``,
+  ``'ipm'``) the bodies per scan and the device time per body (the
+  kernels launched inside the body's span, nested loops included);
 * a ``torch.profiler`` trace of the whole steps: device time by kernel,
   device busy time per scan and the device's idle share of the window.
   For the graphed step it also reports the device time of one replay
-  (CUDA events) and the condition kernel's runs per scan as the device
-  counted them: the trace may not hold the kernels that run inside a
+  (CUDA events): the trace may not hold the kernels that run inside a
   conditional node.
 
 Prints one JSON object.  Nothing here runs on the tracker's hot path.
@@ -68,45 +71,48 @@ import numpy as np
 import torch
 
 from . import sync
-from .core import initiator as initiator_mod
-from .core.grow import grow
-from .core.lifecycle import n_scan_prune, terminate
-from .core.merge import prune_similar
-from .core.select import select
 from .core import graph as graph_mod
 from .core.tracker import Tracker, scan_step
 from .kernels import graph_flow
+from .utils import timing
 from .utils.scenes import bench_scene, bench_scene_ais
 
+HOST_SPANS = ('scan', 'pack', 'upload', 'replay', 'fetch', 'absorb', 'gc',
+              'capture')       # the Tracker's and the graph's own spans
 
-def _phase_times(state, init_state, scan, ais, shapes, params, method,
-                 merge=False):
-    """Wall ms of each phase of the next step, run alone on its inputs."""
-    out, t = {}, time.perf_counter()
 
-    def lap(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        out[name] = 1e3 * (now - t)
-        t = now
+def _start_window():
+    """The steady window begins: counts and the tracer start afresh."""
+    torch.cuda.synchronize()
+    graph_flow.reset_runs()
+    timing.reset()
 
-    n_sync = sync.count
-    g = grow(state, scan, ais, shapes, params)
-    if merge:
-        g = g._replace(state=prune_similar(g.state, shapes, params))
-    lap("grow")
-    res = select(g.state, shapes, params, method=method)
-    lap("select")
-    st = g.state.replace(sel_leaf=res.sel, lam=res.lam)
-    st = n_scan_prune(terminate(st, shapes, params).state, shapes,
-                      params).state
-    lap("terminate_prune")
-    # (the used-MMSI filter of scan_step, a handful of ops, is left out)
-    initiator_mod.step(init_state, scan.z, scan.mask & ~g.used_meas,
-                       scan.time, ais, shapes, params)
-    lap("initiate")
-    out["host_syncs_grow_select_prune_initiate"] = sync.count - n_sync
+
+def _traced(prof, n, graphed) -> dict:
+    """The program's trace of the window's ``n`` scans: the step's phases
+    (stamps), the host spans per scan, and each loop's runs: the device's
+    count per node when ``graphed``, else the bodies' spans, with their
+    kernels' device time from the profiler ``prof``."""
+    trace = timing.read()
+    s = timing.summary(trace)
+    out = {"phase_ms": {p: s[f"{p}_ms"] for p in timing.STEP_PHASES},
+           "phase_sum_ms": s["phase_sum_ms"],
+           "span_ms_per_scan": {k: s[f"{k}_ms"] for k in HOST_SPANS
+                                if s.get(f"{k}_ms") is not None}}
+    if graphed:
+        out["node_runs_per_scan"] = {k: v / n for k, v in
+                                     trace["node_runs"].items() if v}
+        return out
+    names = set(trace["spans"]["name"]) - set(HOST_SPANS)
+    from torch.autograd import DeviceType
+    loops = {}
+    for e in prof.key_averages():
+        if e.key in names and e.device_type == DeviceType.CPU:
+            dev = getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0.0))
+            loops[e.key] = {"bodies_per_scan": e.count / n,
+                            "device_ms_per_body": dev / 1e3 / e.count}
+    out["loops"] = loops
     return out
 
 
@@ -166,36 +172,25 @@ def main(argv=None):
             tr._step = functools.partial(tr._step, dynamic_window=True)
         return tr
 
-    # pass 1: each phase of each steady step, timed alone
-    tr, phases = new_tracker(), []
-    for i, s in enumerate(scans):
-        if i >= 2:
-            packed = tr._pack_inputs(float(s.time) - tr.t0, s.measurements,
-                                     messages(i))
-            phases.append(_phase_times(tr.state, tr.init_state,
-                                       *tr._unpack_inputs(packed), shapes,
-                                       params, tr.method, tr.prune_similar))
-        tr.add_measurement_list(s.time, s.measurements, messages(i))
-    # pass 2: the unchanged steps under the profiler
+    # the steps under the profiler and the program's tracer
+    timing.trace_on()
     tr = new_tracker()
-    loops = _LoopRanges() if args.eager else contextlib.nullcontext()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
-    with loops:
-        for i, s in enumerate(scans):
-            if i == 2:
-                torch.cuda.synchronize()
-                prof.__enter__()
-                graph_flow.reset_runs()
-                t_window = time.perf_counter()
-            tr.add_measurement_list(s.time, s.measurements, messages(i))
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t_window)
-        prof.__exit__(None, None, None)
+    for i, s in enumerate(scans):
+        if i == 2:
+            _start_window()
+            prof.__enter__()
+            t_window = time.perf_counter()
+        tr.add_measurement_list(s.time, s.measurements, messages(i))
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t_window)
+    prof.__exit__(None, None, None)
     n = len(scans) - 2
     busy_ms, events, top = _device_time(prof)
     graphs = list(tr._graphs.values())
+    traced = _traced(prof, n, bool(graphs))
     graphed = {}
     if graphs:
         graphed = {
@@ -203,6 +198,7 @@ def main(argv=None):
             "graph_capture_s": graphs[0].capture_s,
             "condition_kernel_runs_per_scan": graph_flow.runs() / n,
             "replay_device_ms": _replay_device_ms(graphs[0])}
+    timing.trace_off()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scene": "ais" if args.ais else "radar",
@@ -216,12 +212,10 @@ def main(argv=None):
         "wall_ms_per_scan": wall_ms / n,
         "device_busy_ms_per_scan": busy_ms / n,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "phase_ms_median": {k: float(np.median([p[k] for p in phases]))
-                            for k in phases[0]},
         "host_syncs_per_scan": tr.host_syncs,
         "graphed": bool(graphs),
         **graphed,
-        **({"loops": _loop_summary(prof, n)} if args.eager else {}),
+        **traced,
         **_device_summary(events, top, n),
     }, indent=1))
     return 0
@@ -234,43 +228,6 @@ def _eager_step(tr, packed, **kw):
                      tr.params, method=tr.method, use_ais=tr.use_ais,
                      ais_initialization=tr.ais_initialization,
                      prune_similar=tr.prune_similar, **kw)
-
-
-class _LoopRanges:
-    """Inside the block every body of ``sync.while_loop`` runs inside a
-    profiler range named after the body's source line."""
-
-    def __enter__(self):
-        self.real = sync.while_loop
-
-        def while_loop(cond, body, carry, *a, **kw):
-            code = body.__code__
-            name = (f"loop {code.co_filename.rsplit('/', 1)[-1]}:"
-                    f"{code.co_firstlineno}")
-
-            def ranged(c, active):
-                with torch.profiler.record_function(name):
-                    return body(c, active)
-            return self.real(cond, ranged, carry, *a, **kw)
-        sync.while_loop = while_loop
-        return self
-
-    def __exit__(self, *exc):
-        sync.while_loop = self.real
-
-
-def _loop_summary(prof, n):
-    """Per loop range: bodies per scan and device ms per body (the host
-    range's kernels, summed; the range's span on the device is not)."""
-    from torch.autograd import DeviceType
-    out = {}
-    for e in prof.key_averages():
-        if e.key.startswith("loop ") and e.device_type == DeviceType.CPU:
-            dev = getattr(e, "device_time_total",
-                          getattr(e, "cuda_time_total", 0.0))
-            out[e.key[5:]] = {"bodies_per_scan": e.count / n,
-                              "device_ms_per_body": dev / 1e3 / e.count}
-    return out
 
 
 def _replay_device_ms(g, reps=7):
@@ -359,7 +316,7 @@ def _swarm():
     def once(prof=contextlib.nullcontext()):
         tracker, scan_b, ais_b = bs.stream_inputs(scene, "cuda",
                                                   k["use_ais"])
-        torch.cuda.synchronize()
+        _start_window()
         with prof:
             reads, t = sync.count, time.perf_counter()
             bs.stream(tracker, scan_b, ais_b, k["use_ais"], k["dyn_win"])
@@ -367,12 +324,15 @@ def _swarm():
             wall = 1e3 * (time.perf_counter() - t)
         return wall, sync.count - reads
 
+    timing.trace_on()
     warm_ms, _ = once()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     wall_ms, reads = once(prof)
     busy_ms, events, top = _device_time(prof)
+    traced = _traced(prof, n, True)
+    timing.trace_off()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scene": "swarm",
@@ -382,14 +342,15 @@ def _swarm():
         "device_busy_ms_per_scan": busy_ms / n,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "host_reads_per_scan": reads / n,
+        **traced,
         **_device_summary(events, top, n),
     }, indent=1))
     return 0
 
 
 def _batched(args):
-    """The batched step on B scenarios: phases alone, then the steady
-    scans under the profiler, as for one scenario."""
+    """The batched step on B scenarios: the steady scans under the
+    profiler and the tracer, as for one scenario."""
     from .parallel import montecarlo as mc
     from .parallel.scenario import make_batched_step
     from .utils import scenes
@@ -426,21 +387,9 @@ def _batched(args):
     if args.eager:
         step = eager
 
-    # pass 1: each phase of each steady batched scan, timed alone, the
-    # states advanced eagerly (a graph captured now would hold its pool
-    # beside the phases' own memory)
-    st, ist = initial()
-    phases = []
-    for s in range(S):
-        scan, ais = scan_at(s)
-        if s >= 2:
-            phases.append(_phase_times(st, ist, scan, ais, shapes, params,
-                                       args.method))
-        st, ist, _ = eager(st, ist, scan, ais)
-    del st, ist
-    torch.cuda.empty_cache()
-    # pass 2: the unchanged batched steps under the profiler (a graph is
-    # captured at the first scan, outside the profiled window)
+    # the batched steps under the profiler (a graph is captured at the
+    # first scan, outside the profiled window)
+    timing.trace_on()
     torch.cuda.reset_peak_memory_stats()
     st, ist = initial()
     prof = torch.profiler.profile(activities=[
@@ -449,9 +398,8 @@ def _batched(args):
     reads, walls = [], []
     for s in range(S):
         if s == 2:
-            torch.cuda.synchronize()
+            _start_window()
             prof.__enter__()
-            graph_flow.reset_runs()
             t_window = time.perf_counter()
         n_sync, t = sync.count, time.perf_counter()
         st, ist, out = step(st, ist, *scan_at(s))
@@ -466,6 +414,8 @@ def _batched(args):
     busy_ms, events, top = _device_time(prof)
     K = truth.shape[2] if truth is not None else shapes.max_targets
     graphs = list(getattr(step, "graphs", {}).values())
+    traced = _traced(prof, n, bool(graphs))
+    timing.trace_off()
     graphed = {}
     if graphs:
         g = graphs[0]
@@ -496,13 +446,12 @@ def _batched(args):
         "scenario_scans_per_s": B * n / (wall_ms / 1e3),
         "device_busy_ms_per_scan": busy_ms / n,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "phase_ms_median": {k: float(np.median([p[k] for p in phases]))
-                            for k in phases[0]},
         "host_syncs_per_scan": reads,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "tracks_alive": int(out.track_mask[:, :K].sum()),
         "graphed": bool(graphs),
         **graphed,
+        **traced,
         **_device_summary(events, top, n),
     }, indent=1))
     return 0

@@ -31,6 +31,12 @@ nodes ``pred.any()`` and ``not pred.all()``, each branch writes into
 buffers of its own, and ``select`` picks per scenario after both (a
 branch no scenario took leaves stale buffers that nothing selects).
 
+Each loop and branch has a name: the call site's ``name=``, else its
+body's (a branch: its true function's) ``file:line``.  Under capture its
+conditional nodes count their condition kernel's runs under it
+(``graph_flow.node_runs``); eagerly, with tracing on (``utils/timing``),
+each body and each branch taken runs inside a span of that name.
+
 ``psum`` / ``pmin`` / ``pmax`` reduce over an optional axis of ranks
 (``parallel/collectives.Axis``): without one (``axis=None``, one device)
 they return their input, so the single-device code runs no extra op.
@@ -38,6 +44,8 @@ they return their input, so the single-device code runs no extra op.
 from __future__ import annotations
 
 import torch
+
+from .utils import timing
 
 count = 0     # host reads of device values since import
 
@@ -153,7 +161,15 @@ def any_(p: torch.Tensor) -> bool:
     return flag(p if p.dim() == 0 else p.any())
 
 
-def _device_while(cond, body, carry, max_iters, test_first):
+def node_name(fn, name=None) -> str:
+    """A loop's or branch's name: ``name``, else ``fn``'s ``file:line``."""
+    if name is not None:
+        return name
+    code = fn.__code__
+    return f"{code.co_filename.rsplit('/', 1)[-1]}:{code.co_firstlineno}"
+
+
+def _device_while(cond, body, carry, max_iters, test_first, name):
     """The WHILE node: the carry is copied into buffers of the loop's
     own, the body runs on them and writes its result over them.  A
     batched loop also keeps its ``active`` mask in a buffer and tests
@@ -166,12 +182,12 @@ def _device_while(cond, body, carry, max_iters, test_first):
     cap = (1 << 31) - 1 if max_iters is None else int(max_iters)
     if p is None or p.dim() == 0:
         with graph_flow.while_node(p if test_first else None, counter,
-                                   cap) as node:
+                                   cap, name) as node:
             write_over(bufs, body(carry, None), "a loop body")
             node.next(cond(carry) if cond is not None else None)
         return carry
     active = p.clone() if test_first else torch.ones_like(p)
-    with graph_flow.while_node(active.any(), counter, cap) as node:
+    with graph_flow.while_node(active.any(), counter, cap, name) as node:
         new = select(active, body(carry, active), carry)
         write_over(bufs, new, "a loop body")
         active.copy_(cond(carry))
@@ -179,7 +195,7 @@ def _device_while(cond, body, carry, max_iters, test_first):
     return carry
 
 
-def _device_cond(pred, true_fn, false_fn):
+def _device_cond(pred, true_fn, false_fn, name):
     """Two IF nodes.  0-d: the true branch's outputs are copied into
     buffers made in its body (so that no input is written over), the
     false branch's are copied over them.  Batched: each branch, run when
@@ -187,25 +203,27 @@ def _device_cond(pred, true_fn, false_fn):
     and ``select`` picks per scenario."""
     from .kernels import graph_flow
     if pred.dim() == 0:
-        with graph_flow.if_node(pred):
+        with graph_flow.if_node(pred, name=name):
             out = true_fn()
             bufs = [t.clone() for t in _leaves(out)]
-        with graph_flow.if_node(pred, negate=True):
+        with graph_flow.if_node(pred, negate=True, name=name):
             write_over(bufs, false_fn(), "the false branch")
         return _rebuild(out, iter(bufs))
-    with graph_flow.if_node(pred.any()):
+    with graph_flow.if_node(pred.any(), name=name):
         out_t = true_fn()
         bufs_t = [t.clone() for t in _leaves(out_t)]
-    with graph_flow.if_node(pred.all(), negate=True):
+    with graph_flow.if_node(pred.all(), negate=True, name=name):
         out_f = false_fn()
         bufs_f = [t.clone() for t in _leaves(out_f)]
     return select(pred, _rebuild(out_t, iter(bufs_t)),
                   _rebuild(out_f, iter(bufs_f)))
 
 
-def while_loop(cond, body, carry, max_iters=None, test_first=True):
+def while_loop(cond, body, carry, max_iters=None, test_first=True,
+               name=None):
     """``lax.while_loop(cond, body, carry)`` with the exit read on the
-    host, at most ``max_iters`` bodies.  ``body(carry, active)`` gets the
+    host, at most ``max_iters`` bodies, named ``name`` (module
+    docstring).  ``body(carry, active)`` gets the
     scenarios still running (a bool tensor for a batched loop; None for
     one 0-d problem), so that a branch or loop nested in it can leave the
     others out.  With ``test_first=False`` the first body runs untested
@@ -216,7 +234,10 @@ def while_loop(cond, body, carry, max_iters=None, test_first=True):
     WHILE node and reads nothing."""
     first = _first_tensor(carry)
     if first is not None and _capturing(first):
-        return _device_while(cond, body, carry, max_iters, test_first)
+        return _device_while(cond, body, carry, max_iters, test_first,
+                             node_name(body, name))
+    if timing.TRACE.on:
+        body = timing.spanned(node_name(body, name), body)
     cap = float("inf") if max_iters is None else max_iters
     if cap <= 0:
         return carry
@@ -239,14 +260,20 @@ def while_loop(cond, body, carry, max_iters=None, test_first=True):
     return carry
 
 
-def cond(pred: torch.Tensor, true_fn, false_fn):
-    """``lax.cond(pred, true_fn, false_fn)``: a 0-d ``pred`` runs one
-    branch.  A batched one is read once (does any, does every scenario
-    take ``true_fn``): a branch no scenario takes is not run, otherwise
-    both run and are selected per scenario.  Under a graph capture
+def cond(pred: torch.Tensor, true_fn, false_fn, name=None):
+    """``lax.cond(pred, true_fn, false_fn)``, named ``name`` (module
+    docstring): a 0-d ``pred`` runs one branch.  A batched one is read
+    once (does any, does every scenario take ``true_fn``): a branch no
+    scenario takes is not run, otherwise both run and are selected per
+    scenario.  Under a graph capture
     (module docstring) it makes two IF nodes and reads nothing."""
     if _capturing(pred):
-        return _device_cond(pred, true_fn, false_fn)
+        return _device_cond(pred, true_fn, false_fn,
+                            node_name(true_fn, name))
+    if timing.TRACE.on:
+        nm = node_name(true_fn, name)
+        true_fn, false_fn = (timing.spanned(nm, true_fn),
+                             timing.spanned(nm, false_fn))
     if pred.dim() == 0:
         return true_fn() if flag(pred) else false_fn()
     some, every = fetch(torch.stack([pred.any(), pred.all()])).tolist()

@@ -145,20 +145,22 @@ def recording():
                 sites.pop()
         return run
 
-    def while_loop(cond, body, carry, max_iters=None, test_first=True):
+    def while_loop(cond, body, carry, max_iters=None, test_first=True,
+                   name=None):
         rec.frames[-1].append(f"loop@{site(body)}")
         where = placed(site(body))
         if cond is not None:
             cond = rec.scoped(("test", where), cond)
         return at(site(body), real_wl)(
             cond, rec.scoped(("body", where), body), carry, max_iters,
-            test_first)
+            test_first, name=name)
 
-    def cond(pred, true_fn, false_fn):
+    def cond(pred, true_fn, false_fn, name=None):
         rec.frames[-1].append(f"cond@{site(true_fn)}")
         return at(site(true_fn), real_cond)(
             pred, rec.scoped(("true", placed(site(true_fn))), true_fn),
-            rec.scoped(("false", placed(site(false_fn))), false_fn))
+            rec.scoped(("false", placed(site(false_fn))), false_fn),
+            name=name)
 
     def select(pred, a, b):
         """A batched loop's or branch's selection by its mask: one frame
