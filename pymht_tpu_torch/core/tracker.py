@@ -7,13 +7,18 @@ on tensors of one device.  Host side: ``Tracker`` keeps the JAX
 Tracker's API (``add_measurement_list``, ``stream``, ``degrade``,
 ``pre_initialize``, ``get_tracks``, ``get_smooth_tracks``,
 ``check_integrity``) and archives each track's confirmed past as numpy,
-appended from the prune outputs every scan.
+appended from the prune outputs of every scan: a stepped scan's at the
+next call, while the device runs the next scan, or at the first read of
+the archive before that.
 
 With tracing on (``utils/timing``) ``scan_step`` stamps the boundaries
 of its four phases (grow, select, terminate + N-scan prune, initiate),
-and each call of ``add_measurement_list`` (each chunk of ``stream``) is a
-``scan`` span with the children ``pack``, ``upload``, ``replay``,
-``fetch`` and ``absorb``.
+and each call of ``add_measurement_list`` is a ``scan`` span with the
+children ``pack``, ``upload``, ``replay``, ``absorb`` (the previous
+scan's outputs; none in a tracker's first call) and ``fetch``; each chunk
+of ``stream`` one with ``pack``, ``upload``, ``replay``, ``fetch`` and
+``absorb``.  An archive update that a read runs is an ``absorb`` span
+outside any ``scan``.
 """
 from __future__ import annotations
 
@@ -294,19 +299,25 @@ def _to_device(host: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def tensors_to_host(tensors) -> list:
+def tensors_to_host(tensors, keep: bool = False):
     """Device tensors (f32, i32 or bool) copied to the host in ONE
     transfer: their bytes are packed into one uint8 tensor, fetched, and
-    split into numpy arrays of the original dtypes and shapes."""
+    split into numpy arrays of the original dtypes and shapes.  With
+    ``keep``, (arrays, kept): ``kept`` the same arrays over a host copy
+    of the fetched bytes (one memcpy), which nothing written into
+    ``arrays`` reaches."""
     parts = [t.reshape(-1).view(torch.uint8) for t in tensors]
     host = sync.fetch(torch.cat(parts)).numpy()
-    fields, o = [], 0
-    for t, p in zip(tensors, parts):
-        n = p.numel()
-        fields.append(host[o:o + n].view(_NP_DTYPE[t.dtype])
-                      .reshape(tuple(t.shape)))
-        o += n
-    return fields
+
+    def split(buf):
+        fields, o = [], 0
+        for t, p in zip(tensors, parts):
+            n = p.numel()
+            fields.append(buf[o:o + n].view(_NP_DTYPE[t.dtype])
+                          .reshape(tuple(t.shape)))
+            o += n
+        return fields
+    return (split(host), split(host.copy())) if keep else split(host)
 
 
 def outputs_to_host(out: StepOutputs) -> StepOutputs:
@@ -328,6 +339,21 @@ class TrackArchive:
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _archive_field(name: str, doc: str) -> property:
+    """A ``Tracker`` attribute of the archive kept in ``_<name>``: read or
+    assigned only after the pending archive update (``Tracker.flush``)."""
+    private = '_' + name
+
+    def get(self):
+        self.flush()
+        return getattr(self, private)
+
+    def put(self, value):
+        self.flush()
+        setattr(self, private, value)
+    return property(get, put, doc=doc)
 
 
 def _resolve_device(device, who: str = "Tracker") -> torch.device:
@@ -385,7 +411,24 @@ class Tracker:
     each scan (copy a state to keep it), ``degrade`` captures anew (at
     the new L and AIS width), and ``stream`` replays a graph of its own
     per scan.  ``'ipm'`` steps eagerly, as everything does on the CPU.
+
+    The track archive (``archives``, ``terminated``, ``init_P``) is
+    current whenever it is read.  A stepped scan's outputs are absorbed
+    into it at the next ``add_measurement_list``, after that call has
+    launched its own step and before it waits for the device, so the
+    archive update overlaps the next scan's replay; a read of the
+    archive before then (the attributes above, ``get_tracks``, the XML
+    export, a checkpoint, ``flush()``) absorbs them first.  The numpy
+    outputs a call returns are the caller's own: the tracker keeps a
+    copy.
     """
+
+    archives = _archive_field(
+        'archives', "id -> TrackArchive of the live tracks")
+    terminated = _archive_field(
+        'terminated', "id -> TrackArchive of the terminated tracks")
+    init_P = _archive_field(
+        'init_P', "id -> initial covariance [4, 4] of each inserted track")
 
     def __init__(self, shapes: TrackerShapes = TrackerShapes(),
                  params: TrackerParams = TrackerParams(),
@@ -408,13 +451,13 @@ class Tracker:
         self.degrade_on_overload = degrade_on_overload
         self._degrade_cooldown = 0
         self._clock = time.perf_counter
-        self._pending = None      # (device outputs, scan count)
+        # the last stepped scan's outputs, not yet in the archive: (host
+        # copy, or device outputs with pipeline_outputs; scan count)
+        self._pending = None
         self._graphs = {}         # captured steps (core/graph.py) by key
         self.state = empty_state(shapes, params, self.device)
         self.init_state = initiator_mod.empty_initiator(shapes, self.device)
-        self.archives = {}          # id -> TrackArchive
-        self.terminated = {}        # id -> TrackArchive
-        self.init_P = {}            # id -> initial covariance [4,4]
+        self._archives, self._terminated, self._init_P = {}, {}, {}
         self.scan_times = []
         self.scan_history = []      # raw numpy measurements per scan
         self.ais_history = []       # AIS message list per scan
@@ -572,8 +615,12 @@ class Tracker:
         """One radar scan with the AIS messages received since the
         previous one (objects with ``state``, ``time``, ``mmsi`` and
         ``highAccuracy``; read only with ``use_ais``).  Returns the step
-        outputs as numpy (or, with ``pipeline_outputs``, the device
-        outputs, absorbed next scan).  ``check_integrity`` (or the
+        outputs as numpy, the caller's own (or, with ``pipeline_outputs``,
+        the device outputs, fetched at the next call).  The call launches
+        its step, then absorbs the previous scan's outputs into the
+        archive while the device runs, then fetches its own in one host
+        read; its own are absorbed at the next call or the archive's
+        next read, whichever comes first.  ``check_integrity`` (or the
         ``checkIntegrity`` kwarg) runs the structural invariants after
         the scan and raises AssertionError on a violation."""
         with _SCAN:
@@ -591,8 +638,8 @@ class Tracker:
             self.state, self.init_state, out = self._step(
                 self._pack_inputs(t_rel, z, ais_messages or ()))
             self.scan_times.append(t_rel)
+            self.flush()          # the previous scan's, behind this replay
             if self.pipeline_outputs:
-                self.flush()
                 self._pending = (out, len(self.scan_times))
                 self.host_syncs.append(sync.count - n_sync)
                 self._record_wall(self._clock() - tic)
@@ -600,10 +647,10 @@ class Tracker:
                     self.check_integrity()
                 return out
             with _FETCH:
-                out_np = outputs_to_host(out)
+                out_np, kept = (StepOutputs(*f) for f in
+                                tensors_to_host(out, keep=True))
+            self._pending = (kept, len(self.scan_times))
             self.host_syncs.append(sync.count - n_sync)
-            with _ABSORB:
-                self._absorb_outputs(out_np, n_scans=len(self.scan_times))
             dt_wall = self._clock() - tic
             self._record_wall(dt_wall)
             if self.dynamic_window:
@@ -656,14 +703,16 @@ class Tracker:
                 self._degrade_cooldown = 3
 
     def flush(self):
-        """Absorb any pipelined outputs still pending on the device."""
+        """Absorb the last stepped scan's outputs into the archive, if
+        they are not yet (fetched first with ``pipeline_outputs``)."""
         if self._pending is not None:
             prev_out, prev_n = self._pending
             self._pending = None
-            with _FETCH:
-                prev_np = outputs_to_host(prev_out)
+            if isinstance(prev_out.track_mask, torch.Tensor):
+                with _FETCH:
+                    prev_out = outputs_to_host(prev_out)
             with _ABSORB:
-                self._absorb_outputs(prev_np, n_scans=prev_n)
+                self._absorb_outputs(prev_out, n_scans=prev_n)
 
     def degrade(self, beam_factor: int = 2,
                 ais_per_leaf: Optional[int] = None, min_leaves: int = 4):
@@ -903,6 +952,8 @@ class Tracker:
     def _absorb_outputs(self, out, n_scans=None):
         W = self.shapes.window
         n = n_scans if n_scans is not None else len(self.scan_times)
+        archives, terminated, init_P = (self.archives, self.terminated,
+                                        self.init_P)
 
         def col_time(w):
             # window column w is scan index (n-1) - (W-1-w)
@@ -912,13 +963,13 @@ class Tracker:
         # the true initial covariance of tracks inserted this scan (the
         # initiator's two-point covariance)
         for slot in np.nonzero(out.inserted_mask)[0]:
-            self.init_P[int(out.inserted_id[slot])] = np.asarray(
+            init_P[int(out.inserted_id[slot])] = np.asarray(
                 out.inserted_P[slot], np.float64)
 
         reasons = {1: 'OutOfRange', 2: 'TooLowScore', 3: 'TooLowScore'}
         for slot in np.nonzero(out.track_mask)[0]:
             tid = int(out.track_id[slot])
-            arch = self.archives.setdefault(tid, TrackArchive(
+            arch = archives.setdefault(tid, TrackArchive(
                 tid, [], [], [], []))
             dead = bool(out.dead[slot])
             valid = out.sel_hist_valid if dead else out.confirmed_mask
@@ -935,8 +986,8 @@ class Tracker:
             if dead:
                 arch.status = reasons.get(int(out.dead_reason[slot]),
                                           'Terminated')
-                self.terminated[tid] = arch
-                self.archives.pop(tid, None)
+                terminated[tid] = arch
+                archives.pop(tid, None)
 
     # -- outputs ------------------------------------------------------
     def get_tracks(self):
@@ -949,10 +1000,11 @@ class Tracker:
         hist_mmsi = _np(st.hist_mmsi)
         W = self.shapes.window
         n = len(self.scan_times)
+        archives = self.archives
         tracks = {}
         for slot in np.nonzero(mask)[0]:
             tid = int(ids[slot])
-            arch = self.archives.get(tid)
+            arch = archives.get(tid)
             cols = range(W - depth[slot], W)
             s = sel[slot]
             tracks[tid] = {

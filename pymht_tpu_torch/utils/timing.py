@@ -428,8 +428,12 @@ def summary(trace: dict, skip=()) -> dict:
     (``<phase>_ms``) and their sum; per ``scan`` span (outermost), the
     time of each span name among its descendants, summed per scan and
     averaged over the scans (``<name>_ms``, ``gc`` included); the scans'
-    own mean; counts.  ``skip``: scan numbers left out (a profiled
-    stretch)."""
+    own mean; counts.  Of the archive updates (``absorb`` spans):
+    ``absorbs`` in all, ``absorbs_behind_replay`` those inside a ``scan``
+    that began after the end of its ``replay`` and before any ``fetch``
+    after it (so while the device ran the step), ``absorbs_on_read``
+    those outside any ``scan`` (run by a read of the archive).  ``skip``:
+    scan numbers left out (a profiled stretch)."""
     skip = set(skip)
     st = trace['stamps']
     steps = trace['first_step'] + np.arange(len(st))
@@ -458,6 +462,22 @@ def summary(trace: dict, skip=()) -> dict:
     out["scan_ms"] = float(dur[scans].mean()) if n else None
     for nm in sorted(set(name[inside])):
         out[f"{nm}_ms"] = float(dur[inside & (name == nm)].sum()) / n
+    absorbs = (name == 'absorb') & done & ~np.isin(sp['scan'], list(skip))
+    in_scan = ((name == 'scan') & (parent < 0))[root]
+    out["absorbs"] = int(absorbs.sum())
+    out["absorbs_on_read"] = int((absorbs & ~in_scan).sum())
+    replayed, behind = {}, 0    # scan -> its replay's end; None once fetched
+    marks = in_scan & (absorbs | (name == 'replay') | (name == 'fetch'))
+    for k in np.nonzero(marks)[0]:      # in the order the spans began
+        r, end = root[k], replayed.get(root[k])
+        if name[k] == 'replay':
+            replayed[r] = sp['end'][k]
+        elif end is not None and sp['start'][k] >= end:
+            if name[k] == 'fetch':
+                replayed[r] = None
+            else:
+                behind += 1
+    out["absorbs_behind_replay"] = behind
     out["captures"] = trace['captures']
     out["pool_bytes"] = trace['pool_bytes']
     out["node_runs"] = trace['node_runs']

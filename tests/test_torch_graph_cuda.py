@@ -555,3 +555,69 @@ def test_kept_batched_outputs_are_not_overwritten(card):
     (g,) = step.graphs.values()
     assert all(not sync.same_storage(t, b) for t in (*out, *out2)
                for b in g.out)
+
+
+@pytest.mark.cuda
+def test_archive_update_overlaps_the_next_replay(card):
+    """The swarm scene (T=1024, AIS, the pre-gate) graphed, with the
+    tracer on: in each of three calls after the capturing one, the step's
+    first stamp (the device's clock on the host's) comes before the end
+    of the ``absorb`` span that follows the call's ``replay``, so the
+    previous scan's archive update ran while the device ran this scan.
+    The archive equals the one built by absorbing each call's returned
+    outputs at once."""
+    from types import SimpleNamespace
+    from pymht_tpu_torch.utils import timing
+    sw = scenes.swarm_scene(n_scans=4)
+    timing.trace_on()
+    try:
+        tr = Tracker(sw.shapes, sw.params, method="lagrangian",
+                     use_ais=True, device="cuda")
+        tr.pre_initialize(sw.scans[0].time - sw.params.radar_period,
+                          sw.seeds, mmsi=sw.mmsi)
+        outs = []
+
+        def call(i):
+            s = sw.scans[i]
+            msgs = sw.ais_groups[i] if i < len(sw.ais_groups) else []
+            out = tr.add_measurement_list(s.time, s.measurements, msgs)
+            outs.append(StepOutputs(*(f.copy() for f in out)))
+        call(0)                     # captures the step
+        torch.cuda.synchronize()
+        timing.reset()
+        for i in range(1, 4):
+            call(i)
+        trace = timing.read()
+    finally:
+        timing.trace_off()
+        timing.reset()
+    sp, st = trace["spans"], trace["stamps"]
+    scans = np.nonzero((sp["name"] == "scan") & (sp["parent"] < 0))[0]
+    assert len(scans) == 3 and st.shape == (3, 5)
+    for k in scans:
+        kids = np.nonzero(sp["parent"] == sp["id"][k])[0]
+        names = [n for n in sp["name"][kids] if n != "gc"]
+        assert names == ["pack", "upload", "replay", "absorb", "fetch"]
+        rep, ab = (kids[list(sp["name"][kids]).index(n)]
+                   for n in ("replay", "absorb"))
+        first = st[sp["scan"][k] - trace["first_step"], 0]
+        assert sp["end"][rep] <= sp["start"][ab]
+        assert first < sp["end"][ab], (first - sp["end"][ab]) * 1e-6
+    assert timing.summary(trace)["absorbs_behind_replay"] == 3
+    ref = SimpleNamespace(shapes=tr.shapes, scan_times=list(tr.scan_times),
+                          archives={}, terminated={}, init_P={})
+    for k, o in enumerate(outs):
+        Tracker._absorb_outputs(ref, o, n_scans=k + 1)
+    for name in ("archives", "terminated", "init_P"):
+        a, b = getattr(ref, name), getattr(tr, name)
+        assert sorted(a) == sorted(b), name
+        for tid in a:
+            x, y = a[tid], b[tid]
+            if isinstance(x, np.ndarray):
+                np.testing.assert_array_equal(x, y, err_msg=name)
+                continue
+            assert (x.times, x.meas, x.mmsi, x.status) == \
+                (y.times, y.meas, y.mmsi, y.status), (name, tid)
+            np.testing.assert_array_equal(np.asarray(x.states),
+                                          np.asarray(y.states))
+    assert len(tr.archives) >= 900

@@ -25,7 +25,12 @@ from pymht_tpu_torch.core.state import empty_state  # noqa: E402
 from pymht_tpu_torch.utils import scenes, timing  # noqa: E402
 
 BENCH = Path(__file__).resolve().parent.parent / "benchmark"
-CHILDREN = ["pack", "upload", "replay", "fetch", "absorb"]
+# a stepped call's children: the previous scan's archive update runs
+# while the device runs this scan, before the fetch waits for it (none in
+# a tracker's first call); a streamed chunk absorbs its own scans last
+FIRST_CALL = ["pack", "upload", "replay", "fetch"]
+CALL = ["pack", "upload", "replay", "absorb", "fetch"]
+CHUNK = ["pack", "upload", "replay", "fetch", "absorb"]
 
 
 @pytest.fixture
@@ -103,7 +108,8 @@ def test_tracing_off_records_nothing(swarm, monkeypatch):
 
 def test_spans_and_stamps_per_scan(swarm, tracer):
     """On: one ``scan`` span a call with the children pack, upload,
-    replay, fetch and absorb in order, each with the scan's number; five
+    replay, fetch in the first call and pack, upload, replay, absorb,
+    fetch in every later one, in order, each with the scan's number; five
     stamps a step, in order, inside the step's ``replay`` span; the
     runtime log's phases are the stamps' differences."""
     torch.set_num_threads(1)
@@ -119,7 +125,7 @@ def test_spans_and_stamps_per_scan(swarm, tracer):
         i = sp["id"][k]
         assert sp["scan"][k] == s
         _, names, kids = _children(trace, i)
-        assert names == CHILDREN
+        assert names == (CALL if s else FIRST_CALL)
         assert (sp["scan"][kids] == s).all()
         assert (np.diff(sp["start"][kids]) > 0).all()
         assert (sp["start"][kids] >= sp["start"][k]).all()
@@ -138,6 +144,28 @@ def test_spans_and_stamps_per_scan(swarm, tracer):
     assert s["scans"] == s["steps"] == n
     assert s["phase_sum_ms"] == pytest.approx(
         (trace["stamps"][:, -1] - trace["stamps"][:, 0]).mean() * 1e-6)
+    assert (s["absorbs"], s["absorbs_behind_replay"],
+            s["absorbs_on_read"]) == (n - 1, n - 1, 0)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_absorb_counts(swarm, tracer, pipelined):
+    """``summary``'s counts of archive updates: every stepped call after
+    the first absorbs the previous scan between its replay and its fetch
+    (with ``pipeline_outputs`` the fetch of the previous scan comes
+    first, so none is behind the replay); the last scan's absorb is run
+    by the first read after the last call, outside any scan, and only
+    once."""
+    torch.set_num_threads(1)
+    tr = _tracker(swarm)
+    tr.pipeline_outputs = pipelined
+    n = 3
+    _step(tr, swarm[3], n)
+    assert tr.archives          # the first read absorbs the last scan
+    assert tr.get_tracks()      # the second finds nothing pending
+    s = timing.summary(timing.read())
+    assert (s["absorbs"], s["absorbs_behind_replay"],
+            s["absorbs_on_read"]) == (n, 0 if pipelined else n - 1, 1)
 
 
 def test_stream_chunk_spans(swarm, tracer):
@@ -158,7 +186,7 @@ def test_stream_chunk_spans(swarm, tracer):
     chunks = np.nonzero((sp["name"] == "scan") & (sp["parent"] < 0))[0]
     assert [sp["scan"][k] for k in chunks] == [0, 2]
     for k in chunks:
-        assert _children(trace, sp["id"][k])[1] == CHILDREN
+        assert _children(trace, sp["id"][k])[1] == CHUNK
     assert trace["steps"] == 4 and (np.diff(trace["stamps"]) > 0).all()
 
 
@@ -289,6 +317,9 @@ def test_summary_of_a_synthetic_trace(skip):
     assert s["replay_ms"] == pytest.approx(1.0)
     assert s["capture_ms"] == pytest.approx(0.1)
     assert s["scan_ms"] == pytest.approx(30.0)
+    # each absorb follows its scan's fetch; none ran on a read
+    assert (s["absorbs"], s["absorbs_behind_replay"],
+            s["absorbs_on_read"]) == (n, 0, 0)
     assert (s["captures"], s["pool_bytes"], s["node_runs"]) == (
         1, 1 << 20, {"cluster": 6})
 
