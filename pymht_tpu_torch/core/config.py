@@ -1,6 +1,6 @@
 """Static tracker configuration (the port's own copy of
 pymht_tpu/core/config.py: same names, defaults and derived properties,
-numpy only).
+numpy only, and one parameter of the port's own, ``selection_gap``).
 
 Two kinds of parameters:
 
@@ -98,6 +98,11 @@ class TrackerParams:
     # Per-target growth time budget driving the dynamic window
     # (tracker.py:47-48, 918-928: maxTargetGrowTime = 200 ms)
     max_target_time: float = 0.2
+    # The relative optimality gap that the 'lagrangian' selection
+    # certifies, obj - bound <= selection_gap * max(1, |obj|), through its
+    # exact finish (the north star's 0.1 %, BASELINE.md).  The JAX
+    # package's selection certifies none.
+    selection_gap: float = 1e-3
 
     @property
     def lambda_ex(self):

@@ -11,7 +11,11 @@ Pick one leaf per target minimising total score subject to single-use
 * tier 2 — clusters of 2..4 targets are solved exactly by batched
   enumeration over each member's top-C leaves;
 * tier 3 — larger clusters run the compact contested-slot Lagrangian,
-  warm-started from the duals carried across scans.
+  warm-started from the duals carried across scans;
+* the exact finish — where the tiers leave their certificate open (tier
+  2's truncated candidates, tier 3 stopped above its tolerance, the
+  contested-slot cap), a branch-and-bound over the open clusters closes
+  it (``finish``).  ``select_hybrid`` alone is the JAX select's twin.
 
 Two further solvers are kept for parity and cross-checks:
 
@@ -39,6 +43,7 @@ from .. import sync
 from ..batch import lead_index
 from ..ops import lp as lp_ops
 from ..sync import pmax, pmin, psum
+from ..utils import timing
 from .config import TrackerShapes, TrackerParams
 from .grow import smallest_k
 from .state import TrackerState
@@ -1055,6 +1060,7 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
     lam_c0 = torch.where(col_ok, lam_pad0[(*bi, col_slot.clamp(0, S))], 0.0)
 
     def tier3():
+        timing.count('select_tier3', big.any(dim=-1))
         sel_big, feas_big, obj_big, bound_big, lam_out = _compact_lagrangian(
             f, Uc, lam_c0, state.spine_leaf, big, eff_leaf, exact_obj,
             iters=iters, theta=theta, patience=patience)
@@ -1088,6 +1094,250 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
                            obj=exact_obj + obj_big,
                            bound=exact_bound + bound_big,
                            labels=labels, n_clusters=n_clusters, lam=lam)
+
+
+# ----------------------------------------------------------------------
+# The exact finish (production path, after the tiered hybrid)
+# ----------------------------------------------------------------------
+
+FINISH_SHARE = 0.5     # of params.selection_gap: the certificate above
+                       # which it runs, so that rounding keeps it inside
+FINISH_NODES = 2048    # open nodes its branch-and-bound keeps, a scenario
+FINISH_POPS = 32       # nodes expanded per iteration
+FINISH_ITERS = 256     # iterations before it keeps the better incumbent
+FINISH_CAP = 512       # contested columns it sees (beyond: checked after)
+
+
+def _certificate_open(res: SelectionResult, gap: float):
+    scale = torch.clamp(res.obj.abs(), min=1.0)
+    return ~res.feasible | ~(res.obj - res.bound <= gap * scale)
+
+
+def _scatter_min(base, idx, vals):
+    return base.scatter_reduce(-1, idx, vals, 'amin', include_self=True)
+
+
+def _per_cluster_sum(vals, kid, T):
+    """[B, T] sums of ``vals`` [B, n] by cluster id ``kid`` (T: none)."""
+    out = vals.new_zeros((vals.shape[0], T + 1))
+    return out.scatter_add(1, kid, vals)[:, :T]
+
+
+class _Search(NamedTuple):
+    """The finish's branch-and-bound, per scenario: K node rows and a dump
+    row (index K) that unplaced writes go to."""
+    alive: torch.Tensor    # [B, K+1] bool — an open node
+    node: torch.Tensor     # [B, K+1, 4] f64 — its cluster (the root
+                           # target), depth (targets fixed), their cost,
+                           # its lower bound
+    used: torch.Tensor     # [B, K+1, CAP] bool — columns its leaves take
+    asg: torch.Tensor      # [B, K+1, T] i32 — leaf per fixed target, -1
+    ub: torch.Tensor       # [B, T] f64 — per cluster: incumbent objective
+    cut: torch.Tensor      # [B, T] f64 — least bound of a node cut or lost
+    best: torch.Tensor     # [B, T] i64 — incumbent leaf per target
+
+
+def _exact_finish(state: TrackerState, shapes: TrackerShapes,
+                  params: TrackerParams, res: SelectionResult, entered):
+    """Branch-and-bound over the clusters of two or more targets whose
+    own gap is open, from ``res`` (the hybrid's selection, duals and
+    clusters); ``entered`` [*lead]: the scenarios whose certificate is
+    open.  Each scenario has its own ``FINISH_NODES`` node rows, so that
+    a batch finds what each of its scenarios finds alone.  Depth first,
+    ``FINISH_POPS`` nodes a step
+    of a named WHILE loop; a node fixes its cluster's targets in a fixed
+    order (fewest live leaves first).  Its bound is the larger of two:
+    the Lagrangian one under the hybrid's duals, and the sum of each
+    remaining target's best leaf; in both a remaining leaf that takes a
+    column the node's leaves hold is excluded (one product of 0/1
+    matrices per step).  A node whose remaining best leaves are
+    conflict-free is solved (their sum is its subtree's optimum) and
+    updates its cluster's incumbent.  A node or child whose bound is
+    within a tolerance of its cluster's incumbent is cut; the least bound
+    of what was cut, lost to a full node store, or left open when the
+    budget ends is the cluster's certified bound.  Returns the better
+    feasible selection (checked in the full slot space), the larger of
+    the two bounds."""
+    *lead, T, L, W = state.hist_meas.shape
+    lead = tuple(lead)
+    B = math.prod(lead)
+    dev = state.hist_meas.device
+    CAP = min(FINISH_CAP, W * (shapes.max_meas + shapes.max_ais))
+    K, P = FINISH_NODES, FINISH_POPS
+    PL = P * L
+    mm = torch.float16 if dev.type == 'cuda' else torch.float32
+    timing.count('finish_entered', entered)
+    tm = state.tgt_mask.reshape(B, T)
+    labels = res.labels.reshape(B, T).long()
+    csize = cluster_sizes(res.labels, state.tgt_mask).reshape(B, T)
+    multi = tm & (csize >= 2)
+    Uc, col_slot, col_ok, _, live = _contested_leaf_usage(
+        state, shapes, multi.reshape(*lead, T), CAP)
+    Uc = Uc.reshape(B, T * L, CAP)
+    Ub = Uc.view(B, T, L, CAP) > 0.5
+    U_mm = Uc.to(mm)
+    U_mmT = U_mm.transpose(1, 2).contiguous()                # [B, CAP, TL]
+    live = live.reshape(B, T, L)
+    f = leaf_scores(state, params).reshape(B, T, L)
+    lam_c = torch.where(col_ok, res.lam.gather(-1, col_slot.clamp(
+        max=res.lam.shape[-1] - 1)), 0.0).reshape(B, CAP, 1)
+    rc = torch.where(live, f + torch.bmm(Uc, lam_c).view(B, T, L), INF)
+    fm = torch.where(live, f, INF)
+    ar_T = torch.arange(T, device=dev)
+    ar_L = torch.arange(L, device=dev)
+    bi = torch.arange(B, device=dev)[:, None]
+    kid = torch.where(multi, labels, T)                  # cluster, T: none
+    kidc = kid.clamp(max=T - 1)
+    col_k = torch.where(Ub.any(-2), labels[..., None], T).amin(-2)
+    lam_k = _per_cluster_sum(lam_c[..., 0], col_k, T)
+    sel_h = res.sel.reshape(B, T).long()
+    feas_h = res.feasible.reshape(B)
+    ub0 = torch.where(feas_h[:, None], _per_cluster_sum(torch.where(
+        multi, f.gather(-1, sel_h[..., None])[..., 0], 0.0), kid, T), INF)
+    root_lb = torch.maximum(
+        _per_cluster_sum(torch.where(multi, rc.amin(-1), 0.0), kid, T)
+        - lam_k, _per_cluster_sum(torch.where(multi, fm.amin(-1), 0.0),
+                                  kid, T)).double()
+    is_root = multi & (labels == ar_T)
+    eps = (0.1 * (FINISH_SHARE * params.selection_gap)
+           * torch.clamp(res.bound.reshape(B, 1).abs(), min=1.0)
+           / is_root.sum(-1, keepdim=True).clamp(min=1))    # per cluster
+    opened = is_root & (ub0 - root_lb > eps) & entered.reshape(B, 1)
+    # each cluster's targets in order: fewest live leaves first
+    order = live.sum(-1) * T + ar_T
+    pos = ((kid[:, :, None] == kid[:, None, :])
+           & (order[:, None, :] < order[:, :, None])).sum(-1)
+    tgt_at = torch.zeros((B, (T + 1) * T), dtype=torch.int64,
+                         device=dev).scatter(1, kid * T + pos.clamp(max=T - 1),
+                                             ar_T.expand(B, T))
+
+    # the roots: one node per opened cluster (a cluster beyond K is lost)
+    slot = torch.cumsum(opened, -1) - 1
+    slot = torch.where(opened & (slot < K), slot, K)
+    live_row = torch.arange(K + 1, device=dev) < K
+    root = torch.stack([ar_T.double().expand(B, T), torch.zeros_like(
+        root_lb), torch.zeros_like(root_lb), root_lb], -1)
+    c = _Search(
+        alive=torch.zeros((B, K + 1), dtype=torch.bool, device=dev)
+        .scatter(1, slot, opened) & live_row,
+        node=torch.zeros((B, K + 1, 4), dtype=torch.float64, device=dev)
+        .scatter(1, slot[..., None].expand(B, T, 4), root),
+        used=torch.zeros((B, K + 1, CAP), dtype=torch.bool, device=dev),
+        asg=torch.full((B, K + 1, T), -1, dtype=torch.int32, device=dev),
+        ub=ub0.double(), cut=torch.where(opened & (slot == K), root_lb, INF),
+        best=sel_h)
+    one = torch.ones((1,), dtype=torch.int64, device=dev)
+    asg_l = ar_L[:, None].int()
+    child = torch.arange(PL, device=dev)
+    no_child = torch.full((B, T), PL, dtype=torch.int64, device=dev)
+    ar_K = torch.arange(K, device=dev)
+
+    def step(c: _Search, active) -> _Search:
+        timing.count('finish_iters', one if active is None else active)
+        # pop the deepest open nodes (the lowest bound first among equals)
+        pi = torch.where(c.alive, c.node[..., 1] * 1e9 - c.node[..., 3],
+                         -INF).topk(P, dim=-1).indices            # [B, P]
+        pn = c.node.gather(1, pi[..., None].expand(B, P, 4))
+        pk, pd = pn[..., 0].long(), pn[..., 1].long()
+        drop = c.alive.gather(1, pi)
+        cut_p = torch.where(drop & (pn[..., 3] >= c.ub.gather(1, pk) - eps),
+                            pn[..., 3], INF)
+        grow = drop & (cut_p == INF)
+        alive = c.alive.scatter(1, pi, torch.zeros_like(drop))
+        # children: every live leaf of the node's next target that takes
+        # no column the node holds
+        tn = tgt_at.gather(1, pk * T + pd)                      # [B, P]
+        Ut = Ub[bi, tn]                                         # [B,P,L,CAP]
+        pused = c.used[bi, pi][:, :, None, :]                   # [B,P,1,CAP]
+        ok = (grow[..., None] & live[bi, tn]
+              & ~(Ut & pused).any(-1)).reshape(B, PL)
+        cused = (pused | Ut).reshape(B, PL, CAP)
+        cg = (pn[..., 2:3] + f[bi, tn]).reshape(B, PL)
+        casg = torch.where(ar_T == tn[..., None, None], asg_l,
+                           c.asg[bi, pi][:, :, None, :]).reshape(B, PL, T)
+        pkc = pk[..., None].expand(B, P, L).reshape(B, PL)
+        rem = ((kid[:, None, :] == pk[..., None])
+               & (pos[:, None, :] > pd[..., None]))
+        rem = rem[:, :, None, :].expand(B, P, L, T).reshape(B, PL, T)
+        # the remaining targets' leaves that no child's column excludes
+        okl = ((torch.bmm(cused.to(mm), U_mmT) < 0.5)
+               & live.view(B, 1, T * L)).view(B, PL, T, L)
+        m_rc = torch.where(okl, rc[:, None], INF).amin(-1)      # [B, PL, T]
+        m_f, a_f = torch.where(okl, fm[:, None], INF).min(-1)
+        b_f = cg + torch.where(rem, m_f, 0.0).sum(-1)
+        b_lam = (cg + torch.where(rem, m_rc, 0.0).sum(-1) - lam_k.gather(
+            1, pkc) + torch.bmm(cused.float(), lam_c)[..., 0])
+        cb = torch.where(ok, torch.maximum(b_lam, b_f), INF)
+        # solved: the remaining best leaves take no column twice
+        pick = (rem[..., None] & (ar_L == a_f[..., None])).view(B, PL, -1)
+        solved = ok & (b_f < INF) & ~(torch.bmm(pick.to(mm), U_mm)
+                                       > 1.5).any(-1)
+        cand = torch.where(solved, b_f, INF)
+        ub = _scatter_min(c.ub, pkc, cand)
+        ubc = ub.gather(1, pkc)
+        wt = _scatter_min(no_child, pkc, torch.where(
+            solved & (cand <= ubc), child, PL)).gather(1, kidc)
+        wt = wt.clamp(max=PL - 1)[:, None]
+        leaf = casg.gather(1, wt)[:, 0].long()
+        leaf = torch.where(leaf >= 0, leaf, a_f.gather(1, wt)[:, 0])
+        best = torch.where(multi & (ub < c.ub).gather(1, kidc), leaf, c.best)
+        # keep the children that may still beat their incumbent
+        keep = ok & ~solved & (cb < ubc - eps)
+        free = torch.sort(torch.where(alive[:, :K], K, ar_K), -1).values
+        rank = torch.cumsum(keep, -1) - 1
+        dest = torch.where(keep & (rank < K),
+                           free.gather(1, rank.clamp(0, K - 1)), K)
+        put = keep & (dest < K)
+        cut = _scatter_min(_scatter_min(c.cut, pk, cut_p), pkc, torch.where(
+            ok & ~solved & ~put, cb, INF))
+        kids = torch.stack([pkc.double(), (pn[..., 1:2] + 1).expand(
+            B, P, L).reshape(B, PL), cg, cb], -1)
+        return _Search(
+            alive=alive.scatter(1, dest, put) & live_row,
+            node=c.node.scatter(1, dest[..., None].expand(B, PL, 4), kids),
+            used=c.used.scatter(1, dest[..., None].expand(B, PL, CAP), cused),
+            asg=c.asg.scatter(1, dest[..., None].expand(B, PL, T), casg),
+            ub=ub, cut=cut, best=best)
+
+    def go_on(c: _Search):
+        go = c.alive.any(-1)
+        return go[0] if not lead else go
+
+    c = sync.while_loop(go_on, step, c, max_iters=FINISH_ITERS,
+                        name="finish.search")
+    left = _scatter_min(torch.full((B, T), INF, dtype=torch.float64,
+                                   device=dev), c.node[..., 0].long(),
+                        torch.where(c.alive, c.node[..., 3], INF))
+    lb_k = torch.where(opened, torch.maximum(torch.minimum(torch.minimum(
+        c.ub, c.cut), left), root_lb), root_lb)
+    fmin = torch.where(state.leaf_mask.reshape(B, T, L), f, INF).amin(-1)
+    bound = (torch.where(tm & ~multi, fmin, 0.0).sum(-1)
+             + torch.where(is_root, lb_k, 0.0).sum(-1)).float()
+    sel = torch.where(multi, c.best, sel_h)
+    obj = torch.where(tm, f.gather(-1, sel[..., None])[..., 0], 0.0).sum(-1)
+    ok = _selection_feasible(state, shapes, sel.reshape(*lead, T)).reshape(B)
+    take = ok & (~feas_h | (obj <= res.obj.reshape(B)))
+    out = res._replace(
+        sel=torch.where(take[:, None], sel, sel_h).int().reshape(*lead, T),
+        feasible=(take | feas_h).reshape(lead),
+        obj=torch.where(take, obj, res.obj.reshape(B)).reshape(lead),
+        bound=torch.maximum(res.bound, bound.reshape(lead)))
+    timing.count('finish_open', entered & _certificate_open(
+        out, params.selection_gap))
+    return out
+
+
+def finish(state: TrackerState, shapes: TrackerShapes,
+           params: TrackerParams, res: SelectionResult) -> SelectionResult:
+    """The hybrid's ``res`` through the exact finish where its certificate
+    (``obj - bound``) is open beyond ``FINISH_SHARE`` of
+    ``params.selection_gap`` times ``max(1, |obj|)``:
+    one IF node on the device (named ``finish``) around
+    ``_exact_finish``, which counts the finishes entered."""
+    entered = _certificate_open(res, FINISH_SHARE * params.selection_gap)
+    return sync.cond(
+        entered, lambda: _exact_finish(state, shapes, params, res, entered),
+        lambda: res, name="finish")
 
 
 def _independent_best(state: TrackerState, shapes: TrackerShapes,
@@ -1141,8 +1391,8 @@ def select(state: TrackerState, shapes: TrackerShapes,
            **kw) -> SelectionResult:
     """Global hypothesis selection.  ``'ipm'`` (the default, as in the
     JAX package) is the dense interior-point solve with truncated
-    branch-and-bound, ``'lagrangian'`` the tiered hybrid (what the
-    benchmark and production run), ``'lagrangian_pure'`` the
+    branch-and-bound, ``'lagrangian'`` the tiered hybrid and its exact
+    finish (what the benchmark and production run), ``'lagrangian_pure'`` the
     gather/scatter Lagrangian on the whole forest, ``'greedy'`` the
     per-target independent best with its feasibility reported honestly.
     With ``fast_path`` no solver runs when the independent optima are
@@ -1150,7 +1400,9 @@ def select(state: TrackerState, shapes: TrackerShapes,
     also takes a batch of forests (leading scenario axes): the solver
     then runs when any scenario conflicts, and the fast result is kept
     where a scenario's independent optima are conflict-free."""
-    solver = {'ipm': select_ipm, 'lagrangian': select_hybrid,
+    solver = {'ipm': select_ipm,
+              'lagrangian': lambda st, sh, pa, **k: finish(
+                  st, sh, pa, select_hybrid(st, sh, pa, **k)),
               'lagrangian_pure': select_lagrangian}
     if method not in solver and method != 'greedy':
         raise ValueError(f"unknown selection method {method!r}")

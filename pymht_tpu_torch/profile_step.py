@@ -49,6 +49,9 @@ one captured CUDA graph per scan (core/graph.py) under ``'lagrangian'``,
   device counted them (``graph_flow.node_runs``); eagerly (``--eager``,
   ``'ipm'``) the bodies per scan and the device time per body (the
   kernels launched inside the body's span, nested loops included);
+* the program's counters per scan (``timing.COUNTERS``: selections that
+  reached tier 3, exact finishes entered, their iterations, and those
+  whose certificate stayed open);
 * a ``torch.profiler`` trace of the whole steps: device time by kernel,
   device busy time per scan and the device's idle share of the window.
   For the graphed step it also reports the device time of one replay
@@ -98,7 +101,8 @@ def _traced(prof, n, graphed) -> dict:
     out = {"phase_ms": {p: s[f"{p}_ms"] for p in timing.STEP_PHASES},
            "phase_sum_ms": s["phase_sum_ms"],
            "span_ms_per_scan": {k: s[f"{k}_ms"] for k in HOST_SPANS
-                                if s.get(f"{k}_ms") is not None}}
+                                if s.get(f"{k}_ms") is not None},
+           "counters_per_scan": {k: v / n for k, v in s["counters"].items()}}
     if graphed:
         out["node_runs_per_scan"] = {k: v / n for k, v in
                                      trace["node_runs"].items() if v}

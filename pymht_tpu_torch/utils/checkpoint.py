@@ -73,7 +73,7 @@ def save(tracker: Tracker, path: str):
 
     meta = {
         "shapes": dataclasses.asdict(tracker.shapes),
-        "params": dataclasses.asdict(tracker.params),
+        "params": _params_dict(tracker.params),
         "method": tracker.method,
         "t0": tracker.t0,
         "scan_times": [float(t) for t in tracker.scan_times],
@@ -85,6 +85,17 @@ def save(tracker: Tracker, path: str):
     }
     with open(path + ".json", "w") as f:
         json.dump(meta, f)
+
+
+def _params_dict(params: TrackerParams) -> dict:
+    """``params`` as the JAX package writes them, with the port's own
+    ``selection_gap`` only where it is not its default: a default file
+    loads in either package, and one that asks for another gap only in
+    the port (the JAX package certifies none)."""
+    d = dataclasses.asdict(params)
+    if d["selection_gap"] == TrackerParams.selection_gap:
+        del d["selection_gap"]
+    return d
 
 
 def save_state(path: str, state: TrackerState, init_state):

@@ -34,6 +34,12 @@ copy of pymht_tpu/utils/timing.py, with the tracer added).
 
   ``read()`` returns what the rings hold (one host read of the device
   ring), ``summary(trace)`` the means per scan and per step.
+* The program's counters (``COUNTERS``), always on: counts the step keeps
+  on the device it runs on (``count``), one int64 tensor per device made
+  before any capture, so that a captured step adds to it as a kernel node
+  and a replay reads nothing.  ``counters()`` reads them, process-wide
+  since import (one copy per device, outside any step); the tracer's
+  ``read`` gives them since its reset.
 """
 from __future__ import annotations
 
@@ -53,6 +59,11 @@ STEP_PHASES = ('grow', 'select', 'prune', 'initiate')
 RUNTIME_OF = dict(grow='Process', select='Optim', prune='N-Prune',
                   initiate='Init')
 N_STAMPS = len(STEP_PHASES) + 1
+# the program's counters (``count``): selections that reached tier 3's
+# Lagrangian, exact finishes entered, the finish's loop iterations, and
+# selections whose certificate is still open after it (core/select.py)
+COUNTERS = ('select_tier3', 'finish_entered', 'finish_iters',
+            'finish_open')
 SPANS = 1 << 16          # host spans kept, the newest
 ROWS = 1 << 13           # steps whose stamps are kept, the newest
 
@@ -131,6 +142,7 @@ class Tracer:
         self.device = None     # the device whose stamps the rows hold
         self.captures = 0      # step graphs captured (core/graph.StepGraph)
         self.node_runs0 = {}   # the condition kernel's counts at the reset
+        self.counters0 = {}    # the program's counters at the reset
 
     def reset(self):
         """Forget every span, stamp and count (the device rings' row counts
@@ -139,6 +151,7 @@ class Tracer:
         for buf in self.rings.values():
             buf[:1].zero_()
         self.node_runs0 = _node_runs()
+        self.counters0 = counters()
 
     # spans
     def _id(self, name: str) -> int:
@@ -286,8 +299,8 @@ class Tracer:
         """What the tracer holds, on the host clock (ns): ``spans`` (id,
         name, start, end, parent, scan; an open span's end is -1),
         ``stamps`` [steps kept, N_STAMPS] with ``first_step`` the step of
-        row 0, ``node_runs`` of the condition kernel and ``captures`` since
-        the reset, ``pool_bytes`` of the live graphs captured with stamps,
+        row 0, ``node_runs`` of the condition kernel, the program's
+        ``counters`` and ``captures`` since the reset, ``pool_bytes`` of the live graphs captured with stamps,
         and the device's ``calibration``."""
         if self.span_name is None:
             self._alloc()
@@ -302,11 +315,14 @@ class Tracer:
                      scan=self.span_scan[j].copy())
         first, st = self.stamps()
         runs = _node_runs()
+        cnt = counters()
         return dict(
             device=str(self.device), spans=spans, stamps=st,
             first_step=first, steps=self.steps,
             node_runs={k: v - self.node_runs0.get(k, 0)
                        for k, v in runs.items()},
+            counters={k: v - self.counters0.get(k, 0)
+                      for k, v in cnt.items()},
             captures=self.captures,
             pool_bytes=sum(g.pool_bytes() for g in list(self.graphs)),
             calibration=self.calibration.get(self.device))
@@ -415,10 +431,61 @@ def stamp(k: int, device):
 
 
 def ready(device):
-    """Make the device's stamp ring, when tracing is on, before a capture
-    (the ring outlives every graph that writes it)."""
+    """Make the device's counters and, when tracing is on, its stamp ring,
+    before a capture (both outlive every graph that writes them)."""
+    _counter_buf(device)
     if TRACE.on and device.type == 'cuda':
         TRACE.ring(device)
+
+
+# -- the program's counters --------------------------------------------------
+
+_COUNTS = {}             # device -> int64 [len(COUNTERS)]; the CPU's made
+                         # now, so that no step's first run makes it
+
+
+def _counter_buf(device):
+    import torch
+    device = torch.device(device)
+    buf = _COUNTS.get(device)
+    if buf is None:
+        if device.type == 'cuda' and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("timing: a device's counters are made "
+                               "before a capture (timing.ready)")
+        buf = _COUNTS[device] = torch.zeros(len(COUNTERS), dtype=torch.int64,
+                                            device=device)
+    return buf
+
+
+_counter_buf('cpu')
+
+
+def count(names, values):
+    """Add ``values`` (one device tensor per name, the names consecutive
+    in ``COUNTERS``; a bool, or a batch of them, counts its true entries)
+    to the counters of the device they lie on: one add, a kernel node
+    under capture."""
+    import torch
+    names = (names,) if isinstance(names, str) else tuple(names)
+    values = (values,) if isinstance(values, torch.Tensor) else values
+    i = COUNTERS.index(names[0])
+    if COUNTERS[i:i + len(names)] != names:
+        raise ValueError(f"timing.count: {names} are not consecutive in "
+                         f"COUNTERS")
+    buf = _counter_buf(values[0].device)
+    inc = [v.reshape(-1).sum(0, keepdim=True, dtype=torch.int64)
+           for v in values]
+    buf[i:i + len(names)] += inc[0] if len(inc) == 1 else torch.cat(inc)
+
+
+def counters() -> dict:
+    """{name: count} of ``COUNTERS`` over every device, since import (a
+    copy of each device's counters to the host, waiting for it)."""
+    out = dict.fromkeys(COUNTERS, 0)
+    for buf in list(_COUNTS.values()):
+        for k, v in zip(COUNTERS, buf.cpu().tolist()):
+            out[k] += int(v)
+    return out
 
 
 # -- reading a trace ---------------------------------------------------------
@@ -433,7 +500,8 @@ def summary(trace: dict, skip=()) -> dict:
     that began after the end of its ``replay`` and before any ``fetch``
     after it (so while the device ran the step), ``absorbs_on_read``
     those outside any ``scan`` (run by a read of the archive).  ``skip``:
-    scan numbers left out (a profiled stretch)."""
+    scan numbers left out (a profiled stretch).  ``counters``: the
+    program's counters since the tracer's reset."""
     skip = set(skip)
     st = trace['stamps']
     steps = trace['first_step'] + np.arange(len(st))
@@ -481,6 +549,7 @@ def summary(trace: dict, skip=()) -> dict:
     out["captures"] = trace['captures']
     out["pool_bytes"] = trace['pool_bytes']
     out["node_runs"] = trace['node_runs']
+    out["counters"] = trace.get('counters', {})
     return out
 
 

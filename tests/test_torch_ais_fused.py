@@ -39,7 +39,7 @@ STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 def port(cfg):
     cls = getattr(tconfig, type(cfg).__name__)
     return cls(**{f.name: getattr(cfg, f.name)
-                  for f in dataclasses.fields(cls)})
+                  for f in dataclasses.fields(cls) if hasattr(cfg, f.name)})
 
 
 def to_port(jstate):

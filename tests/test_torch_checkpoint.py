@@ -125,6 +125,26 @@ def test_save_absorbs_pipelined_outputs(tmp_path):
     _assert_same_tracker(a, c)
 
 
+def test_checkpoint_keeps_a_selection_gap_of_its_own(tmp_path):
+    """A tracker that certifies another ``selection_gap`` resumes with it;
+    at the default the file's params are the JAX package's fields."""
+    scans = _scans(4)
+    for gap, written in ((2e-3, True), (TrackerParams.selection_gap, False)):
+        a = Tracker(TrackerShapes(**SHAPES),
+                    TrackerParams(**PARAMS, selection_gap=gap),
+                    method='lagrangian', use_ais=False, device='cpu')
+        for s in scans:
+            a.add_measurement_list(s.time, s.measurements)
+        path = str(tmp_path / f"ck{gap}")
+        checkpoint.save(a, path)
+        with open(path + ".json") as f:
+            assert ("selection_gap" in json.load(f)["params"]) == written
+        c = checkpoint.load(path, device='cpu')
+        assert c.params == a.params and c.params.selection_gap == gap
+        c.use_ais = False
+        _assert_same_tracker(a, c)
+
+
 def test_load_defaults_to_the_card(tmp_path, monkeypatch):
     tr = _new()
     checkpoint.save(tr, str(tmp_path / "ck"))

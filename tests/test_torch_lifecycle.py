@@ -24,7 +24,7 @@ def port(cfg):
     of the JAX package's: each side is given its own classes."""
     cls = getattr(tconfig, type(cfg).__name__)
     return cls(**{f.name: getattr(cfg, f.name)
-                  for f in dataclasses.fields(cls)})
+                  for f in dataclasses.fields(cls) if hasattr(cfg, f.name)})
 
 
 SHAPES = TrackerShapes(max_targets=10, max_leaves=16, max_meas=32,

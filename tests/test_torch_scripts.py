@@ -77,7 +77,8 @@ def test_swarm_scene_labels_match_jax():
     # the JAX package on the same scene
     shapes = TrackerShapes(**{f.name: getattr(scene.shapes, f.name)
                               for f in dataclasses.fields(scene.shapes)})
-    params = TrackerParams(**dataclasses.asdict(scene.params))
+    params = TrackerParams(**{f.name: getattr(scene.params, f.name)
+                              for f in dataclasses.fields(TrackerParams)})
     trj = JTracker(shapes, params, method="lagrangian", use_ais=True)
     trj.pre_initialize(scene.scans[0].time - params.radar_period,
                        scene.seeds, mmsi=scene.mmsi)

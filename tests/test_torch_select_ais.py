@@ -41,7 +41,7 @@ PARAMS = TrackerParams(radar_period=2.5, P_d=0.9, lambda_phi=1e-5,
 def port(cfg):
     cls = getattr(tconfig, type(cfg).__name__)
     return cls(**{f.name: getattr(cfg, f.name)
-                  for f in dataclasses.fields(cls)})
+                  for f in dataclasses.fields(cls) if hasattr(cfg, f.name)})
 
 
 def to_port(jstate):

@@ -48,7 +48,10 @@ def one_torch_thread():
 def jax_cfg(cfg):
     """The JAX package's config class of the same name, from the port's
     numbers."""
-    return getattr(jconfig, type(cfg).__name__)(**dataclasses.asdict(cfg))
+    jcls = getattr(jconfig, type(cfg).__name__)
+    names = {f.name for f in dataclasses.fields(jcls)}
+    return jcls(**{k: v for k, v in dataclasses.asdict(cfg).items()
+                   if k in names})
 
 
 def to_jax(tstate):

@@ -21,8 +21,12 @@ torch = pytest.importorskip("torch")
 from pymht_tpu_torch import Tracker, TrackerParams, TrackerShapes  # noqa: E402
 from pymht_tpu_torch import sync  # noqa: E402
 from pymht_tpu_torch.core import graph as graph_mod  # noqa: E402
-from pymht_tpu_torch.core.state import empty_state  # noqa: E402
+from pymht_tpu_torch.core import select as tsel  # noqa: E402
+from pymht_tpu_torch.core.state import (  # noqa: E402
+    empty_state, state_from_numpy, state_to_numpy)
 from pymht_tpu_torch.utils import scenes, timing  # noqa: E402
+
+import torch_select_forests as forests  # noqa: E402
 
 BENCH = Path(__file__).resolve().parent.parent / "benchmark"
 # a stepped call's children: the previous scan's archive update runs
@@ -322,6 +326,101 @@ def test_summary_of_a_synthetic_trace(skip):
             s["absorbs_on_read"]) == (n, 0, 0)
     assert (s["captures"], s["pool_bytes"], s["node_runs"]) == (
         1, 1 << 20, {"cluster": 6})
+
+
+# -- the exact finish's counters and loops -----------------------------------
+
+@pytest.fixture(scope="module")
+def finish_forests():
+    """(a forest that needs the finish and reaches tier 3, its select's
+    keywords; a closed forest, a forest that needs the finish without
+    tier 3, and their shapes and parameters)."""
+    open_ = (forests.dense_cluster(), forests.SHAPES_BIG,
+             forests.PARAMS_BIG, dict(iters=1))
+    trunc, shapes, params = forests.truncation_forest()
+    return open_, (trunc, shapes, params, {}), (trunc, shapes, params,
+                                                dict(enum_cands=2))
+
+
+def _select_counts(st, shapes, params, kw):
+    c0 = timing.counters()
+    res = tsel.select(st, shapes, params, method="lagrangian", **kw)
+    c1 = timing.counters()
+    return res, {k: c1[k] - c0[k] for k in timing.COUNTERS}
+
+
+def test_finish_counters(finish_forests, monkeypatch):
+    """The four counters count on forests that need the finish and read
+    zero on one that does not; a finish out of budget counts as open."""
+    (dense, *rest_d), closed, trunc = finish_forests
+    _, n = _select_counts(dense, *rest_d)
+    assert n["select_tier3"] == n["finish_entered"] == 1
+    assert n["finish_iters"] >= 1 and n["finish_open"] == 0
+    _, n = _select_counts(*trunc)
+    assert n["select_tier3"] == 0 and n["finish_entered"] == 1
+    assert n["finish_iters"] >= 1 and n["finish_open"] == 0
+    _, n = _select_counts(*closed)
+    assert n == dict.fromkeys(timing.COUNTERS, 0)
+    monkeypatch.setattr(tsel, "FINISH_ITERS", 0)
+    res, n = _select_counts(*trunc)
+    assert n["finish_entered"] == n["finish_open"] == 1
+    assert n["finish_iters"] == 0
+    assert float(res.obj) - float(res.bound) > 1e-3
+
+
+def test_finish_spans_and_summary(finish_forests, tracer):
+    """Eagerly, with tracing on: the finish's branch is a ``finish`` span
+    on every solved selection, its search a ``finish.search`` span per
+    iteration only where it runs; ``summary`` gives the counters since
+    the tracer's reset."""
+    (dense, *rest_d), closed, _ = finish_forests
+    _, n = _select_counts(dense, *rest_d)
+    trace = timing.read()
+    names = list(trace["spans"]["name"])
+    assert names.count("finish") == 1
+    assert names.count("finish.search") == n["finish_iters"] >= 1
+    assert timing.summary(trace)["counters"] == n
+    timing.reset()
+    _select_counts(*closed)
+    names = list(timing.read()["spans"]["name"])
+    assert "finish.search" not in names
+    assert timing.summary(timing.read())["counters"] \
+        == dict.fromkeys(timing.COUNTERS, 0)
+
+
+@pytest.mark.cuda
+def test_card_finish_node_runs(card, finish_forests):
+    """Captured on the card, the finish's IF node and its search loop count
+    apart in ``node_runs()``: the loop runs on the forest that needs the
+    finish, not on the closed one; the counters agree."""
+    from pymht_tpu_torch.kernels import graph_flow
+    (dense, *_), closed, trunc = finish_forests
+
+    def replayed(st, shapes, params, kw):
+        st = state_from_numpy(state_to_numpy(st), card)
+        timing.ready(card)
+        tsel.select(st, shapes, params, method="lagrangian", **kw)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with graph_flow.capture(g):
+            res = tsel.select(st, shapes, params, method="lagrangian", **kw)
+        torch.cuda.synchronize()
+        graph_flow.reset_runs()
+        c0 = timing.counters()
+        g.replay()
+        torch.cuda.synchronize()
+        c1 = timing.counters()
+        return res, graph_flow.node_runs(), {k: c1[k] - c0[k]
+                                             for k in timing.COUNTERS}
+
+    res, runs, n = replayed(*trunc)
+    assert runs["finish"] == 2 and runs["finish.search"] >= 2
+    assert n["finish_entered"] == 1 and n["finish_open"] == 0
+    assert runs["finish.search"] == n["finish_iters"] + 1
+    assert abs(float(res.obj) - 4.0) < 1e-4
+    _, runs, n = replayed(*closed)
+    assert runs.get("finish.search", 0) == 0
+    assert n == dict.fromkeys(timing.COUNTERS, 0)
 
 
 # -- on the card ------------------------------------------------------------

@@ -31,7 +31,8 @@ W = SHAPES.window
 def port(cfg, **kw):
     cls = getattr(tconfig, type(cfg).__name__)
     return cls(**{**{f.name: getattr(cfg, f.name)
-                     for f in dataclasses.fields(cls)}, **kw})
+                     for f in dataclasses.fields(cls)
+                     if hasattr(cfg, f.name)}, **kw})
 
 
 def port_messages(msgs):

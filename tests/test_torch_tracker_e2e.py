@@ -48,7 +48,7 @@ def one_torch_thread():
 def port(cfg):
     cls = getattr(tconfig, type(cfg).__name__)
     return cls(**{f.name: getattr(cfg, f.name)
-                  for f in dataclasses.fields(cls)})
+                  for f in dataclasses.fields(cls) if hasattr(cfg, f.name)})
 
 
 def _pair(shapes, params, **kw):
