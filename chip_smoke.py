@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k1-guard   # phases 1-3 only
     python3 chip_smoke.py --graph      # phases 1-2, 4, 4b, 5 and 5b only
     python3 chip_smoke.py --k1-ab OLD/gate_score.cu [OUT.json]  # 1-3, a/b
+    python3 chip_smoke.py --select-builds [OUT.json]  # 1-2, the build table
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -88,8 +89,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    fires once, after the second;
 10. scatter: ``select`` on the AIS phase's last grown forest with the
     scatter formulations forced against the dense ones (must agree), then
-    both builds timed at the bench shape and on a seeded swarm forest
-    (T=2048, L=16, M=4096, A=8, W=7);
+    the build table (``select_build_table``): select's two usage builds
+    with a size switch (``_hist_usage``, ``_selection_feasible``) in both
+    formulations, each captured BUILD_REPS times in one graph
+    (graph_flow.capture) and replayed between CUDA events, on seeded
+    forests at the two benchmark cells' shapes, the sizes around and
+    between them and the Monte-Carlo batch of phase 17 (BUILD_SHAPES);
+    the formulations bit for bit equal at each; the largest size where
+    the dense build still won and the smallest where the scatter did, per
+    build, against ``select._USAGE_DENSE_LIMIT`` (``--select-builds`` runs
+    phases 1-2 and this table only, and writes it to OUT.json if named);
 11. smoother: ``get_smooth_tracks`` (pure RTS, and 5 EM iterations in
     'full' mode) on the card tracker of phase 4 against the CPU tracker's;
 12. ipm: examples/demo_tracking.py's scene (T=32, L=32, M=64, A=8, W=7,
@@ -282,8 +291,19 @@ IPM_OBJ_RTOL = 1e-4
 XCHECK_SCANS = 16
 PURE_SCANS = 5
 GAP_LIMIT = 1e-3             # the 0.1 % contract against the exact oracle
-SWARM = dict(max_targets=2048, max_leaves=16, max_meas=4096, max_ais=8,
-             window=7)
+# select's usage builds timed inside graphs: (name, B, T, L, W, M, A), the
+# benchmark cells' shapes (benchmark/configs), sizes around and between,
+# and a batch of B scenarios: the mc phase's (BASELINE config 4)
+BUILD_SHAPES = (("tiny", 1, 8, 8, 5, 16, 4),
+                ("demo", 1, 32, 32, 7, 64, 8),
+                ("small", 1, 64, 16, 5, 256, 8),
+                ("coastal100", 1, 128, 32, 7, 512, 8),
+                ("mid-a", 1, 256, 32, 7, 1024, 8),
+                ("mid-b", 1, 512, 16, 6, 2048, 128),
+                ("swarm1000", 1, 1024, 16, 6, 2048, 128),
+                ("wide", 1, 2048, 16, 7, 4096, 8),  # the first swarm bench's
+                ("mc", 256, 8, 16, 6, 28, 2))
+BUILD_REPS = 20          # runs of one build captured in one graph
 
 # K1 against its twin: gating decisions, per-leaf counts and the used
 # mask identical; scores, x_bar, P_bar, K and P_hat within these (f32;
@@ -1974,9 +1994,7 @@ def forced_scatter(sel_mod):
 @contextlib.contextmanager
 def forced_dense(sel_mod):
     """select's dense-compare limit above any shape: the dense builds of
-    ``_hist_usage`` and ``_selection_feasible`` (at the swarm shape the
-    former compares T*L*W*(M+A) = 0.94e9 elements, beyond the default
-    limit)."""
+    ``_hist_usage`` and ``_selection_feasible``."""
     saved = sel_mod._USAGE_DENSE_LIMIT
     sel_mod._USAGE_DENSE_LIMIT = 1 << 62
     try:
@@ -1985,22 +2003,23 @@ def forced_dense(sel_mod):
         sel_mod._USAGE_DENSE_LIMIT = saved
 
 
-def swarm_forest(seed, device):
-    """A seeded forest at swarm width: every target's leaves draw their
-    labels from two measurements of its own, every 16th target also from
-    its neighbour's (so ~1,800 of the 28,728 slots are contested, under
-    select's cap of 2,048); ~70 % live leaves; an AIS label on 2 % of the
-    nodes."""
+def swarm_forest(seed, device, dims):
+    """A seeded forest of swarm-like sharing (``dims``: TrackerShapes'
+    fields): every target's leaves draw their labels from two
+    measurements of its own, every 16th target also from its neighbour's
+    (at BUILD_SHAPES' "wide" ~1,800 of the 28,728 slots are contested,
+    under select's cap of 2,048; labels past M wrap round); ~70 % live
+    leaves; an AIS label on 2 % of the nodes."""
     import torch
     from pymht_tpu_torch.core.config import TrackerParams, TrackerShapes
     from pymht_tpu_torch.core.state import empty_state
-    shapes, params = TrackerShapes(**SWARM), TrackerParams()
+    shapes, params = TrackerShapes(**dims), TrackerParams()
     T, L, W = shapes.max_targets, shapes.max_leaves, shapes.window
     rng = np.random.default_rng(seed)
     own = 2 * np.arange(T)[:, None, None] + rng.integers(1, 3, (T, L, W))
     share = (np.arange(T) % 16 == 0)[:, None, None] \
         & (rng.random((T, L, W)) < 0.5)
-    hist_meas = np.where(share, own + 2, own)
+    hist_meas = (np.where(share, own + 2, own) - 1) % shapes.max_meas + 1
     hist_meas = np.where(rng.random((T, L, W)) < 0.2, 0, hist_meas)
     hist_ais = np.where(rng.random((T, L, W)) < 0.02,
                         rng.integers(1, shapes.max_ais + 1, (T, L, W)), 0)
@@ -2021,53 +2040,6 @@ def swarm_forest(seed, device):
         tgt_id=torch.arange(T, dtype=torch.int32, device=device))
 
 
-def wall_ms(fn, reps=7):
-    """Median wall time of ``fn`` closed by a synchronize (these builds
-    are a handful of device ops, some with host reads in between, so the
-    host's clock is the one a caller feels)."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return float(np.median(times))
-
-
-def build_times(sel_mod, state, shapes, params):
-    """Wall ms of the dense and the scatter build of each function that
-    has both, in the order dense, scatter, scatter, dense (the mean of
-    each pair is kept)."""
-    sel0 = sel_mod.leaf_scores(state, params).argmin(dim=1)
-    usage = sel_mod._hist_usage(state, shapes)
-    big = state.tgt_mask
-    fns = {
-        "_hist_usage": lambda dense: sel_mod._hist_usage(state, shapes),
-        "_selection_feasible": lambda dense: sel_mod._selection_feasible(
-            state, shapes, sel0),
-        "cluster": lambda dense: sel_mod.cluster(state, shapes),
-        # select_hybrid shares the dense usage tensor with cluster, so the
-        # dense build is timed without it
-        "select_hybrid's Uc": lambda dense: sel_mod._contested_leaf_usage(
-            state, shapes, big, 256, usage if dense else None),
-    }
-    out = {}
-    for name, fn in fns.items():
-        ms = {True: [], False: []}
-        for dense in (True, False, False, True):
-            if dense:
-                with forced_dense(sel_mod):
-                    ms[dense].append(wall_ms(lambda: fn(True)))
-            else:
-                with forced_scatter(sel_mod):
-                    ms[dense].append(wall_ms(lambda: fn(False)))
-        out[name] = (float(np.mean(ms[True])), float(np.mean(ms[False])))
-    return out
-
-
 def scatter_phase(ais, card):
     """``ais``: what ais_phase returned; its last grown forest (after
     grow, before select) is the bench-shape input."""
@@ -2077,8 +2049,9 @@ def scatter_phase(ais, card):
     shapes, params = bench_scene_ais()[:2]
     state = ais["grown"]
     for fast_path in (True, False):
-        d = sel_mod.select(state, shapes, params, method="lagrangian",
-                           fast_path=fast_path)
+        with forced_dense(sel_mod):
+            d = sel_mod.select(state, shapes, params, method="lagrangian",
+                               fast_path=fast_path)
         with forced_scatter(sel_mod):
             s = sel_mod.select(state, shapes, params, method="lagrangian",
                                fast_path=fast_path)
@@ -2097,32 +2070,107 @@ def scatter_phase(ais, card):
           f"{'in conflict' if conflict else 'conflict-free'}): sel, labels, "
           f"n_clusters and feasibility identical between the dense and the "
           f"scatter builds, with and without the fast path")
+    return select_build_table(card)
 
-    sw_shapes, sw_params, sw_state = swarm_forest(0, "cuda")
-    T, L, W = sw_state.hist_meas.shape
-    check(T * L * W * (sw_shapes.max_meas + sw_shapes.max_ais)
-          > sel_mod._USAGE_DENSE_LIMIT,
-          "scatter: the swarm shape does not cross the dense limit")
-    with forced_dense(sel_mod):
-        d = sel_mod._hist_usage(sw_state, sw_shapes)
-    with forced_scatter(sel_mod):
-        s = sel_mod._hist_usage(sw_state, sw_shapes)
-    check(torch.equal(d, s) and bool(d.any()),
-          "scatter: swarm usage differs between the builds")
-    check(torch.equal(sel_mod._hist_usage(sw_state, sw_shapes), s),
-          "scatter: swarm usage by the default build differs")
-    del d, s
-    res = {}
-    for what, args in (("bench", (state, shapes, params)),
-                       ("swarm", (sw_state, sw_shapes, sw_params))):
-        res[what] = build_times(sel_mod, *args)
-        T, L, W = args[0].hist_meas.shape
-        print(f"select builds, {what} shape (T={T}, L={L}, W={W}, "
-              f"M={args[1].max_meas}, A={args[1].max_ais}), wall ms dense / "
-              f"scatter, {card}: "
-              + "; ".join(f"{k} {v[0]:.3f} / {v[1]:.3f}"
-                          for k, v in res[what].items()))
-    return res
+
+def graphed_ms(fn, reps=BUILD_REPS):
+    """(device ms of one ``fn()``, its output): ``reps`` runs of ``fn``
+    captured back to back in one graph (graph_flow.capture, as the step
+    is), the graph replayed between two CUDA events, median of 5."""
+    import torch
+    from pymht_tpu_torch.kernels import graph_flow
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with graph_flow.capture(g):
+        for _ in range(reps):
+            out = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return float(np.median(times)), out
+
+
+def select_build_table(card, out_path=None):
+    """select's usage builds in both formulations inside captured graphs,
+    at BUILD_SHAPES (module docstring, phase 10).  Each row: the build,
+    the shape, its virtual elements (what the dense build compares over
+    the whole batch; ``per_scenario`` of them) and the device ms of each
+    formulation.  Then per build the largest size at which the dense
+    build won and the smallest at which the scatter did."""
+    import torch
+    from pymht_tpu_torch.core import select as sel_mod
+    from pymht_tpu_torch.utils import timing
+    timing.ready(torch.device("cuda"))
+    rows = []
+    for name, B, T, L, W, M, A in BUILD_SHAPES:
+        dims = dict(max_targets=T, max_leaves=L, window=W, max_meas=M,
+                    max_ais=A)
+        forests = [swarm_forest(seed, "cuda", dims) for seed in range(B)]
+        shapes, params, st = forests[0]
+        if B > 1:
+            st = st.replace(**{f.name: torch.stack(
+                [getattr(x[2], f.name) for x in forests])
+                for f in dataclasses.fields(st)})
+        del forests
+        sel0 = sel_mod.leaf_scores(st, params).argmin(dim=-1)
+        builds = {
+            "_hist_usage": (T * L * W * (M + A),
+                            lambda: sel_mod._hist_usage(st, shapes)),
+            "_selection_feasible": (
+                T * W * (M + A),
+                lambda: sel_mod._selection_feasible(st, shapes, sel0)),
+        }
+        for build, (n, fn) in builds.items():
+            ms, outs = {}, {}
+            for form in ("dense", "scatter", "scatter", "dense"):
+                with (forced_dense if form == "dense" else forced_scatter)(
+                        sel_mod):
+                    t, outs[form] = graphed_ms(fn)
+                ms.setdefault(form, []).append(t)
+            check(torch.equal(outs["dense"], outs["scatter"]),
+                  f"select build table: {build} differs between the "
+                  f"formulations at {name}")
+            row = dict(build=build, shape=name, B=B, T=T, L=L, W=W, M=M,
+                       A=A, elements=B * n, per_scenario=n,
+                       dense_ms=float(np.mean(ms["dense"])),
+                       scatter_ms=float(np.mean(ms["scatter"])))
+            rows.append(row)
+            print(f"select build {build} at {name} (B={B}, T={T}, L={L}, "
+                  f"W={W}, M={M}, A={A}; {B * n:,} virtual elements, "
+                  f"{n:,} a scenario), device ms in a graph, dense / "
+                  f"scatter: {row['dense_ms']:.4f} / "
+                  f"{row['scatter_ms']:.4f} ({card})", flush=True)
+        del st, sel0
+        torch.cuda.empty_cache()
+    crossover = {}
+    for build in ("_hist_usage", "_selection_feasible"):
+        mine = [r for r in rows if r["build"] == build]
+        dense_won = [r["elements"] for r in mine
+                     if r["dense_ms"] <= r["scatter_ms"]]
+        scatter_won = [r["elements"] for r in mine
+                       if r["dense_ms"] > r["scatter_ms"]]
+        crossover[build] = dict(
+            dense_won_up_to=max(dense_won, default=None),
+            scatter_won_from=min(scatter_won, default=None))
+        print(f"select build {build}: the dense build won up to "
+              f"{crossover[build]['dense_won_up_to']} virtual elements, the "
+              f"scatter from {crossover[build]['scatter_won_from']}; "
+              f"select._USAGE_DENSE_LIMIT = {sel_mod._USAGE_DENSE_LIMIT}")
+    table = dict(card=card, reps=BUILD_REPS, rows=rows, crossover=crossover,
+                 limit=sel_mod._USAGE_DENSE_LIMIT)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(table, f, indent=1)
+    return table
 
 
 def smoother_phase(gpu, cpu, card):
@@ -4350,7 +4398,9 @@ def main(argv):
     t_start = time.perf_counter()
     ab = argv[1:] if argv[:1] == ["--k1-ab"] and len(argv) in (2, 3) \
         else None
-    if argv not in ([], ["--k1-guard"], ["--graph"]) and ab is None:
+    builds = argv[:1] == ["--select-builds"] and len(argv) in (1, 2)
+    if argv not in ([], ["--k1-guard"], ["--graph"]) and ab is None \
+            and not builds:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     guard_only = argv == ["--k1-guard"] or ab is not None
@@ -4377,6 +4427,11 @@ def main(argv):
     print(so.with_suffix(".log").read_text().strip())
     print(so_flow.with_suffix(".log").read_text().strip())
     install_graph_notes()
+    if builds:
+        select_build_table(card, *argv[1:])
+        print(f"chip_smoke --select-builds: "
+              f"{time.perf_counter() - t_start:.1f} s in all")
+        return 0
 
     from pymht_tpu_torch.ops import gate_kernel as gk
     sms, per_sm = gk.occupancy()

@@ -52,16 +52,27 @@ BIG = 1e4
 K_ENUM = 4
 C_ENUM = 16
 
-# Formulation switches, at the JAX package's sizes (select.py:109,263,
-# 979).  Up to _USAGE_DENSE_LIMIT virtual elements ``_hist_usage`` and
-# ``_selection_feasible`` compare densely, above it they scatter.  Below
+# Formulation switches.  Up to _USAGE_DENSE_LIMIT virtual elements (what
+# the dense build compares: [T, L, W, M+A] over the whole batch for
+# ``_hist_usage``, [T, W, M+A] a scenario for ``_selection_feasible``)
+# they compare densely, above it they scatter.  Timed inside captured
+# graphs on an H100 (PERF.md's select-build table, ``python3
+# chip_smoke.py --select-builds``): from the coastal shape up the scatter
+# wins both builds (2.9x for ``_hist_usage`` there, 28x at the swarm's
+# 214 M); below it the two differ by at most 13 us, and each build's own
+# crossover lies elsewhere (``_hist_usage`` 1.35-5.9 M, ``_selection_
+# feasible`` under 16 K unbatched).  In the Monte-Carlo batch (256
+# scenarios of T=8) ``_hist_usage``'s scatter wins on the batch's 5.9 M
+# and ``_selection_feasible``'s dense compare on its 1,440 a scenario,
+# each by ~6 us.  One limit at 2^16 serves: the small forests keep the
+# JAX package's dense compares.  The compact columns' ``Uc`` is always a
+# scatter (its dense [T, L, W, CAP] compare lost from 1.3 M elements up,
+# and won by 8 us at most below).  Below
 # _INT32_WALL elements of [T, n_slots] ``cluster`` and ``select_hybrid``
-# build contestedness and the compact usage from the dense usage tensor;
-# from the wall on (strictly: T * n_slots == _INT32_WALL already takes
-# the scatter build) from min/max-target-id scatters.  On an H100 the
-# dense builds are the faster ones at the bench shape (PERF.md, Select
-# build), so the constants stand.
-_USAGE_DENSE_LIMIT = 1 << 29
+# take contestedness and the compact usage from the [T, n_slots] usage
+# tensor; from the wall on (strictly: T * n_slots == _INT32_WALL already
+# takes the scatter build) from min/max-target-id scatters.
+_USAGE_DENSE_LIMIT = 1 << 16
 _INT32_WALL = 1 << 31
 CLUSTER_COMPACT_CAP = 2048
 
@@ -112,14 +123,17 @@ def _hist_usage(state: TrackerState, shapes: TrackerShapes, tgt_filter=None):
     """[T, W, M+A] bool: does any live leaf of target t use radar
     measurement m (block [0, M)) or AIS message a (block [M, M+A)) at
     window column w?  Dense compares up to _USAGE_DENSE_LIMIT virtual
-    elements, one scatter of the T*L*W labels per family above."""
+    elements over the whole batch, one scatter of the T*L*W labels per
+    family above."""
     *lead, T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
     dev = state.hist_meas.device
     live = state.leaf_mask
     if tgt_filter is not None:
         live = live & tgt_filter[..., None]
-    if T * L * W * (M + A) <= _USAGE_DENSE_LIMIT:
+    dense = math.prod(lead) * T * L * W * (M + A) <= _USAGE_DENSE_LIMIT
+    timing.BUILDS['usage_dense' if dense else 'usage_scatter'] += 1
+    if dense:
         live4 = live[..., None, None]
         um = ((state.hist_meas[..., None]
                == torch.arange(1, M + 1, device=dev)) & live4).any(dim=-3)
@@ -948,14 +962,15 @@ def _contested_leaf_usage(state: TrackerState, shapes: TrackerShapes, big,
                           CAP: int, usage=None, axis=None):
     """The compact Lagrangian's columns: the first CAP slots used by two
     or more distinct ``big`` targets, and each live leaf's 0/1 usage of
-    them.  With the dense ``usage`` [T, W, M+A] both come from compares;
-    with ``usage=None`` from the min/max-target-id scatters and one
-    scatter of each leaf's labels (no [T, n_slots] tensor).  With an
-    ``axis`` the targets are this rank's share: contestedness is then
-    global (one psum of the dense counts, or a pmin / pmax pair), hence
-    the same columns on every rank.  Returns (Uc [T, L, CAP] f32,
-    col_slot [CAP], col_ok [CAP], n_cont [], eff_leaf [T, L]: the live
-    leaves of the ``big`` targets)."""
+    them.  Contestedness comes from the dense ``usage`` [T, W, M+A] when
+    it is given, else from the min/max-target-id scatters (no [T,
+    n_slots] tensor).  ``Uc`` is one scatter of each leaf's labels
+    through the contested slots' ranks, which ascend as ``col_slot``
+    does.  With an ``axis`` the targets are this rank's share:
+    contestedness is then global (one psum of the dense counts, or a
+    pmin / pmax pair), hence the same columns on every rank.  Returns
+    (Uc [T, L, CAP] f32, col_slot [CAP], col_ok [CAP], n_cont [],
+    eff_leaf [T, L]: the live leaves of the ``big`` targets)."""
     *lead, T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
     P = M + A
@@ -974,38 +989,17 @@ def _contested_leaf_usage(state: TrackerState, shapes: TrackerShapes, big,
     col_slot = torch.sort(s_ids).values[..., :CAP]
     col_ok = col_slot < S
     eff_leaf = state.leaf_mask & big[..., None]
-    if usage is not None:
-        cs = torch.where(col_ok, col_slot, 0)
-        cw = torch.where(col_ok, cs // P, 0)
-        off = cs % P
-        cais = col_ok & (off >= M)
-        # cval > 0 guards empty columns: hist_meas == 0 is the
-        # zero-hypothesis code, not a slot.
-        cval = torch.where(col_ok,
-                           torch.where(off >= M, off - M + 1, off + 1), 0)
-
-        def per_leaf(v):          # [CAP] against [T, L, W, CAP]
-            return v[..., None, None, None, :]
-
-        wids = torch.arange(W, device=dev)[None, None, :, None]
-        m_match = ((state.hist_meas[..., None] == per_leaf(cval))
-                   & ~per_leaf(cais) & per_leaf(cval > 0))
-        a_match = ((state.hist_ais[..., None] == per_leaf(cval))
-                   & per_leaf(cais))
-        use_c = ((m_match | a_match) & (wids == per_leaf(cw))).any(dim=-2)
-        Uc = (use_c & eff_leaf[..., None]).float()                  # [T,L,CAP]
-    else:
-        rank_pad = _compact_rank(contested, CAP)                    # [S+1]
-        mi, ai, _ = _filtered_flat_labels(state, shapes, big)
-        bi = lead_index(lead, dev, extra=1)
-        tlids = torch.arange(T * L, device=dev)[:, None] \
-            .expand(*lead, T * L, W).reshape(*lead, -1)
-        Uc2 = torch.zeros((*lead, T * L, CAP + 1), dtype=torch.float32,
-                          device=dev)
-        one = torch.ones((), device=dev)
-        for idx in (mi, ai):
-            Uc2[(*bi, tlids, rank_pad[(*bi, idx.reshape(*lead, -1))])] = one
-        Uc = Uc2[..., :CAP].reshape(*lead, T, L, CAP)
+    rank_pad = _compact_rank(contested, CAP)                        # [S+1]
+    mi, ai, _ = _filtered_flat_labels(state, shapes, big)
+    bi = lead_index(lead, dev, extra=1)
+    tlids = torch.arange(T * L, device=dev)[:, None] \
+        .expand(*lead, T * L, W).reshape(*lead, -1)
+    Uc2 = torch.zeros((*lead, T * L, CAP + 1), dtype=torch.float32,
+                      device=dev)
+    one = torch.ones((), device=dev)
+    for idx in (mi, ai):
+        Uc2[(*bi, tlids, rank_pad[(*bi, idx.reshape(*lead, -1))])] = one
+    Uc = Uc2[..., :CAP].reshape(*lead, T, L, CAP)
     return Uc, col_slot, col_ok, n_cont, eff_leaf
 
 

@@ -269,11 +269,13 @@ def test_batch_of_one_equals_the_unbatched_step(runs):
 
 
 @pytest.mark.parametrize("method", ["lagrangian", "greedy"])
-@pytest.mark.parametrize("scatter", [False, True], ids=["dense", "scatter"])
-def test_select_on_stacked_forests(runs, method, scatter, monkeypatch):
+@pytest.mark.parametrize("build", ["dense", "scatter", "hybrid"])
+def test_select_on_stacked_forests(runs, method, build, monkeypatch):
     """``select`` on the converging scene's grown forests, stacked,
-    against each forest alone; with ``scatter`` the scatter builds of the
-    usage tensors are forced."""
+    against each forest alone; ``build`` forces the dense compares of
+    ``_hist_usage`` and ``_selection_feasible``, every scatter build, or
+    the scatters with contestedness still taken from the [T, n_slots]
+    usage (the large forests' path)."""
     scenes, alone, _, _ = runs
     scans, _, _ = scenes[0]
     forests = []
@@ -283,8 +285,9 @@ def test_select_on_stacked_forests(runs, method, scatter, monkeypatch):
             torch.from_numpy(zz), torch.from_numpy(m),
             torch.tensor(scans[i][0], dtype=torch.float32)), None,
             SHAPES, PARAMS).state)
-    if scatter:
-        monkeypatch.setattr(tsel, "_USAGE_DENSE_LIMIT", 0)
+    monkeypatch.setattr(tsel, "_USAGE_DENSE_LIMIT",
+                        1 << 62 if build == "dense" else 0)
+    if build == "scatter":
         monkeypatch.setattr(tsel, "_INT32_WALL", 0)
     res_b = tsel.select(_stack(forests), SHAPES, PARAMS, method=method)
     n_conflicted = 0

@@ -7,7 +7,8 @@ slots than a small cap) and the grown AIS forests of
 tests/test_torch_select_ais.py (small clusters, conflicts on AIS slots).
 The port's size switches (``_USAGE_DENSE_LIMIT``, ``_INT32_WALL``) are
 module attributes and are forced to 0 here, so shapes this small take
-the scatter builds.
+the scatter builds.  Which builds the benchmark cells' own shapes take is
+checked on meta tensors, so nothing of their size is allocated.
 
 Required: every integer and boolean output identical between the two
 builds and the JAX function (usage, contestedness, ranks, labels,
@@ -16,6 +17,9 @@ bound and duals within 1e-5 of the JAX package's and identical between
 the port's two builds (they run the same arithmetic on identical
 tensors).
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,6 +47,7 @@ _PARAMS = dict(radar_period=2.5, P_d=0.9, lambda_phi=1e-5, lambda_nu=1e-6,
 SHAPES, JSHAPES = TrackerShapes(**_SHAPES), JShapes(**_SHAPES)
 PARAMS, JPARAMS = TrackerParams(**_PARAMS), JParams(**_PARAMS)
 SEEDS = [0, 1, 2, 3]
+BENCH = Path(__file__).resolve().parent.parent / "benchmark"
 
 
 def random_forest(seed, n_meas=None, p_miss=0.0, p_ais=0.3):
@@ -250,20 +255,111 @@ def test_select_hybrid_builds_agree_on_random_forests(cap, monkeypatch):
     assert n_big == len(SEEDS) if cap == 2 else n_big == 0
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_contested_leaf_usage_builds_agree(seed):
-    tst = random_forest(seed)
-    big = torch.from_numpy(big_filter(seed))
-    usage = tsel._hist_usage(tst, SHAPES)
-    for cap in (3, 64):
-        d = tsel._contested_leaf_usage(tst, SHAPES, big, cap, usage)
-        s = tsel._contested_leaf_usage(tst, SHAPES, big, cap, None)
-        for a, b, name in zip(d, s, ("Uc", "col_slot", "col_ok", "n_cont",
-                                     "eff_leaf")):
-            np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
-        assert d[0].shape == (8, 8, cap) and d[0].any()
-        # only live leaves of the filtered targets use a column
-        assert not d[0][~(tst.leaf_mask & big[:, None])].any()
+def _columns_by_compare(tst, shapes, big, cap):
+    """The compact columns by the plain dense compare, in numpy: the
+    first ``cap`` slots (ascending) that two or more ``big`` targets'
+    live leaves use, and each live leaf of a ``big`` target's 0/1 use of
+    them, by comparing every label with every column."""
+    hm, ha = tst.hist_meas.numpy(), tst.hist_ais.numpy()
+    live = tst.leaf_mask.numpy() & big.numpy()[:, None]
+    M, A = shapes.max_meas, shapes.max_ais
+    W = hm.shape[-1]
+    P = M + A
+    used = np.zeros((hm.shape[0], W, P), bool)
+    for t, l, w in zip(*np.nonzero(live[..., None] & (hm >= 1))):
+        used[t, w, hm[t, l, w] - 1] = True
+    for t, l, w in zip(*np.nonzero(live[..., None] & (ha >= 1))):
+        used[t, w, M + ha[t, l, w] - 1] = True
+    slots = np.nonzero(used.sum(axis=0).reshape(-1) >= 2)[0][:cap]
+    uc = np.zeros(live.shape + (cap,), np.float32)
+    for c, slot in enumerate(slots):
+        w, off = divmod(int(slot), P)
+        lab, val = (ha, off - M + 1) if off >= M else (hm, off + 1)
+        uc[..., c] = live & (lab[..., w] == val)
+    return uc, slots
+
+
+@pytest.mark.parametrize("seed", SEEDS + ["grown"])
+def test_contested_leaf_usage_builds_agree(seed, request):
+    """The compact columns with contestedness from the dense usage and
+    from the min/max-target-id scatters (``usage=None``), ``Uc`` by the
+    labels' scatter in both: bit for bit equal, and equal to the plain
+    dense compare of every label against every column.  On the seeded
+    forests with a target filter and on the grown AIS forests
+    (``"grown"``, every active target)."""
+    if seed == "grown":
+        shapes = port(AIS_JSHAPES)
+        cases = [(to_port(j), shapes, None)
+                 for j in request.getfixturevalue("forests")]
+    else:
+        cases = [(random_forest(seed), SHAPES,
+                  torch.from_numpy(big_filter(seed)))]
+    for tst, shapes, big in cases:
+        big = tst.tgt_mask if big is None else big
+        usage = tsel._hist_usage(tst, shapes)
+        for cap in (3, 64):
+            d = tsel._contested_leaf_usage(tst, shapes, big, cap, usage)
+            s = tsel._contested_leaf_usage(tst, shapes, big, cap, None)
+            for a, b, name in zip(d, s, ("Uc", "col_slot", "col_ok",
+                                         "n_cont", "eff_leaf")):
+                np.testing.assert_array_equal(a.numpy(), b.numpy(),
+                                              err_msg=name)
+            uc, slots = _columns_by_compare(tst, shapes, big, cap)
+            n = len(slots)
+            np.testing.assert_array_equal(d[1].numpy()[:n], slots)
+            assert d[2].numpy().sum() == n
+            np.testing.assert_array_equal(d[0].numpy(), uc)
+            T, L = tst.leaf_mask.shape
+            assert d[0].shape == (T, L, cap) and d[0].any()
+            # only live leaves of the filtered targets use a column
+            assert not d[0][~(tst.leaf_mask & big[:, None])].any()
+
+
+@pytest.mark.parametrize("cell", ["swarm1000", "coastal100"])
+def test_usage_builds_at_the_cells_shapes(cell):
+    """The size rule at each benchmark cell's own shapes, on meta tensors
+    (no memory behind them): ``_hist_usage`` and ``_selection_feasible``
+    take the scatter builds at both cells (PERF.md's select-build table:
+    the scatter wins there by 2.9x and 28x, and 1.2x and 3.7x), and
+    ``_hist_usage``'s is counted so; the compact columns' ``Uc``, always
+    a scatter, builds there too."""
+    cfg = json.loads((BENCH / "configs" / f"{cell}.json").read_text())
+    shapes = TrackerShapes(**cfg["shapes"])
+    st = empty_state(shapes, PARAMS, "meta")
+    T, L, W = st.hist_meas.shape
+    P = shapes.max_meas + shapes.max_ais
+    cap = min(256, W * P)                  # select_hybrid's contested_cap
+    b0 = dict(tsel.timing.BUILDS)
+    usage = tsel._hist_usage(st, shapes)
+    assert {k: tsel.timing.BUILDS[k] - b0[k] for k in b0} \
+        == dict(usage_dense=0, usage_scatter=1)
+    Uc = tsel._contested_leaf_usage(st, shapes, st.tgt_mask, cap, usage)[0]
+    assert usage.shape == (T, W, P) and Uc.shape == (T, L, cap)
+    assert T * W * P > tsel._USAGE_DENSE_LIMIT   # _selection_feasible's
+    sel = torch.zeros(T, dtype=torch.int64, device="meta")
+    assert tsel._selection_feasible(st, shapes, sel).shape == ()
+
+
+@pytest.mark.parametrize("B", [1, 256])
+def test_usage_build_of_a_batch_counts_the_batch(B):
+    """``_hist_usage`` holds the limit against the whole batch's virtual
+    elements: the Monte-Carlo configuration (T=8, L=16, W=6, M=28, A=2:
+    23,040 a scenario) compares densely alone and scatters in its batch
+    of 256 (PERF.md's select-build table: 0.052 against 0.058 ms), on
+    meta tensors."""
+    shapes = TrackerShapes(max_targets=8, max_leaves=16, max_meas=28,
+                           max_ais=2, window=6, max_prelim=8,
+                           max_initiators=28)
+    st = empty_state(shapes, PARAMS, "meta")
+    if B > 1:
+        st = st.replace(**{k: v.expand(B, *v.shape)
+                           for k, v in vars(st).items()})
+    b0 = dict(tsel.timing.BUILDS)
+    usage = tsel._hist_usage(st, shapes)
+    assert usage.shape == (B,) * (B > 1) + (8, 6, 30)
+    want = "usage_scatter" if B > 1 else "usage_dense"
+    assert {k: tsel.timing.BUILDS[k] - b0[k] for k in b0} \
+        == {k: int(k == want) for k in b0}
 
 
 def test_select_on_grown_ais_forests_with_scatter_builds(forests, scatter):
@@ -308,4 +404,4 @@ def test_int32_wall_boundary_takes_the_scatter_build(fn, monkeypatch):
 
 def test_dense_only_guard_is_gone():
     assert not hasattr(tsel, "_dense_only")
-    assert tsel._INT32_WALL == 1 << 31 and tsel._USAGE_DENSE_LIMIT == 1 << 29
+    assert tsel._INT32_WALL == 1 << 31 and tsel._USAGE_DENSE_LIMIT == 1 << 16
