@@ -5,7 +5,6 @@
     python3 chip_smoke.py --k1-guard   # phases 1-3 only
     python3 chip_smoke.py --graph      # phases 1-2, 4, 4b, 5 and 5b only
     python3 chip_smoke.py --k1-ab OLD/gate_score.cu [OUT.json]  # 1-3, a/b
-    python3 chip_smoke.py --select-builds [OUT.json]  # 1-2, the build table
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -87,18 +86,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. roof: a short streamed run with ``degrade_on_overload`` and a scripted
    clock that reports an overlong second and third chunk: ``degrade()``
    fires once, after the second;
-10. scatter: ``select`` on the AIS phase's last grown forest with the
-    scatter formulations forced against the dense ones (must agree), then
-    the build table (``select_build_table``): select's two usage builds
-    with a size switch (``_hist_usage``, ``_selection_feasible``) in both
-    formulations, each captured BUILD_REPS times in one graph
-    (graph_flow.capture) and replayed between CUDA events, on seeded
-    forests at the two benchmark cells' shapes, the sizes around and
-    between them and the Monte-Carlo batch of phase 17 (BUILD_SHAPES);
-    the formulations bit for bit equal at each; the largest size where
-    the dense build still won and the smallest where the scatter did, per
-    build, against ``select._USAGE_DENSE_LIMIT`` (``--select-builds`` runs
-    phases 1-2 and this table only, and writes it to OUT.json if named);
+10. scatter: ``select`` on the AIS phase's last grown forest with
+    ``select._INT32_WALL`` at 0 (``cluster`` and ``select_hybrid`` on
+    the wall's far side: the min/max-target-id scatters) against the
+    default (the [T, n_slots] usage), with and without the fast path:
+    the same selection, clusters and feasibility;
 11. smoother: ``get_smooth_tracks`` (pure RTS, and 5 EM iterations in
     'full' mode) on the card tracker of phase 4 against the CPU tracker's;
 12. ipm: examples/demo_tracking.py's scene (T=32, L=32, M=64, A=8, W=7,
@@ -291,20 +283,6 @@ IPM_OBJ_RTOL = 1e-4
 XCHECK_SCANS = 16
 PURE_SCANS = 5
 GAP_LIMIT = 1e-3             # the 0.1 % contract against the exact oracle
-# select's usage builds timed inside graphs: (name, B, T, L, W, M, A), the
-# benchmark cells' shapes (benchmark/configs), sizes around and between,
-# and a batch of B scenarios: the mc phase's (BASELINE config 4)
-BUILD_SHAPES = (("tiny", 1, 8, 8, 5, 16, 4),
-                ("demo", 1, 32, 32, 7, 64, 8),
-                ("small", 1, 64, 16, 5, 256, 8),
-                ("coastal100", 1, 128, 32, 7, 512, 8),
-                ("mid-a", 1, 256, 32, 7, 1024, 8),
-                ("mid-b", 1, 512, 16, 6, 2048, 128),
-                ("swarm1000", 1, 1024, 16, 6, 2048, 128),
-                ("wide", 1, 2048, 16, 7, 4096, 8),  # the first swarm bench's
-                ("mc", 256, 8, 16, 6, 28, 2))
-BUILD_REPS = 20          # runs of one build captured in one graph
-
 # K1 against its twin: gating decisions, per-leaf counts and the used
 # mask identical; scores, x_bar, P_bar, K and P_hat within these (f32;
 # the kernel's closed-form predict and update round differently from the
@@ -1977,70 +1955,22 @@ def graph_configs_phase(ais, card):
 
 
 # ----------------------------------------------------------------------
-# the scatter formulations of select
+# select on both sides of its int32 wall
 # ----------------------------------------------------------------------
 
 @contextlib.contextmanager
 def forced_scatter(sel_mod):
-    """Both size switches of select at 0: the scatter builds."""
-    saved = sel_mod._USAGE_DENSE_LIMIT, sel_mod._INT32_WALL
-    sel_mod._USAGE_DENSE_LIMIT = sel_mod._INT32_WALL = 0
+    """select's int32 wall at 0: ``cluster`` and ``select_hybrid`` take
+    the min/max-target-id scatters at any size."""
+    saved = sel_mod._INT32_WALL
+    sel_mod._INT32_WALL = 0
     try:
         yield
     finally:
-        sel_mod._USAGE_DENSE_LIMIT, sel_mod._INT32_WALL = saved
+        sel_mod._INT32_WALL = saved
 
 
-@contextlib.contextmanager
-def forced_dense(sel_mod):
-    """select's dense-compare limit above any shape: the dense builds of
-    ``_hist_usage`` and ``_selection_feasible``."""
-    saved = sel_mod._USAGE_DENSE_LIMIT
-    sel_mod._USAGE_DENSE_LIMIT = 1 << 62
-    try:
-        yield
-    finally:
-        sel_mod._USAGE_DENSE_LIMIT = saved
-
-
-def swarm_forest(seed, device, dims):
-    """A seeded forest of swarm-like sharing (``dims``: TrackerShapes'
-    fields): every target's leaves draw their labels from two
-    measurements of its own, every 16th target also from its neighbour's
-    (at BUILD_SHAPES' "wide" ~1,800 of the 28,728 slots are contested,
-    under select's cap of 2,048; labels past M wrap round); ~70 % live
-    leaves; an AIS label on 2 % of the nodes."""
-    import torch
-    from pymht_tpu_torch.core.config import TrackerParams, TrackerShapes
-    from pymht_tpu_torch.core.state import empty_state
-    shapes, params = TrackerShapes(**dims), TrackerParams()
-    T, L, W = shapes.max_targets, shapes.max_leaves, shapes.window
-    rng = np.random.default_rng(seed)
-    own = 2 * np.arange(T)[:, None, None] + rng.integers(1, 3, (T, L, W))
-    share = (np.arange(T) % 16 == 0)[:, None, None] \
-        & (rng.random((T, L, W)) < 0.5)
-    hist_meas = (np.where(share, own + 2, own) - 1) % shapes.max_meas + 1
-    hist_meas = np.where(rng.random((T, L, W)) < 0.2, 0, hist_meas)
-    hist_ais = np.where(rng.random((T, L, W)) < 0.02,
-                        rng.integers(1, shapes.max_ais + 1, (T, L, W)), 0)
-    leaf_mask = rng.random((T, L)) < 0.7
-    leaf_mask[:, 0] = True
-
-    def dev(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(device)
-
-    st = empty_state(shapes, params, device)
-    return shapes, params, st.replace(
-        hist_meas=dev(hist_meas, torch.int32),
-        hist_ais=dev(hist_ais, torch.int32),
-        leaf_mask=dev(leaf_mask, torch.bool),
-        leaf_cnllr=dev(rng.normal(0, 2, (T, L)), torch.float32),
-        tgt_mask=torch.ones(T, dtype=torch.bool, device=device),
-        tgt_depth=torch.full((T,), W, dtype=torch.int32, device=device),
-        tgt_id=torch.arange(T, dtype=torch.int32, device=device))
-
-
-def scatter_phase(ais, card):
+def scatter_phase(ais):
     """``ais``: what ais_phase returned; its last grown forest (after
     grow, before select) is the bench-shape input."""
     import torch
@@ -2049,17 +1979,16 @@ def scatter_phase(ais, card):
     shapes, params = bench_scene_ais()[:2]
     state = ais["grown"]
     for fast_path in (True, False):
-        with forced_dense(sel_mod):
-            d = sel_mod.select(state, shapes, params, method="lagrangian",
-                               fast_path=fast_path)
+        d = sel_mod.select(state, shapes, params, method="lagrangian",
+                           fast_path=fast_path)
         with forced_scatter(sel_mod):
             s = sel_mod.select(state, shapes, params, method="lagrangian",
                                fast_path=fast_path)
         torch.cuda.synchronize()
         for name in ("sel", "labels", "n_clusters", "feasible"):
             check(torch.equal(getattr(d, name), getattr(s, name)),
-                  f"scatter (fast_path={fast_path}): {name} differs between "
-                  f"the builds")
+                  f"scatter (fast_path={fast_path}): {name} differs across "
+                  f"the int32 wall")
         check(math.isclose(float(d.obj), float(s.obj), rel_tol=OBJ_RTOL,
                            abs_tol=1e-3),
               f"scatter (fast_path={fast_path}): objectives differ")
@@ -2068,109 +1997,8 @@ def scatter_phase(ais, card):
     print(f"scatter: select on the AIS scene's last grown forest "
           f"({n_clusters} clusters, independent optima "
           f"{'in conflict' if conflict else 'conflict-free'}): sel, labels, "
-          f"n_clusters and feasibility identical between the dense and the "
-          f"scatter builds, with and without the fast path")
-    return select_build_table(card)
-
-
-def graphed_ms(fn, reps=BUILD_REPS):
-    """(device ms of one ``fn()``, its output): ``reps`` runs of ``fn``
-    captured back to back in one graph (graph_flow.capture, as the step
-    is), the graph replayed between two CUDA events, median of 5."""
-    import torch
-    from pymht_tpu_torch.kernels import graph_flow
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with graph_flow.capture(g):
-        for _ in range(reps):
-            out = fn()
-    g.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        g.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
-    return float(np.median(times)), out
-
-
-def select_build_table(card, out_path=None):
-    """select's usage builds in both formulations inside captured graphs,
-    at BUILD_SHAPES (module docstring, phase 10).  Each row: the build,
-    the shape, its virtual elements (what the dense build compares over
-    the whole batch; ``per_scenario`` of them) and the device ms of each
-    formulation.  Then per build the largest size at which the dense
-    build won and the smallest at which the scatter did."""
-    import torch
-    from pymht_tpu_torch.core import select as sel_mod
-    from pymht_tpu_torch.utils import timing
-    timing.ready(torch.device("cuda"))
-    rows = []
-    for name, B, T, L, W, M, A in BUILD_SHAPES:
-        dims = dict(max_targets=T, max_leaves=L, window=W, max_meas=M,
-                    max_ais=A)
-        forests = [swarm_forest(seed, "cuda", dims) for seed in range(B)]
-        shapes, params, st = forests[0]
-        if B > 1:
-            st = st.replace(**{f.name: torch.stack(
-                [getattr(x[2], f.name) for x in forests])
-                for f in dataclasses.fields(st)})
-        del forests
-        sel0 = sel_mod.leaf_scores(st, params).argmin(dim=-1)
-        builds = {
-            "_hist_usage": (T * L * W * (M + A),
-                            lambda: sel_mod._hist_usage(st, shapes)),
-            "_selection_feasible": (
-                T * W * (M + A),
-                lambda: sel_mod._selection_feasible(st, shapes, sel0)),
-        }
-        for build, (n, fn) in builds.items():
-            ms, outs = {}, {}
-            for form in ("dense", "scatter", "scatter", "dense"):
-                with (forced_dense if form == "dense" else forced_scatter)(
-                        sel_mod):
-                    t, outs[form] = graphed_ms(fn)
-                ms.setdefault(form, []).append(t)
-            check(torch.equal(outs["dense"], outs["scatter"]),
-                  f"select build table: {build} differs between the "
-                  f"formulations at {name}")
-            row = dict(build=build, shape=name, B=B, T=T, L=L, W=W, M=M,
-                       A=A, elements=B * n, per_scenario=n,
-                       dense_ms=float(np.mean(ms["dense"])),
-                       scatter_ms=float(np.mean(ms["scatter"])))
-            rows.append(row)
-            print(f"select build {build} at {name} (B={B}, T={T}, L={L}, "
-                  f"W={W}, M={M}, A={A}; {B * n:,} virtual elements, "
-                  f"{n:,} a scenario), device ms in a graph, dense / "
-                  f"scatter: {row['dense_ms']:.4f} / "
-                  f"{row['scatter_ms']:.4f} ({card})", flush=True)
-        del st, sel0
-        torch.cuda.empty_cache()
-    crossover = {}
-    for build in ("_hist_usage", "_selection_feasible"):
-        mine = [r for r in rows if r["build"] == build]
-        dense_won = [r["elements"] for r in mine
-                     if r["dense_ms"] <= r["scatter_ms"]]
-        scatter_won = [r["elements"] for r in mine
-                       if r["dense_ms"] > r["scatter_ms"]]
-        crossover[build] = dict(
-            dense_won_up_to=max(dense_won, default=None),
-            scatter_won_from=min(scatter_won, default=None))
-        print(f"select build {build}: the dense build won up to "
-              f"{crossover[build]['dense_won_up_to']} virtual elements, the "
-              f"scatter from {crossover[build]['scatter_won_from']}; "
-              f"select._USAGE_DENSE_LIMIT = {sel_mod._USAGE_DENSE_LIMIT}")
-    table = dict(card=card, reps=BUILD_REPS, rows=rows, crossover=crossover,
-                 limit=sel_mod._USAGE_DENSE_LIMIT)
-    if out_path:
-        with open(out_path, "w") as f:
-            json.dump(table, f, indent=1)
-    return table
+          f"n_clusters and feasibility identical on both sides of the int32 "
+          f"wall, with and without the fast path")
 
 
 def smoother_phase(gpu, cpu, card):
@@ -4398,9 +4226,7 @@ def main(argv):
     t_start = time.perf_counter()
     ab = argv[1:] if argv[:1] == ["--k1-ab"] and len(argv) in (2, 3) \
         else None
-    builds = argv[:1] == ["--select-builds"] and len(argv) in (1, 2)
-    if argv not in ([], ["--k1-guard"], ["--graph"]) and ab is None \
-            and not builds:
+    if argv not in ([], ["--k1-guard"], ["--graph"]) and ab is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     guard_only = argv == ["--k1-guard"] or ab is not None
@@ -4427,12 +4253,6 @@ def main(argv):
     print(so.with_suffix(".log").read_text().strip())
     print(so_flow.with_suffix(".log").read_text().strip())
     install_graph_notes()
-    if builds:
-        select_build_table(card, *argv[1:])
-        print(f"chip_smoke --select-builds: "
-              f"{time.perf_counter() - t_start:.1f} s in all")
-        return 0
-
     from pymht_tpu_torch.ops import gate_kernel as gk
     sms, per_sm = gk.occupancy()
     print(f"K1 occupancy: {per_sm} blocks of 256 threads per SM on {sms} "
@@ -4489,7 +4309,7 @@ def main(argv):
     stream = stream_phase(ais)
     deg = degrade_phase()
     roof = roof_phase()
-    scatter_phase(ais, card)
+    scatter_phase(ais)
     smoother_phase(res["gpu"], res["cpu"], card)
     ipm = ipm_phase(card)
     pure = pure_phase(card)

@@ -24,12 +24,12 @@ Two further solvers are kept for parity and cross-checks:
 * ``'lagrangian_pure'`` — a gather/scatter Lagrangian over ALL slots,
                           applied to the whole forest.
 
-The usage tensors have two formulations that give identical results:
-dense compares, and scatter builds that never materialise a
-[T, n_slots] tensor.  ``_USAGE_DENSE_LIMIT`` and ``_INT32_WALL`` (module
-attributes, so a test can set them small) choose by problem size.  Where
-JAX branches or exits a loop on a device value, the port reads it on the
-host (``sync.flag``); loop bodies are functions from carry to carry.
+The usage tensors are built by scatters of the leaves' slot labels.
+From ``_INT32_WALL`` elements of [T, n_slots] on (a module attribute,
+so a test can set it small) ``cluster`` and ``select_hybrid`` never
+materialise that tensor.  Where JAX branches or exits a loop on a device
+value, the port reads it on the host (``sync.flag``); loop bodies are
+functions from carry to carry.
 """
 from __future__ import annotations
 
@@ -52,27 +52,11 @@ BIG = 1e4
 K_ENUM = 4
 C_ENUM = 16
 
-# Formulation switches.  Up to _USAGE_DENSE_LIMIT virtual elements (what
-# the dense build compares: [T, L, W, M+A] over the whole batch for
-# ``_hist_usage``, [T, W, M+A] a scenario for ``_selection_feasible``)
-# they compare densely, above it they scatter.  Timed inside captured
-# graphs on an H100 (PERF.md's select-build table, ``python3
-# chip_smoke.py --select-builds``): from the coastal shape up the scatter
-# wins both builds (2.9x for ``_hist_usage`` there, 28x at the swarm's
-# 214 M); below it the two differ by at most 13 us, and each build's own
-# crossover lies elsewhere (``_hist_usage`` 1.35-5.9 M, ``_selection_
-# feasible`` under 16 K unbatched).  In the Monte-Carlo batch (256
-# scenarios of T=8) ``_hist_usage``'s scatter wins on the batch's 5.9 M
-# and ``_selection_feasible``'s dense compare on its 1,440 a scenario,
-# each by ~6 us.  One limit at 2^16 serves: the small forests keep the
-# JAX package's dense compares.  The compact columns' ``Uc`` is always a
-# scatter (its dense [T, L, W, CAP] compare lost from 1.3 M elements up,
-# and won by 8 us at most below).  Below
-# _INT32_WALL elements of [T, n_slots] ``cluster`` and ``select_hybrid``
-# take contestedness and the compact usage from the [T, n_slots] usage
-# tensor; from the wall on (strictly: T * n_slots == _INT32_WALL already
-# takes the scatter build) from min/max-target-id scatters.
-_USAGE_DENSE_LIMIT = 1 << 16
+# Below _INT32_WALL elements of [T, n_slots] ``cluster`` and
+# ``select_hybrid`` take contestedness and the compact usage from the
+# [T, n_slots] usage tensor; from the wall on (strictly: T * n_slots ==
+# _INT32_WALL already takes this side) from min/max-target-id scatters,
+# which keep a tensor of that size off the device.
 _INT32_WALL = 1 << 31
 CLUSTER_COMPACT_CAP = 2048
 
@@ -122,24 +106,13 @@ def _slot_index(state: TrackerState, shapes: TrackerShapes):
 def _hist_usage(state: TrackerState, shapes: TrackerShapes, tgt_filter=None):
     """[T, W, M+A] bool: does any live leaf of target t use radar
     measurement m (block [0, M)) or AIS message a (block [M, M+A)) at
-    window column w?  Dense compares up to _USAGE_DENSE_LIMIT virtual
-    elements over the whole batch, one scatter of the T*L*W labels per
-    family above."""
+    window column w?  One scatter of the T*L*W labels per family."""
     *lead, T, L, W = state.hist_meas.shape
     M, A = shapes.max_meas, shapes.max_ais
     dev = state.hist_meas.device
     live = state.leaf_mask
     if tgt_filter is not None:
         live = live & tgt_filter[..., None]
-    dense = math.prod(lead) * T * L * W * (M + A) <= _USAGE_DENSE_LIMIT
-    timing.BUILDS['usage_dense' if dense else 'usage_scatter'] += 1
-    if dense:
-        live4 = live[..., None, None]
-        um = ((state.hist_meas[..., None]
-               == torch.arange(1, M + 1, device=dev)) & live4).any(dim=-3)
-        ua = ((state.hist_ais[..., None]
-               == torch.arange(1, A + 1, device=dev)) & live4).any(dim=-3)
-        return torch.cat([um, ua], dim=-1)
     P = M + A
     n = T * W * P
     base = ((torch.arange(T, device=dev)[:, None, None] * W
@@ -1016,8 +989,8 @@ def select_hybrid(state: TrackerState, shapes: TrackerShapes,
     to K_ENUM targets, compact contested-slot Lagrangian for the rest.
     Takes a batch of forests too (leading scenario axes): tier 3 then
     runs where any scenario has a big cluster and is selected per
-    scenario, and the dense/scatter switches decide on one scenario's
-    size, as under ``jax.vmap``."""
+    scenario, and ``_INT32_WALL`` decides on one scenario's size, as
+    under ``jax.vmap``."""
     *lead, T, L, W = state.hist_meas.shape
     lead = tuple(lead)
     M, A = shapes.max_meas, shapes.max_ais
@@ -1346,9 +1319,7 @@ def _independent_best(state: TrackerState, shapes: TrackerShapes,
 
 def _selection_feasible(state: TrackerState, shapes: TrackerShapes, sel):
     """True iff ``sel`` uses every (window column, measurement/AIS) slot
-    at most once.  Dense compares up to _USAGE_DENSE_LIMIT virtual
-    elements, scatter-add counts above (T*W writes against T*W*(M+A)
-    compares)."""
+    at most once: a scatter-add count of the T*W selected labels."""
     *lead, T, L, W = state.hist_meas.shape
     lead = tuple(lead)
     M, A = shapes.max_meas, shapes.max_ais
@@ -1357,13 +1328,6 @@ def _selection_feasible(state: TrackerState, shapes: TrackerShapes, sel):
     act = state.tgt_mask[..., None]
     sm = torch.where(act, state.hist_meas[(*ix, sel.long())], -1)    # [T,W]
     sa = torch.where(act, state.hist_ais[(*ix, sel.long())], 0)
-    if T * W * (M + A) <= _USAGE_DENSE_LIMIT:
-        cm = (sm[..., None] == torch.arange(1, M + 1, device=dev)) \
-            .sum(dim=-3)
-        ca = (sa[..., None] == torch.arange(1, A + 1, device=dev)) \
-            .sum(dim=-3)
-        return ~((cm > 1).flatten(-2).any(dim=-1)
-                 | (ca > 1).flatten(-2).any(dim=-1))
     P = M + A
     n = W * P
     base_w = torch.arange(W, device=dev)[None, :] * P                # [1,W]

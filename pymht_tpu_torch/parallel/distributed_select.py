@@ -197,7 +197,7 @@ def distributed_lagrangian(state, shapes: TrackerShapes,
 def _dist_selection_feasible(state, shapes: TrackerShapes, sel, axis: Axis):
     """Global feasibility of a per-target selection under target
     sharding: dense local (window column, label) counts, ONE psum of the
-    two (twin of core/select._selection_feasible's dense build)."""
+    two (twin of the JAX package's ``_dist_selection_feasible``)."""
     T = state.hist_meas.shape[0]
     M, A = shapes.max_meas, shapes.max_ais
     dev = state.hist_meas.device

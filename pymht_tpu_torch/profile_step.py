@@ -51,9 +51,7 @@ one captured CUDA graph per scan (core/graph.py) under ``'lagrangian'``,
   kernels launched inside the body's span, nested loops included);
 * the program's counters per scan (``timing.COUNTERS``: selections that
   reached tier 3, exact finishes entered, their iterations, and those
-  whose certificate stayed open), and select's usage builds by dense
-  compare and by scatter since import (``timing.BUILDS``; a graphed
-  step's at its capture);
+  whose certificate stayed open);
 * a ``torch.profiler`` trace of the whole steps: device time by kernel,
   device busy time per scan and the device's idle share of the window.
   For the graphed step it also reports the device time of one replay
@@ -104,8 +102,7 @@ def _traced(prof, n, graphed) -> dict:
            "phase_sum_ms": s["phase_sum_ms"],
            "span_ms_per_scan": {k: s[f"{k}_ms"] for k in HOST_SPANS
                                 if s.get(f"{k}_ms") is not None},
-           "counters_per_scan": {k: v / n for k, v in s["counters"].items()},
-           "usage_builds": dict(timing.BUILDS)}
+           "counters_per_scan": {k: v / n for k, v in s["counters"].items()}}
     if graphed:
         out["node_runs_per_scan"] = {k: v / n for k, v in
                                      trace["node_runs"].items() if v}

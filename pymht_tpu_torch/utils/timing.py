@@ -64,11 +64,6 @@ N_STAMPS = len(STEP_PHASES) + 1
 # selections whose certificate is still open after it (core/select.py)
 COUNTERS = ('select_tier3', 'finish_entered', 'finish_iters',
             'finish_open')
-# select's slot-usage builds (core/select._hist_usage) by formulation,
-# counted on the host as each is built, since import: a captured step
-# counts once, at its capture, as its shapes fix the choice for every
-# replay
-BUILDS = dict(usage_dense=0, usage_scatter=0)
 SPANS = 1 << 16          # host spans kept, the newest
 ROWS = 1 << 13           # steps whose stamps are kept, the newest
 

@@ -269,13 +269,12 @@ def test_batch_of_one_equals_the_unbatched_step(runs):
 
 
 @pytest.mark.parametrize("method", ["lagrangian", "greedy"])
-@pytest.mark.parametrize("build", ["dense", "scatter", "hybrid"])
+@pytest.mark.parametrize("build", ["scatter", "hybrid"])
 def test_select_on_stacked_forests(runs, method, build, monkeypatch):
     """``select`` on the converging scene's grown forests, stacked,
-    against each forest alone; ``build`` forces the dense compares of
-    ``_hist_usage`` and ``_selection_feasible``, every scatter build, or
-    the scatters with contestedness still taken from the [T, n_slots]
-    usage (the large forests' path)."""
+    against each forest alone; ``build`` forces the min/max-target-id
+    scatters of the int32 wall's far side, or keeps contestedness taken
+    from the [T, n_slots] usage (the path below the wall)."""
     scenes, alone, _, _ = runs
     scans, _, _ = scenes[0]
     forests = []
@@ -285,8 +284,6 @@ def test_select_on_stacked_forests(runs, method, build, monkeypatch):
             torch.from_numpy(zz), torch.from_numpy(m),
             torch.tensor(scans[i][0], dtype=torch.float32)), None,
             SHAPES, PARAMS).state)
-    monkeypatch.setattr(tsel, "_USAGE_DENSE_LIMIT",
-                        1 << 62 if build == "dense" else 0)
     if build == "scatter":
         monkeypatch.setattr(tsel, "_INT32_WALL", 0)
     res_b = tsel.select(_stack(forests), SHAPES, PARAMS, method=method)

@@ -1,21 +1,23 @@
-"""The scatter formulations of the port's select against its dense
-formulations and against the JAX package.
+"""The scatter formulations of the port's select against the JAX
+package, and the two sides of the port's int32 wall against each other.
 
 Two kinds of forests: seeded random ones (T=8, L=8, W=5, M=12, A=4, dense
 random labels with AIS associations, one big cluster, more contested
 slots than a small cap) and the grown AIS forests of
 tests/test_torch_select_ais.py (small clusters, conflicts on AIS slots).
-The port's size switches (``_USAGE_DENSE_LIMIT``, ``_INT32_WALL``) are
-module attributes and are forced to 0 here, so shapes this small take
-the scatter builds.  Which builds the benchmark cells' own shapes take is
-checked on meta tensors, so nothing of their size is allocated.
+The port builds the slot usage by scatter at every size; the JAX package
+compares densely below its ``_USAGE_DENSE_LIMIT``, and both of its builds
+are references here.  The port's ``_INT32_WALL`` is a module attribute
+and is forced to 0 here, so shapes this small take the min/max-target-id
+scatters of the wall's far side.  The builds at the benchmark cells' own
+shapes run on meta tensors, so nothing of their size is allocated.
 
 Required: every integer and boolean output identical between the two
-builds and the JAX function (usage, contestedness, ranks, labels,
-selections, feasibility); Uc identical (it holds 0/1 only); objective,
-bound and duals within 1e-5 of the JAX package's and identical between
-the port's two builds (they run the same arithmetic on identical
-tensors).
+sides of the wall and the JAX function (usage, contestedness, ranks,
+labels, selections, feasibility); Uc identical (it holds 0/1 only);
+objective, bound and duals within 1e-5 of the JAX package's and
+identical between the port's two sides (they run the same arithmetic on
+identical tensors).
 """
 
 import json
@@ -95,9 +97,8 @@ def to_jax(tst):
 
 @pytest.fixture
 def scatter(monkeypatch):
-    """Force the port's scatter builds at any size."""
+    """Force the int32 wall's far side at any size."""
     def force():
-        monkeypatch.setattr(tsel, "_USAGE_DENSE_LIMIT", 0)
         monkeypatch.setattr(tsel, "_INT32_WALL", 0)
     return force
 
@@ -106,25 +107,23 @@ def big_filter(seed):
     return np.random.default_rng(100 + seed).random(SHAPES.max_targets) < 0.6
 
 
+@pytest.mark.parametrize("jax_build", ["dense", "scatter"])
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("filtered", [False, True])
-def test_hist_usage_builds_agree(seed, filtered, monkeypatch):
+def test_hist_usage_builds_agree(seed, filtered, jax_build, monkeypatch):
+    """The port's one build against the JAX package's dense compares (its
+    default at these sizes) and its scatter (its limit at 0)."""
+    if jax_build == "scatter":
+        monkeypatch.setattr(jsel, "_USAGE_DENSE_LIMIT", 0)
     tst = random_forest(seed)
     filt = big_filter(seed) if filtered else None
     tf = None if filt is None else torch.from_numpy(filt)
-    dense = tsel._hist_usage(tst, SHAPES, tf)
+    use = tsel._hist_usage(tst, SHAPES, tf)
     want = np.asarray(jsel._hist_usage(
         to_jax(tst), JSHAPES, None if filt is None else jnp.asarray(filt)))
-    monkeypatch.setattr(tsel, "_USAGE_DENSE_LIMIT", 0)
-    monkeypatch.setattr(jsel, "_USAGE_DENSE_LIMIT", 0)
-    scat = tsel._hist_usage(tst, SHAPES, tf)
-    want_scat = np.asarray(jsel._hist_usage(
-        to_jax(tst), JSHAPES, None if filt is None else jnp.asarray(filt)))
-    assert dense.dtype == scat.dtype == torch.bool
-    assert dense.any() and not dense.all()
-    np.testing.assert_array_equal(dense.numpy(), want)
-    np.testing.assert_array_equal(scat.numpy(), want)
-    np.testing.assert_array_equal(want_scat, want)
+    assert use.dtype == torch.bool
+    assert use.any() and not use.all()
+    np.testing.assert_array_equal(use.numpy(), want)
 
 
 def test_selection_feasible_builds_agree(monkeypatch):
@@ -142,17 +141,15 @@ def test_selection_feasible_builds_agree(monkeypatch):
             hm[:] = torch.arange(1, 9, dtype=torch.int32)[:, None, None]
             tst = tst.replace(hist_meas=hm,
                               hist_ais=torch.zeros_like(tst.hist_ais))
-        dense = bool(tsel._selection_feasible(tst, SHAPES, sel))
+        got = bool(tsel._selection_feasible(tst, SHAPES, sel))
         want = bool(jsel._selection_feasible(to_jax(tst), JSHAPES,
                                              jnp.asarray(sel.numpy())))
         with monkeypatch.context() as m:
-            m.setattr(tsel, "_USAGE_DENSE_LIMIT", 0)
             m.setattr(jsel, "_USAGE_DENSE_LIMIT", 0)
-            scat = bool(tsel._selection_feasible(tst, SHAPES, sel))
             want_scat = bool(jsel._selection_feasible(
                 to_jax(tst), JSHAPES, jnp.asarray(sel.numpy())))
-        assert dense == scat == want == want_scat, seed
-        seen.add(dense)
+        assert got == want == want_scat, seed
+        seen.add(got)
     assert seen == {True, False}
 
 
@@ -244,7 +241,6 @@ def test_select_hybrid_builds_agree_on_random_forests(cap, monkeypatch):
         dense = tsel.select_hybrid(tst, SHAPES, PARAMS, contested_cap=cap)
         want = jax.device_get(hyb_j(to_jax(tst)))
         with monkeypatch.context() as m:
-            m.setattr(tsel, "_USAGE_DENSE_LIMIT", 0)
             m.setattr(tsel, "_INT32_WALL", 0)
             scat = tsel.select_hybrid(tst, SHAPES, PARAMS, contested_cap=cap)
         n_cont = tsel._contested_leaf_usage(tst, SHAPES, tst.tgt_mask,
@@ -317,55 +313,48 @@ def test_contested_leaf_usage_builds_agree(seed, request):
 
 @pytest.mark.parametrize("cell", ["swarm1000", "coastal100"])
 def test_usage_builds_at_the_cells_shapes(cell):
-    """The size rule at each benchmark cell's own shapes, on meta tensors
-    (no memory behind them): ``_hist_usage`` and ``_selection_feasible``
-    take the scatter builds at both cells (PERF.md's select-build table:
-    the scatter wins there by 2.9x and 28x, and 1.2x and 3.7x), and
-    ``_hist_usage``'s is counted so; the compact columns' ``Uc``, always
-    a scatter, builds there too."""
+    """``_hist_usage``, the compact columns' ``Uc`` and
+    ``_selection_feasible`` build at each benchmark cell's own shapes,
+    on meta tensors (no memory behind them)."""
     cfg = json.loads((BENCH / "configs" / f"{cell}.json").read_text())
     shapes = TrackerShapes(**cfg["shapes"])
     st = empty_state(shapes, PARAMS, "meta")
     T, L, W = st.hist_meas.shape
     P = shapes.max_meas + shapes.max_ais
     cap = min(256, W * P)                  # select_hybrid's contested_cap
-    b0 = dict(tsel.timing.BUILDS)
     usage = tsel._hist_usage(st, shapes)
-    assert {k: tsel.timing.BUILDS[k] - b0[k] for k in b0} \
-        == dict(usage_dense=0, usage_scatter=1)
     Uc = tsel._contested_leaf_usage(st, shapes, st.tgt_mask, cap, usage)[0]
     assert usage.shape == (T, W, P) and Uc.shape == (T, L, cap)
-    assert T * W * P > tsel._USAGE_DENSE_LIMIT   # _selection_feasible's
     sel = torch.zeros(T, dtype=torch.int64, device="meta")
     assert tsel._selection_feasible(st, shapes, sel).shape == ()
 
 
 @pytest.mark.parametrize("B", [1, 256])
 def test_usage_build_of_a_batch_counts_the_batch(B):
-    """``_hist_usage`` holds the limit against the whole batch's virtual
-    elements: the Monte-Carlo configuration (T=8, L=16, W=6, M=28, A=2:
-    23,040 a scenario) compares densely alone and scatters in its batch
-    of 256 (PERF.md's select-build table: 0.052 against 0.058 ms), on
-    meta tensors."""
-    shapes = TrackerShapes(max_targets=8, max_leaves=16, max_meas=28,
-                           max_ais=2, window=6, max_prelim=8,
-                           max_initiators=28)
-    st = empty_state(shapes, PARAMS, "meta")
-    if B > 1:
-        st = st.replace(**{k: v.expand(B, *v.shape)
-                           for k, v in vars(st).items()})
-    b0 = dict(tsel.timing.BUILDS)
-    usage = tsel._hist_usage(st, shapes)
-    assert usage.shape == (B,) * (B > 1) + (8, 6, 30)
-    want = "usage_scatter" if B > 1 else "usage_dense"
-    assert {k: tsel.timing.BUILDS[k] - b0[k] for k in b0} \
-        == {k: int(k == want) for k in b0}
+    """``_hist_usage`` and ``_selection_feasible`` on a stacked batch of
+    ``B`` seeded forests (each scenario's block of the scatter offset by
+    its index) equal each forest alone."""
+    forests = [random_forest(seed) for seed in range(B)]
+    rng = np.random.default_rng(B)
+    sels = torch.from_numpy(rng.integers(0, SHAPES.max_leaves,
+                                         (B, SHAPES.max_targets)))
+    st = forests[0].replace(**{k: torch.stack([vars(f)[k] for f in forests])
+                               for k in vars(forests[0])})
+    usage = tsel._hist_usage(st, SHAPES)
+    feas = tsel._selection_feasible(st, SHAPES, sels)
+    assert usage.shape == (B, SHAPES.max_targets, SHAPES.window,
+                           SHAPES.max_meas + SHAPES.max_ais)
+    assert feas.shape == (B,)
+    for b, f in enumerate(forests):
+        assert torch.equal(usage[b], tsel._hist_usage(f, SHAPES)), b
+        assert bool(feas[b]) == bool(
+            tsel._selection_feasible(f, SHAPES, sels[b])), b
 
 
 def test_select_on_grown_ais_forests_with_scatter_builds(forests, scatter):
     """The whole ``select`` (fast path, clusters, tiers 1-3) on grown
-    forests with AIS labels: scatter builds against the dense ones and
-    against the JAX package."""
+    forests with AIS labels: the int32 wall's far side against its near
+    side and against the JAX package."""
     shapes, params = port(AIS_JSHAPES), port(AIS_JPARAMS)
     sel_j = jax.jit(lambda st: jsel.select(st, AIS_JSHAPES, AIS_JPARAMS,
                                            method='lagrangian'))
@@ -381,7 +370,7 @@ def test_select_on_grown_ais_forests_with_scatter_builds(forests, scatter):
 
 @pytest.mark.parametrize("fn", ["cluster", "select_hybrid"])
 def test_int32_wall_boundary_takes_the_scatter_build(fn, monkeypatch):
-    """T * n_slots == _INT32_WALL is already past the dense build (the
+    """T * n_slots == _INT32_WALL is already on the wall's far side (the
     JAX package's inclusive test would index out of int32 range there);
     one element less is not."""
     tst = random_forest(0)
@@ -404,4 +393,5 @@ def test_int32_wall_boundary_takes_the_scatter_build(fn, monkeypatch):
 
 def test_dense_only_guard_is_gone():
     assert not hasattr(tsel, "_dense_only")
-    assert tsel._INT32_WALL == 1 << 31 and tsel._USAGE_DENSE_LIMIT == 1 << 16
+    assert not hasattr(tsel, "_USAGE_DENSE_LIMIT")
+    assert tsel._INT32_WALL == 1 << 31

@@ -388,29 +388,6 @@ def test_finish_spans_and_summary(finish_forests, tracer):
         == dict.fromkeys(timing.COUNTERS, 0)
 
 
-def test_usage_build_counters(finish_forests, monkeypatch):
-    """``timing.BUILDS`` counts select's usage builds by formulation on
-    the host: cluster's and select_hybrid's ``_hist_usage``, two on a
-    forest the tiers close, dense at its size and scattered with the
-    limit forced to 0; the finish's columns add none (they scatter from
-    the labels, with no usage tensor)."""
-    (dense, *rest_d), closed, _ = finish_forests
-
-    def builds(st, shapes, params, kw):
-        b0 = dict(timing.BUILDS)
-        res, n = _select_counts(st, shapes, params, kw)
-        return res, n, {k: timing.BUILDS[k] - b0[k] for k in b0}
-
-    _, _, b = builds(*closed)
-    assert b == dict(usage_dense=2, usage_scatter=0)
-    monkeypatch.setattr(tsel, "_USAGE_DENSE_LIMIT", 0)
-    _, _, b = builds(*closed)
-    assert b == dict(usage_dense=0, usage_scatter=2)
-    _, n, b = builds(dense, *rest_d)
-    assert n["finish_entered"] == 1
-    assert b == dict(usage_dense=0, usage_scatter=2)
-
-
 @pytest.mark.cuda
 def test_card_finish_node_runs(card, finish_forests):
     """Captured on the card, the finish's IF node and its search loop count
