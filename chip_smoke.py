@@ -4,13 +4,15 @@
     python3 chip_smoke.py              # from the root of the repository
     python3 chip_smoke.py --k1-guard   # phases 1-3 only
     python3 chip_smoke.py --graph      # phases 1-2, 4, 4b, 5 and 5b only
+    python3 chip_smoke.py --enum       # phases 1-2 and 3b only
     python3 chip_smoke.py --k1-ab OLD/gate_score.cu [OUT.json]  # 1-3, a/b
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: torch's device name and nvidia-smi's name and power limit;
-2. build: K1 (csrc/gate_score.cu) and the conditional nodes
-   (csrc/graph_flow.cu) compiled by nvcc for sm_90a, together;
+2. build: K1 (csrc/gate_score.cu), the conditional nodes
+   (csrc/graph_flow.cu) and select's tier-2 kernel (csrc/enum_small.cu)
+   compiled by nvcc for sm_90a, together;
 3. kernel: K1's seven outputs against its plain torch twin on the card,
    at the bench shape (4096 leaves x 512 measurements), at every other
    shape a later phase launches it at (2048 x 512 after degrade(),
@@ -37,6 +39,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    file OLD (an earlier gate_score.cu, built beside this one) against
    this tree's and its plan variants at the six shapes, in turns, and
    writes them to OUT.json if named;
+3b. enum: select's tier-2 kernel (csrc/enum_small.cu) on the buckets of
+   a real scan of the swarm benchmark's scene (512 buckets) and of
+   bench.py's radar-only scene (the coastal cell's shapes, 64 buckets),
+   each the ninth scan after eight graphed ones: bit for bit the twin's
+   ``(best, val)`` (``select._enum_planes``; the largest value error and
+   the buckets that differ are reported), one launch per call, the
+   launches and non-empty buckets per graphed scan (the counters
+   ``enum_calls`` and ``enum_buckets``, which the kernel adds on the
+   device); its device time alone, one wrapper call and the twin, against
+   its byte bound (``--enum`` runs phases 1-2 and this).  The main-path
+   phases below also read tier 2's launches from the device around their
+   card runs, as they read K1's: at most one a selection, and as many
+   graphed as eagerly;
 4. slice: bench.py's seeded 100-target scene (T=128, L=32, M=512, W=7)
    stepped through ``Tracker(method='lagrangian', use_ais=False)`` on the
    card, with K1's launch count read around that run, then the same
@@ -1035,6 +1050,23 @@ def guard_phase(card):
           f"{card})", flush=True)
 
 
+def tier2_calls():
+    """Tier 2's kernel launches on the card so far, as the device counts
+    them (block 0 of each adds 1 to the program's counter ``enum_calls``;
+    waits for the device).  A phase's count is the difference around its
+    card run, as K1's ``gk.launches`` is zeroed before it: at most one a
+    selection, none where select's fast path skips tier 2."""
+    from pymht_tpu_torch.utils import timing
+    return timing.counters("cuda")["enum_calls"]
+
+
+def check_tier2(what, launches, selections):
+    check(launches <= selections, f"{what}: tier 2's kernel launched "
+                                  f"{launches} times in {selections} "
+                                  f"selections")
+    return launches
+
+
 @contextlib.contextmanager
 def noting_k1_launches(gk):
     """Inside the block, every K1 launch leaves its arguments in the list
@@ -1219,8 +1251,10 @@ def slice_phase():
     shapes, params, scans, sim_list, seeds = bench_scene()
 
     gk.launches = gk.launches_pregate = 0
+    e0 = tier2_calls()
     gpu, gpu_outs, wall = run_tracker("cuda", shapes, params, scans, seeds)
     launches = gk.launches
+    tier2 = check_tier2("slice", tier2_calls() - e0, len(scans))
     check(launches == len(scans) and gk.launches_pregate == 0,
           f"K1 launched {launches} times over {len(scans)} scans")
     check_run(gpu_outs, "slice")
@@ -1228,7 +1262,7 @@ def slice_phase():
     check_card_against_cpu(gpu, gpu_outs, cpu, cpu_outs, "slice")
     m = quality(gpu, sim_list, params, "slice", MIN_COVERAGE, MAX_RMS)
     grown = grow_makes_no_host_sync(gpu, scans[-1], [])
-    return dict(launches=launches,
+    return dict(launches=launches, tier2_launches=tier2,
                 ms_per_scan=1e3 * float(np.median(wall[2:])),
                 syncs=gpu.host_syncs, n_scans=len(scans), metrics=m,
                 gpu=gpu, cpu=cpu, cpu_outs=cpu_outs, grown=grown)
@@ -1283,9 +1317,11 @@ def ais_phase():
     kw = dict(use_ais=True, groups=groups, mmsi=mmsi)
 
     gk.launches = gk.launches_pregate = 0
+    e0 = tier2_calls()
     gpu, gpu_outs, wall = run_tracker("cuda", shapes, params, scans, seeds,
                                       **kw)
     launches = gk.launches
+    tier2 = check_tier2("AIS", tier2_calls() - e0, len(scans))
     check(launches == len(scans) and gk.launches_pregate == 0,
           f"AIS: K1 launched {launches} times over {len(scans)} scans")
     check_run(gpu_outs, "AIS")
@@ -1309,9 +1345,11 @@ def ais_phase():
     shapes_p = dataclasses.replace(shapes, radar_cand_width=PREGATE_KM)
     short = scans[:PREGATE_SCANS]
     gk.launches = gk.launches_pregate = 0
+    e0 = tier2_calls()
     gpu_p, gpu_p_outs, _ = run_tracker("cuda", shapes_p, params, short,
                                        seeds, **kw)
     launches_p = gk.launches_pregate
+    tier2_p = check_tier2("pre-gate", tier2_calls() - e0, len(short))
     check(launches_p == len(short) and gk.launches == len(short),
           f"pre-gate: K1's per-target entry point launched {launches_p} "
           f"times over {len(short)} scans ({gk.launches} launches in all)")
@@ -1326,6 +1364,7 @@ def ais_phase():
           f"every gated measurement is among a target's {PREGATE_KM} "
           f"nearest)")
     return dict(launches=launches, launches_pregate=launches_p,
+                tier2_launches=tier2, tier2_launches_pregate=tier2_p,
                 ms_per_scan=1e3 * float(np.median(wall[2:])),
                 syncs=gpu.host_syncs, n_scans=len(scans),
                 n_scans_pregate=len(short), metrics=m, fused=fused,
@@ -1578,8 +1617,9 @@ def graph_runs(scene, degrade_at=None, method="lagrangian", groups=(),
     before scan ``degrade_at`` in both; with ``groups`` (scan i's AIS
     messages, with the seeds' ``mmsi``) through ``Tracker(use_ais=True)``.
     Returns a dict of both runs' outputs, walls and host reads per scan,
-    K1 launches (both entry points, and the per-target one alone) and
-    condition-kernel runs, and the trackers."""
+    K1 launches (both entry points, and the per-target one alone),
+    tier 2's launches (as the card counts them) and condition-kernel runs,
+    and the trackers."""
     import torch
     from pymht_tpu_torch import sync
     from pymht_tpu_torch.kernels import graph_flow
@@ -1593,6 +1633,7 @@ def graph_runs(scene, degrade_at=None, method="lagrangian", groups=(),
         outs, walls, reads = [], [], []
         gk.launches = gk.launches_pregate = 0
         graph_flow.reset_runs()
+        e0 = tier2_calls()
         for i, s in enumerate(scans):
             if i == degrade_at:
                 check(tr.degrade(), "graph: degrade() did not shrink the beam")
@@ -1607,7 +1648,8 @@ def graph_runs(scene, degrade_at=None, method="lagrangian", groups=(),
         run[form] = dict(tracker=tr, outs=outs, walls=walls, reads=reads,
                          launches=gk.launches,
                          launches_pregate=gk.launches_pregate,
-                         cond_runs=graph_flow.runs())
+                         cond_runs=graph_flow.runs(),
+                         tier2=tier2_calls() - e0)
     return run
 
 
@@ -1772,6 +1814,9 @@ def graph_phase(res, card):
           == gr["reads"], f"graph: host reads per scan {gr['reads']}")
     check(gr["launches"] == n, f"graph: K1 launched {gr['launches']} times "
                                f"in {n} replays")
+    check(check_tier2("graph", gr["tier2"], n) == eg["tier2"],
+          f"graph: tier 2's kernel launched {gr['tier2']} times graphed, "
+          f"{eg['tier2']} times eagerly")
     (g,) = gr["tracker"]._graphs.values()
     check(g.replays == n, f"graph: {g.replays} replays for {n} scans")
     pool = g.pool_bytes()
@@ -1801,6 +1846,7 @@ def graph_phase(res, card):
         return 1e3 * float(np.median(walls[2:]))
     out = dict(
         launches=gr["launches"], cond_runs=gr["cond_runs"], n_scans=n,
+        tier2_launches=gr["tier2"],
         stepped_ms={k: ms(run[k]["walls"]) for k in run},
         reads_per_scan={k: float(np.mean(run[k]["reads"])) for k in run},
         streamed_ms={k: 1e3 * float(np.median(v)) / S
@@ -1843,8 +1889,9 @@ def graph_config(what, run, others, pregate=False, feasible=True):
     the eager card run and to each of ``others`` ({name: outputs}),
     outputs and final states within GRAPH_RTOL / GRAPH_ATOL of eager, at
     most one host read, one replay and one K1 launch per scan (through
-    the per-target entry point when ``pregate``).  Returns its numbers:
-    stepped ms/scan both ways, reads, launches, condition-kernel runs,
+    the per-target entry point when ``pregate``), and as many tier-2
+    launches graphed as eagerly.  Returns its numbers: stepped ms/scan
+    both ways, reads, launches (K1's and tier 2's), condition-kernel runs,
     pool bytes, capture seconds, and the device ms of one replay (CUDA
     events, ``profile_step``'s reading)."""
     from pymht_tpu_torch.profile_step import _replay_device_ms
@@ -1865,6 +1912,9 @@ def graph_config(what, run, others, pregate=False, feasible=True):
     check(gr["launches"] == n and gr["launches_pregate"] == n * pregate,
           f"{what}: K1 launched {gr['launches']} times "
           f"({gr['launches_pregate']} per target) in {n} replays")
+    check(check_tier2(what, gr["tier2"], n) == eg["tier2"],
+          f"{what}: tier 2's kernel launched {gr['tier2']} times graphed, "
+          f"{eg['tier2']} times eagerly")
     (g,) = gr["tracker"]._graphs.values()
     check(g.replays == n, f"{what}: {g.replays} replays for {n} scans")
 
@@ -1873,6 +1923,7 @@ def graph_config(what, run, others, pregate=False, feasible=True):
     return dict(
         n_scans=n, launches=gr["launches"],
         launches_pregate=gr["launches_pregate"], cond_runs=gr["cond_runs"],
+        tier2_launches=gr["tier2"],
         stepped_ms={k: ms(run[k]["walls"]) for k in run},
         reads_per_scan={k: float(np.mean(run[k]["reads"])) for k in run},
         pool_bytes=g.pool_bytes(), capture_s=g.capture_s,
@@ -2594,9 +2645,11 @@ def batched_phase(what, scene, batch, picks, on_cpu, km=0):
     gk.launches = gk.launches_pregate = 0
     graph_flow.reset_runs()
     n_sync = sync.count
+    e0 = tier2_calls()
     with noting_k1_launches(gk) as noted_g:
         state_b, xs, ms = mc.run_batch(sc, shapes, params)
     launches, launches_p = gk.launches, gk.launches_pregate
+    tier2 = check_tier2(what, tier2_calls() - e0, S)
     reads = sync.count - n_sync
     torch.cuda.synchronize()
     cond_runs = graph_flow.runs()
@@ -2683,7 +2736,8 @@ def batched_phase(what, scene, batch, picks, on_cpu, km=0):
           f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
           f"bytes, by {bound['bound_by']}); max |err| {err:.3g} "
           f"({card_line()})", flush=True)
-    return dict(launches=launches, n_scans=S, ms_per_scan=ms_per_scan,
+    return dict(launches=launches, tier2_launches=tier2, n_scans=S,
+                ms_per_scan=ms_per_scan,
                 eager_ms_per_scan=eager_ms, reads_per_scan=reads / S,
                 eager_reads_per_scan=eager_reads, peak_gib=peak_gib,
                 max_err=err, quality=q, **graphed, **times,
@@ -2913,6 +2967,7 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
         setattr(sel_mod, solver, noting)
     gk.launches = gk.launches_pregate = 0
     graph_flow.reset_runs()
+    e0 = tier2_calls()
     try:
         with noting_k1_launches(gk) as noted:
             st_b, ist_b, outs, reads = step_batch(bs, step, scans, kept=kept)
@@ -2920,6 +2975,7 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
         if solver:
             setattr(sel_mod, solver, real)
     launches, launches_p = gk.launches, gk.launches_pregate
+    tier2 = check_tier2(what, tier2_calls() - e0, S)
     torch.cuda.synchronize()
     check(launches == S and launches_p == S,
           f"{what}: K1 launched {launches} times ({launches_p} through the "
@@ -3024,8 +3080,8 @@ def scene_batch_phase(what, bs, method, picks, cpu_batch=None, km=0,
           f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
           f"bytes, by {bound['bound_by']}); max |err| {err:.3g} "
           f"({card_line()})", flush=True)
-    return dict(launches=launches, n_scans=S, ms_per_scan=ms_per_scan,
-                eager_ms_per_scan=eager_ms,
+    return dict(launches=launches, tier2_launches=tier2, n_scans=S,
+                ms_per_scan=ms_per_scan, eager_ms_per_scan=eager_ms,
                 reads_per_scan=float(np.mean(reads)),
                 eager_reads_per_scan=eager_reads, peak_gib=peak_gib,
                 max_err=err, **numbers, **times, bound_ms=bound["bound_ms"],
@@ -3697,6 +3753,158 @@ def sharded2_phase(s1, ckpt_path, card):
 
 
 # ----------------------------------------------------------------------
+# enum phase: select's tier-2 kernel (csrc/enum_small.cu)
+# ----------------------------------------------------------------------
+
+ENUM_SCANS = 8               # scans stepped before the scan whose buckets
+#                              are held to the twin
+
+
+@contextlib.contextmanager
+def noting_enum_calls(ek):
+    """Inside the block, every eager call of tier 2's kernel leaves copies
+    of its arguments in the list this yields."""
+    import torch
+    noted, real = [], ek.enum_small
+
+    def noting(*a):
+        if not torch.cuda.is_current_stream_capturing():
+            noted.append([t.clone() if hasattr(t, "clone") else t
+                          for t in a])
+        return real(*a)
+
+    ek.enum_small = noting
+    try:
+        yield noted
+    finally:
+        ek.enum_small = real
+
+
+def enum_scene_buckets(what, shapes, params, scans, seeds, groups=(),
+                       mmsi=None):
+    """A Tracker on the card (AIS on where ``groups`` are given) stepped
+    through ENUM_SCANS scans as captured graphs, then the next scan through
+    the eager ``scan_step``: (tier 2's arguments in that scan, the counter
+    ``enum_buckets`` per graphed scan, tier 2's launches per graphed
+    scan, both as the card counts them)."""
+    from pymht_tpu_torch import Tracker
+    from pymht_tpu_torch.ops import enum_kernel as ek
+    from pymht_tpu_torch.utils import timing
+    tr = Tracker(shapes, params, method="lagrangian", use_ais=bool(groups),
+                 device="cuda")
+    tr.pre_initialize(scans[0].time - params.radar_period, seeds, mmsi=mmsi)
+    c0 = timing.counters("cuda")
+    for i in range(ENUM_SCANS):
+        tr.add_measurement_list(scans[i].time, scans[i].measurements,
+                                ais_messages=list(groups[i])
+                                if i < len(groups) else [])
+    c1 = timing.counters("cuda")
+    filled = (c1["enum_buckets"] - c0["enum_buckets"]) / ENUM_SCANS
+    launched = check_tier2(f"enum, {what}", c1["enum_calls"]
+                           - c0["enum_calls"], ENUM_SCANS) / ENUM_SCANS
+    with noting_enum_calls(ek) as noted:
+        eager_step(tr, scans[ENUM_SCANS], list(groups[ENUM_SCANS])
+                   if ENUM_SCANS < len(groups) else ())
+    check(len(noted) == 1, f"enum, {what}: the eager scan called tier 2's "
+                           f"kernel {len(noted)} times, not once")
+    return noted[0], filled, launched
+
+
+def enum_bound(inp):
+    """Bytes tier 2's kernel needs on these buckets: every bucket's member
+    row read and its (index, value) written, and of each member of a
+    non-empty bucket its C scores, leaf ids and slot rows; with that at
+    3.35 TB/s, and the same were every bucket full."""
+    cand_f, _, slots, members, _ = inp
+    T, C = cand_f.shape[-2:]
+    W2 = slots.shape[-1]
+    B, K = members.shape[-2:]
+    n = members[..., :1].numel()
+    per_member = C * (4 + 8 + 8 * W2)
+    k = int((members < T).sum())
+    nbytes = n * (K * 8 + 12) + k * per_member
+    full = n * (K * 8 + 12 + K * per_member)
+    return dict(bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+                full_bytes=full, full_bound_ms=1e3 * full / HBM_BYTES_PER_S,
+                members=k)
+
+
+def enum_phase(card):
+    """Tier 2's kernel on the buckets of real scans, the swarm benchmark's
+    scene (T=1024, 512 buckets) and bench.py's radar-only scene (the
+    coastal cell's shapes, T=128, 64 buckets): bit for bit the twin's
+    ``(best, val)`` (the largest |difference| of the values where both
+    are finite, and the buckets whose index or infinities differ, are
+    measured and reported), one launch a call, the launches and the
+    non-empty buckets per graphed scan as the card counts them; then its
+    device time alone (back-to-back launches), one wrapper call and the
+    twin (``select._enum_planes``: the C^4 planes), against its byte
+    bound."""
+    import torch
+    from pymht_tpu_torch.core import select as tsel
+    from pymht_tpu_torch.ops import enum_kernel as ek
+    from pymht_tpu_torch.utils import scenes, timing
+    sw = scenes.swarm_scene(n_scans=ENUM_SCANS + 1)
+    shapes, params, scans, _, seeds = scenes.bench_scene(
+        n_scans=ENUM_SCANS)
+    runs = {"swarm": enum_scene_buckets(
+                "swarm", sw.shapes, sw.params, sw.scans, sw.seeds,
+                sw.ais_groups, sw.mmsi),
+            "coastal": enum_scene_buckets("coastal", shapes, params, scans,
+                                          seeds)}
+    out = {}
+    for what, (inp, filled, launched) in runs.items():
+        c0 = timing.counters("cuda")
+        got = ek.enum_small(*inp)
+        c1 = timing.counters("cuda")
+        ref = tsel._enum_planes(*inp)
+        torch.cuda.synchronize()
+        check(c1["enum_calls"] - c0["enum_calls"] == 1,
+              f"enum, {what}: {c1['enum_calls'] - c0['enum_calls']} "
+              f"launches a call, as the card counts them")
+        both = torch.isfinite(got[1]) & torch.isfinite(ref[1])
+        err = float((got[1] - ref[1]).abs()[both].max()) if both.any() \
+            else 0.0
+        differ = int(((got[0] != ref[0])
+                      | (torch.isfinite(got[1]) != torch.isfinite(ref[1]))
+                      | (got[1].view(torch.int32)
+                         != ref[1].view(torch.int32))).sum())
+        check(differ == 0 and err == 0.0,
+              f"enum, {what}: the kernel's (best, val) differ from the "
+              f"twin's on {differ} buckets (largest |value error| {err})")
+        check(launched > 0, f"enum, {what}: no tier-2 launch in "
+                            f"{ENUM_SCANS} graphed scans")
+        r = dict(buckets=inp[3].shape[-2], C=inp[0].shape[-1],
+                 W2=inp[2].shape[-1], max_abs_err=err,
+                 differing_buckets=differ, launches_per_scan=launched,
+                 filled_per_scan=filled,
+                 filled_checked=int((inp[3][..., 0] < inp[0].shape[-2])
+                                    .sum()),
+                 feasible=int((torch.isfinite(got[1])
+                               & (inp[3][..., 0] < inp[0].shape[-2])).sum()),
+                 kernel_ms=burst_ms(lambda _: ek.enum_small(*inp), [None]),
+                 ms=median_ms(lambda: ek.enum_small(*inp)),
+                 plain_ms=median_ms(lambda: tsel._enum_planes(*inp)),
+                 **enum_bound(inp))
+        out[what] = r
+        print(f"tier 2 kernel, {what} (B={r['buckets']}, C={r['C']}, "
+              f"W2={r['W2']}; {r['filled_per_scan']:.2f} non-empty buckets "
+              f"and {launched:.3f} launches per graphed scan over "
+              f"{ENUM_SCANS} scans, {r['filled_checked']} in the checked "
+              f"scan holding {r['members']} members, {r['feasible']} "
+              f"buckets with a feasible combination): against the twin, "
+              f"{differ} buckets differ and the largest |value error| is "
+              f"{err}; device time "
+              f"alone {1e3 * r['kernel_ms']:.3f} us (200 back to back, "
+              f"median of 7), one wrapper call {1e3 * r['ms']:.3f} us, the "
+              f"twin's planes {1e3 * r['plain_ms']:.3f} us (median of 30); "
+              f"bound {1e3 * r['bound_ms']:.3f} us ({r['bytes']} bytes at "
+              f"3.35 TB/s; {1e3 * r['full_bound_ms']:.3f} us were every "
+              f"bucket full) ({card})")
+    return out
+
+
+# ----------------------------------------------------------------------
 # swarm phase (BASELINE config 5 at the JAX script's width)
 # ----------------------------------------------------------------------
 
@@ -3732,6 +3940,7 @@ def swarm_phase(card):
     knobs = dict(bench_swarm.DEFAULTS, n_scans=SWARM_SCANS,
                  oracle_limit=SWARM_ORACLE_LIMIT)
     gk.launches = gk.launches_pregate = 0
+    e0 = tier2_calls()
     t0 = time.perf_counter()
     with noting_k1_launches(gk) as noted:
         res, outs = bench_swarm.run(torch.device("cuda"), knobs, scene)
@@ -3740,6 +3949,7 @@ def swarm_phase(card):
     # a warm-up and 3 timed streams of 8 scans, then the oracle's forest:
     # 7 scans streamed and one grown
     runs = 4 * SWARM_SCANS + SWARM_SCANS
+    tier2 = check_tier2("swarm", tier2_calls() - e0, runs)
     check(launches == launches_sub == runs,
           f"swarm: K1's per-target entry point launched {launches_sub} "
           f"times ({launches} in all) over {runs} scans")
@@ -3815,8 +4025,9 @@ def swarm_phase(card):
           f"us; bound {1e3 * bound['bound_ms']:.3f} us ({bound['bytes']} "
           f"bytes, by {bound['bound_by']}); max |err| {max(err, e):.3g} "
           f"({card})")
-    return dict(res=res, launches=launches, n_scans=runs,
-                max_err=max(err, e), shape=(T * L, Km, M), **times, **bound)
+    return dict(res=res, launches=launches, tier2_launches=tier2,
+                n_scans=runs, max_err=max(err, e), shape=(T * L, Km, M),
+                **times, **bound)
 
 
 # ----------------------------------------------------------------------
@@ -4052,13 +4263,16 @@ def scripts_phase(card, workdir, res):
 
 def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
                  gaps, mc, mcb, mca, mcp, mci, s1, s2, swarm, scripts,
-                 graph, graph_cfg):
+                 graph, graph_cfg, enum):
     """The line before the card's: K1's two entry points, each with its
     launches on the main paths (counted from 0 around each phase's run),
     the shapes it ran at, its largest |err| against the twin, its times
-    and its bound; and graph_flow.cu's condition kernel, with its runs on
-    the graphed runs of the graph phases (read from the device's
-    count)."""
+    and its bound; graph_flow.cu's condition kernel, with its runs on
+    the graphed runs of the graph phases (read from the device's count);
+    and select's tier-2 kernel, with its launches on the main paths as
+    the card counts them (around each phase's card run), its error
+    against the twin and its times at the swarm's and the coastal shape
+    (the enum phase)."""
     def script_shapes(entry):
         seen = {}
         for name, shapes in scripts["launch_shapes"].items():
@@ -4216,7 +4430,41 @@ def kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof, ipm, pure, ckpt,
                        "stream_reads") if key in r}}
             for name, r in graph_cfg.items()},
         "batches": batches}
-    return {"kernels": [shared, sub, cond]}
+    tier2_phases = [
+        ("slice", res["tier2_launches"], res["n_scans"]),
+        ("ais", ais["tier2_launches"], ais["n_scans"]),
+        ("pre-gate", ais["tier2_launches_pregate"], PREGATE_SCANS),
+        ("graph", graph["tier2_launches"], graph["n_scans"]),
+        *((f"graph {name}", r["tier2_launches"], r["n_scans"])
+          for name, r in graph_cfg.items()),
+        ("mc", mc["tier2_launches"], mc["n_scans"]),
+        ("mc-bench", mcb["tier2_launches"], mcb["n_scans"]),
+        ("mc-ais", mca["tier2_launches"], mca["n_scans"]),
+        ("mc-pregate", mcp["tier2_launches"], mcp["n_scans"]),
+        ("mc-ipm", mci["tier2_launches"], mci["n_scans"]),
+        ("swarm", swarm["tier2_launches"], swarm["n_scans"])]
+    tier2 = {
+        "name": "enum_small",
+        "route": "cuda",
+        "source": "pymht_tpu_torch/csrc/enum_small.cu",
+        "replaces": "none: XLA's enumeration of pymht_tpu/core/select.py "
+                    "_enum_small_clusters (no Pallas kernel)",
+        "launches": sum(k for _, k, _ in tier2_phases),
+        "phases": [dict(phase=n, launches=k, scans=m)
+                   for n, k, m in tier2_phases],
+        # over the enum phase's real swarm and coastal scans: the largest
+        # |value error| where both are finite, and the buckets that differ
+        "max_abs_err": max(r["max_abs_err"] for r in enum.values()),
+        "differing_buckets": sum(r["differing_buckets"]
+                                 for r in enum.values()),
+        "ms": enum["swarm"]["ms"],
+        "plain_ms": enum["swarm"]["plain_ms"],
+        "bound_ms": enum["swarm"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "kernel_ms": enum["swarm"]["kernel_ms"],
+        "shapes": enum}
+    return {"kernels": [shared, sub, cond, tier2]}
 
 
 def main(argv):
@@ -4226,7 +4474,8 @@ def main(argv):
     t_start = time.perf_counter()
     ab = argv[1:] if argv[:1] == ["--k1-ab"] and len(argv) in (2, 3) \
         else None
-    if argv not in ([], ["--k1-guard"], ["--graph"]) and ab is None:
+    if argv not in ([], ["--k1-guard"], ["--graph"], ["--enum"]) \
+            and ab is None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     guard_only = argv == ["--k1-guard"] or ab is not None
@@ -4245,14 +4494,20 @@ def main(argv):
 
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        so, so_flow = pool.map(build.build, ("gate_score", "graph_flow"))
-    print(f"build: gate_score.cu and graph_flow.cu in "
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        so, so_flow, so_enum = pool.map(
+            build.build, ("gate_score", "graph_flow", "enum_small"))
+    print(f"build: gate_score.cu, graph_flow.cu and enum_small.cu in "
           f"{time.perf_counter() - t0:.2f} s (0 if already built) -> "
-          f"{so.name}, {so_flow.name}")
-    print(so.with_suffix(".log").read_text().strip())
-    print(so_flow.with_suffix(".log").read_text().strip())
+          f"{so.name}, {so_flow.name}, {so_enum.name}")
+    for lib in (so, so_flow, so_enum):
+        print(lib.with_suffix(".log").read_text().strip())
     install_graph_notes()
+    if argv == ["--enum"]:
+        enum_phase(card)
+        print(f"chip_smoke --enum: {time.perf_counter() - t_start:.1f} s "
+              f"in all")
+        return 0
     from pymht_tpu_torch.ops import gate_kernel as gk
     sms, per_sm = gk.occupancy()
     print(f"K1 occupancy: {per_sm} blocks of 256 threads per SM on {sms} "
@@ -4302,6 +4557,7 @@ def main(argv):
               f"in all")
         return 0
 
+    enum = enum_phase(card)
     res = slice_phase()
     graph = graph_phase(res, card)
     ais = ais_phase()
@@ -4360,7 +4616,7 @@ def main(argv):
     print(json.dumps(kernels_line(k1, k1p, k1h, res, ais, stream, deg, roof,
                                   ipm, pure, ckpt, gaps, mc, mcb, mca, mcp,
                                   mci, s1, s2, swarm, scripts, graph,
-                                  graph_cfg)))
+                                  graph_cfg, enum)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -34,7 +34,10 @@ the pre-gate, or for a batch) its per-target entry point, whose tile
 plan ``card_plan`` is computed before the capture so that the capture
 asks the runtime nothing: ``gate_kernel.launches`` and
 ``launches_pregate`` are counted per replay from what the capture
-launched, so a count per scan stays true.
+launched, so a count per scan stays true.  Select's tier-2 kernel
+(``ops/enum_kernel``) is loaded before the capture; it counts its own
+launches on the device (``utils/timing``'s ``enum_calls``), so a replay
+that takes select's fast path counts none.
 
 With tracing on (``utils/timing``) a graph is captured with the step's
 phase stamps among its nodes, under a key of its own, and each replay
@@ -52,6 +55,7 @@ import torch
 
 from .. import sync
 from ..kernels import graph_flow
+from ..ops import enum_kernel as ek
 from ..ops import gate_kernel as gk
 from ..utils import timing
 from .grow import AisBatch, Scan, empty_ais
@@ -132,6 +136,7 @@ class StepGraph:
             gk.card_plan(dev.index, nb * T, L, Km)
         elif lead:
             gk.card_plan(dev.index, nb, T * L, M)
+        ek.prepare(dev)
         self.graph = torch.cuda.CUDAGraph()
         self.stamped = timing.tracing()
         timing.ready(dev)

@@ -9,7 +9,8 @@ Pick one leaf per target minimising total score subject to single-use
   are the global optimum; no solver runs;
 * tier 1 — singleton clusters take their argmin leaf;
 * tier 2 — clusters of 2..4 targets are solved exactly by batched
-  enumeration over each member's top-C leaves;
+  enumeration over each member's top-C leaves (on the card by one
+  hand-written kernel, ``ops/enum_kernel``);
 * tier 3 — larger clusters run the compact contested-slot Lagrangian,
   warm-started from the duals carried across scans;
 * the exact finish — where the tiers leave their certificate open (tier
@@ -41,6 +42,7 @@ import torch
 
 from .. import sync
 from ..batch import lead_index
+from ..ops import enum_kernel
 from ..ops import lp as lp_ops
 from ..sync import pmax, pmin, psum
 from ..utils import timing
@@ -401,11 +403,45 @@ def _enum_buckets(bf, bs, n_slots):
     return total.argmin(dim=-1), total.amin(dim=-1)
 
 
+def _enum_planes(cand_f, cand_idx, slots_flat, members, n_slots):
+    """The plain path of tier 2 (the CPU's, and the reference of the
+    card's kernel ``ops/enum_kernel.enum_small``, which takes the same
+    arguments): each bucket's members' candidates gathered (a pad row T
+    scoring 0 on no slot), then ``_enum_buckets`` over chunks of buckets.
+    cand_f [..., T, C], cand_idx [..., T, C], slots_flat [..., T, L, W2],
+    members [..., B, K] -> (best combo index [..., B], value [..., B])."""
+    *lead, T, C = cand_f.shape
+    lead = tuple(lead)
+    W2 = slots_flat.shape[-1]
+    B = members.shape[-2]
+    bi2 = lead_index(lead, cand_f.device, extra=2)
+    cand_slots = torch.gather(
+        slots_flat, -2, cand_idx[..., None].expand(*lead, T, C, W2))
+    cand_f = torch.cat([cand_f, cand_f.new_zeros((*lead, 1, C))], -2)
+    cand_slots = torch.cat(
+        [cand_slots, cand_slots.new_full((*lead, 1, C, W2), n_slots)], -3)
+    bf = cand_f[(*bi2, members)]                                      # [B,K,C]
+    bs = cand_slots[(*bi2, members)]                               # [B,K,C,W2]
+
+    # Chunk buckets so the [b, C^K] tensor stays <= B_CHUNK * C^K floats
+    # (over all scenarios).
+    chunk = max(256 // math.prod(lead), 1)
+    parts = [_enum_buckets(bf[..., i:i + chunk, :, :],
+                           bs[..., i:i + chunk, :, :, :], n_slots)
+             for i in range(0, B, chunk)]
+    return (torch.cat([p[0] for p in parts], -1),
+            torch.cat([p[1] for p in parts], -1))
+
+
 def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
                          labels, small, C: int = C_ENUM):
     """Exact batched solve of all clusters with 2..K_ENUM members over
     each member's top-C leaves.  Returns (sel_enum [T], obj_small [],
-    bound_small []), the bound sound under candidate truncation."""
+    bound_small []), the bound sound under candidate truncation.  The
+    buckets are solved by the card's kernel (``ops/enum_kernel``) for
+    CUDA tensors, else by the planes of ``_enum_planes``; either adds the
+    non-empty buckets to the counter ``enum_buckets`` and 1 to
+    ``enum_calls``."""
     *lead, T, L, W2 = slots_flat.shape
     lead = tuple(lead)
     C = min(C, L)
@@ -432,22 +468,15 @@ def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
 
     cand_idx, excl_lb = _candidate_sets(state, f, C)
     cand_f = torch.gather(f, -1, cand_idx)                            # [T,C]
-    cand_slots = torch.gather(
-        slots_flat, -2, cand_idx[..., None].expand(*lead, T, C, W2))
-    cand_f = torch.cat([cand_f, cand_f.new_zeros((*lead, 1, C))], -2)
-    cand_slots = torch.cat(
-        [cand_slots, cand_slots.new_full((*lead, 1, C, W2), n_slots)], -3)
-    bf = cand_f[(*bi2, members)]                                      # [B,K,C]
-    bs = cand_slots[(*bi2, members)]                               # [B,K,C,W2]
-
-    # Chunk buckets so the [b, C^K] tensor stays <= B_CHUNK * C^K floats
-    # (over all scenarios).
-    chunk = max(256 // math.prod(lead), 1)
-    parts = [_enum_buckets(bf[..., i:i + chunk, :, :],
-                           bs[..., i:i + chunk, :, :, :], n_slots)
-             for i in range(0, B, chunk)]
-    best = torch.cat([p[0] for p in parts], -1)
-    best_val = torch.cat([p[1] for p in parts], -1)
+    if dev.type == 'cuda':
+        best, best_val = enum_kernel.enum_small(cand_f, cand_idx, slots_flat,
+                                                members, n_slots)
+    else:
+        best, best_val = _enum_planes(cand_f, cand_idx, slots_flat, members,
+                                      n_slots)
+        timing.count(('enum_buckets', 'enum_calls'),
+                     (members[..., 0] < T,
+                      torch.ones((), dtype=torch.bool, device=dev)))
     c_of = torch.stack([best // C ** 3, (best // C ** 2) % C,
                         (best // C) % C, best % C], dim=-1)           # [B,K]
     chosen = c_of[(*bi1, bucket_of.clamp(0, B - 1), rank.clamp(0, K - 1))]
@@ -455,8 +484,7 @@ def _enum_small_clusters(state: TrackerState, f, slots_flat, n_slots: int,
     finite = torch.isfinite(best_val)
     obj_small = torch.where(finite, best_val, 0.0).sum(dim=-1)
 
-    min_incl = torch.cat([cand_f[..., :T, :].amin(dim=-1),
-                          f.new_zeros((*lead, 1))], -1)
+    min_incl = torch.cat([cand_f.amin(dim=-1), f.new_zeros((*lead, 1))], -1)
     excl_pad = torch.cat([excl_lb, excl_lb.new_full((*lead, 1), INF)], -1)
     b_min, b_excl = min_incl[(*bi2, members)], excl_pad[(*bi2, members)]
     indep = b_min.sum(dim=-1)

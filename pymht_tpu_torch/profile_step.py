@@ -50,8 +50,9 @@ one captured CUDA graph per scan (core/graph.py) under ``'lagrangian'``,
   ``'ipm'``) the bodies per scan and the device time per body (the
   kernels launched inside the body's span, nested loops included);
 * the program's counters per scan (``timing.COUNTERS``: selections that
-  reached tier 3, exact finishes entered, their iterations, and those
-  whose certificate stayed open);
+  reached tier 3, exact finishes entered, their iterations, those whose
+  certificate stayed open, the small clusters tier 2 solved and tier
+  2's solves, one launch each on the card);
 * a ``torch.profiler`` trace of the whole steps: device time by kernel,
   device busy time per scan and the device's idle share of the window.
   For the graphed step it also reports the device time of one replay

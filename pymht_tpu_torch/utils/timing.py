@@ -60,10 +60,13 @@ RUNTIME_OF = dict(grow='Process', select='Optim', prune='N-Prune',
                   initiate='Init')
 N_STAMPS = len(STEP_PHASES) + 1
 # the program's counters (``count``): selections that reached tier 3's
-# Lagrangian, exact finishes entered, the finish's loop iterations, and
-# selections whose certificate is still open after it (core/select.py)
+# Lagrangian, exact finishes entered, the finish's loop iterations,
+# selections whose certificate is still open after it, the small
+# clusters tier 2 solved (its non-empty buckets) and tier 2's solves (one
+# a selection that reaches it; on the card the kernel adds both itself,
+# one launch a solve, ops/enum_kernel.py) (core/select.py)
 COUNTERS = ('select_tier3', 'finish_entered', 'finish_iters',
-            'finish_open')
+            'finish_open', 'enum_buckets', 'enum_calls')
 SPANS = 1 << 16          # host spans kept, the newest
 ROWS = 1 << 13           # steps whose stamps are kept, the newest
 
@@ -447,6 +450,8 @@ _COUNTS = {}             # device -> int64 [len(COUNTERS)]; the CPU's made
 def _counter_buf(device):
     import torch
     device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
     buf = _COUNTS.get(device)
     if buf is None:
         if device.type == 'cuda' and torch.cuda.is_current_stream_capturing():
@@ -478,11 +483,14 @@ def count(names, values):
     buf[i:i + len(names)] += inc[0] if len(inc) == 1 else torch.cat(inc)
 
 
-def counters() -> dict:
-    """{name: count} of ``COUNTERS`` over every device, since import (a
-    copy of each device's counters to the host, waiting for it)."""
+def counters(device=None) -> dict:
+    """{name: count} of ``COUNTERS`` over every device (or ``device``
+    alone), since import (a copy of each device's counters to the host,
+    waiting for it)."""
     out = dict.fromkeys(COUNTERS, 0)
-    for buf in list(_COUNTS.values()):
+    bufs = (list(_COUNTS.values()) if device is None
+            else [_counter_buf(device)])
+    for buf in bufs:
         for k, v in zip(COUNTERS, buf.cpu().tolist()):
             out[k] += int(v)
     return out

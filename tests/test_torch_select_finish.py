@@ -145,7 +145,10 @@ def test_closed_certificate_skips_the_finish():
     assert torch.equal(res.sel, hyb.sel)
     assert float(res.obj) == float(hyb.obj)
     assert float(res.bound) == float(hyb.bound)
-    assert n == dict.fromkeys(timing.COUNTERS, 0)
+    # no finish; the forest's one cluster of two is tier 2's one bucket,
+    # in tier 2's one solve
+    assert n == dict(dict.fromkeys(timing.COUNTERS, 0), enum_buckets=1,
+                     enum_calls=1)
     certified(res, st, shapes, params)
 
 

@@ -342,6 +342,12 @@ def finish_forests():
                                                 dict(enum_cands=2))
 
 
+# the closed forest's counts: no finish, and its one cluster of two
+# targets is tier 2's one non-empty bucket, in tier 2's one solve
+CLOSED_COUNTS = dict(dict.fromkeys(timing.COUNTERS, 0), enum_buckets=1,
+                     enum_calls=1)
+
+
 def _select_counts(st, shapes, params, kw):
     c0 = timing.counters()
     res = tsel.select(st, shapes, params, method="lagrangian", **kw)
@@ -350,8 +356,10 @@ def _select_counts(st, shapes, params, kw):
 
 
 def test_finish_counters(finish_forests, monkeypatch):
-    """The four counters count on forests that need the finish and read
-    zero on one that does not; a finish out of budget counts as open."""
+    """The finish's four counters count on forests that need the finish
+    and read zero on one that does not (where ``enum_buckets`` and
+    ``enum_calls`` count its one small cluster and tier 2's one solve); a
+    finish out of budget counts as open."""
     (dense, *rest_d), closed, trunc = finish_forests
     _, n = _select_counts(dense, *rest_d)
     assert n["select_tier3"] == n["finish_entered"] == 1
@@ -360,7 +368,7 @@ def test_finish_counters(finish_forests, monkeypatch):
     assert n["select_tier3"] == 0 and n["finish_entered"] == 1
     assert n["finish_iters"] >= 1 and n["finish_open"] == 0
     _, n = _select_counts(*closed)
-    assert n == dict.fromkeys(timing.COUNTERS, 0)
+    assert n == CLOSED_COUNTS
     monkeypatch.setattr(tsel, "FINISH_ITERS", 0)
     res, n = _select_counts(*trunc)
     assert n["finish_entered"] == n["finish_open"] == 1
@@ -384,8 +392,7 @@ def test_finish_spans_and_summary(finish_forests, tracer):
     _select_counts(*closed)
     names = list(timing.read()["spans"]["name"])
     assert "finish.search" not in names
-    assert timing.summary(timing.read())["counters"] \
-        == dict.fromkeys(timing.COUNTERS, 0)
+    assert timing.summary(timing.read())["counters"] == CLOSED_COUNTS
 
 
 @pytest.mark.cuda
@@ -420,7 +427,7 @@ def test_card_finish_node_runs(card, finish_forests):
     assert abs(float(res.obj) - 4.0) < 1e-4
     _, runs, n = replayed(*closed)
     assert runs.get("finish.search", 0) == 0
-    assert n == dict.fromkeys(timing.COUNTERS, 0)
+    assert n == CLOSED_COUNTS
 
 
 # -- on the card ------------------------------------------------------------
